@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -28,7 +28,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false", "-shared",
                            "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
-_libs: Dict[Tuple[str, ...], ctypes.CDLL] = {}
+_propose_lib: Optional[ctypes.CDLL] = None
 # seconds spent compiling, per source (0.0 when the library was cached)
 build_seconds: Dict[str, float] = {}
 
@@ -45,28 +45,25 @@ def nvcc_path() -> str:
                        "with the CUDA toolkit (set CUDA_HOME)")
 
 
-def _lib_path(name: str, extra_flags: Tuple[str, ...] = ()) -> str:
+def _lib_path(name: str) -> str:
     src = os.path.join(CSRC, name + ".cu")
-    flags = " ".join(NVCC_FLAGS + list(extra_flags))
     with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + flags.encode())
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name,
                                                     digest.hexdigest()[:12]))
 
 
-def build(name: str, extra_flags: Tuple[str, ...] = ()) -> str:
-    """Compile csrc/<name>.cu (with extra nvcc flags, e.g. -D switches) if
-    that library is not built yet; returns the library path.  The output
-    is written under a temporary name and renamed, so concurrent builders
-    never load a half-written file."""
-    out = _lib_path(name, extra_flags)
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu if that library is not built yet; returns
+    the library path.  The output is written under a temporary name and
+    renamed, so concurrent builders never load a half-written file."""
+    out = _lib_path(name)
     if os.path.exists(out):
-        if not extra_flags:
-            build_seconds.setdefault(name, 0.0)
+        build_seconds.setdefault(name, 0.0)
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (out, os.getpid())
-    cmd = ([nvcc_path()] + NVCC_FLAGS + list(extra_flags)
+    cmd = ([nvcc_path()] + NVCC_FLAGS
            + ["-o", tmp, os.path.join(CSRC, name + ".cu")])
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -74,34 +71,20 @@ def build(name: str, extra_flags: Tuple[str, ...] = ()) -> str:
         raise RuntimeError("nvcc failed for %s:\n%s\n%s"
                            % (name, res.stdout, res.stderr))
     os.replace(tmp, out)
-    if not extra_flags:
-        build_seconds[name] = time.perf_counter() - t0
+    build_seconds[name] = time.perf_counter() - t0
     return out
 
 
-def build_all(names: List[str]) -> Dict[str, str]:
-    """Build several kernels in parallel (one nvcc each, all started
-    together); returns name -> library path."""
-    threads = [threading.Thread(target=build, args=(n,)) for n in names]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    return {n: build(n) for n in names}
-
-
-def load_propose(extra_flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The propose kernel's library, built at first use (extra_flags: the
-    measurement-only ablation builds, see csrc/propose.cu)."""
-    key = tuple(extra_flags)
+def load_propose() -> ctypes.CDLL:
+    """The propose kernel's library, built at first use."""
+    global _propose_lib
     with _lock:
-        lib = _libs.get(key)
-        if lib is None:
-            lib = ctypes.CDLL(build("propose", key))
+        if _propose_lib is None:
+            lib = ctypes.CDLL(build("propose"))
             p = ctypes.c_void_p
             lib.propose_launch.argtypes = [p] * 17 + [p]
             lib.propose_launch.restype = ctypes.c_int
             lib.propose_error_string.argtypes = [ctypes.c_int]
             lib.propose_error_string.restype = ctypes.c_char_p
-            _libs[key] = lib
-        return lib
+            _propose_lib = lib
+        return _propose_lib

@@ -79,6 +79,19 @@ def plane_order(cfg, has_bias: bool) -> Tuple[str, ...]:
     return tuple(names)
 
 
+def node_tables(alloc: torch.Tensor, zone: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+    """The bundle's node tables, channel-major so that a warp of the CUDA
+    kernel, whose threads visit consecutive nodes, reads consecutive
+    addresses: allocT [R, N] from allocatable [N, R], and zoneT [Z, N]
+    from the zone one-hot [N, Z] (one all-zero column when there is no
+    zone key)."""
+    if zone.shape[1] == 0:
+        zone = torch.zeros((zone.shape[0], 1), dtype=torch.float32,
+                           device=zone.device)
+    return dict(allocT=alloc.T.contiguous(), zoneT=zone.T.contiguous())
+
+
 def build_bundle(cluster, batch, cfg, static_ok, ports_ok0, score_pre,
                  score_bias, gumbel) -> Dict[str, torch.Tensor]:
     """The round-invariant inputs of every propose step of one auction.
@@ -104,10 +117,6 @@ def build_bundle(cluster, batch, cfg, static_ok, ports_ok0, score_pre,
     planes["gumbel"] = gumbel
     order = plane_order(cfg, score_bias is not None)
     stack = torch.stack([planes[k].float() for k in order]).contiguous()
-    zone = cluster.zone_hot
-    if zone.shape[1] == 0:
-        zone = torch.zeros((zone.shape[0], 1), dtype=torch.float32,
-                           device=zone.device)
     return dict(
         planes=stack,                                   # [S, B, N] f32
         mask=(static_ok & ports_ok0).contiguous(),      # [B, N] bool
@@ -116,12 +125,8 @@ def build_bundle(cluster, batch, cfg, static_ok, ports_ok0, score_pre,
         breq=batch.req.contiguous(),                    # [B, R] f32
         bnz=batch.nonzero_req.contiguous(),             # [B, 2] f32
         bports=batch.ports_hot.contiguous(),            # [B, P] f32
-        alloc=cluster.allocatable.contiguous(),         # [N, R] f32
-        zone=zone.contiguous(),                         # [N, Z] f32
-        # channel-major copies of the node tables for the CUDA kernel
-        allocT=cluster.allocatable.T.contiguous(),      # [R, N] f32
-        zoneT=zone.T.contiguous(),                      # [Z, N] f32
         layout=layout_for(cfg, score_bias is not None),
+        **node_tables(cluster.allocatable, cluster.zone_hot),  # [R|Z, N]
     )
 
 
@@ -173,7 +178,7 @@ def _feasible(bundle, L: Layout, live, req, ports_used):
     against the round's committed usage, no hostPort conflict."""
     f = bundle["mask"] & live[:, None]
     if L.use_fit:
-        f = f & K.fit_matrix(bundle["alloc"], req, bundle["breq"])
+        f = f & K.fit_matrix(bundle["allocT"].T, req, bundle["breq"])
     if L.use_ports:
         f = f & ~((bundle["bports"] @ ports_used.T) > 0.5)
     return f
@@ -192,13 +197,13 @@ def propose_plain(bundle, live, req, nz, ports_used):
     W, N = bundle["mask"].shape
     f = _feasible(bundle, L, live, req, ports_used)
     act = f.any(dim=1)
-    alloc = bundle["alloc"]
+    alloc = bundle["allocT"].T
     bnz = bundle["bnz"]
     req_cpu = nz[None, :, 0] + bnz[:, 0][:, None]
     req_mem = nz[None, :, 1] + bnz[:, 1][:, None]
     alloc_cpu = alloc[None, :, CH_CPU].expand(W, N)
     alloc_mem = alloc[None, :, CH_MEM].expand(W, N)
-    zone = bundle["zone"]
+    zone = bundle["zoneT"].T
     has_zone = (zone > 0).any(dim=1)
     zero = torch.zeros((W, N), dtype=torch.float32, device=f.device)
     full = torch.full((W, N), K.MAX_NODE_SCORE, dtype=torch.float32,
@@ -313,25 +318,24 @@ def _check(name, x, dtype, shape):
         raise ValueError("propose: %s is not contiguous" % name)
 
 
-def bind_propose(bundle, live, req, nz, ports_used, extra_flags=()):
+def bind_propose(bundle, live, req, nz, ports_used):
     """Check and stage one CUDA launch; returns (launch, (prop, act,
     best)).  ``launch()`` enqueues the kernel on the current stream and
-    counts it; the staged tensors stay alive in its closure.  extra_flags
-    selects a measurement-only ablation build (csrc/propose.cu)."""
+    counts it; the staged tensors stay alive in its closure."""
     from ._build import load_propose
-    lib = load_propose(tuple(extra_flags))
+    lib = load_propose()
     L: Layout = bundle["layout"]
     planes = bundle["planes"]
     S, W, N = planes.shape
-    R = bundle["alloc"].shape[1]
+    R = bundle["breq"].shape[1]
     P = bundle["bports"].shape[1]
-    Z = bundle["zone"].shape[1]
+    Z = bundle["zoneT"].shape[0]
     dev = planes.device
     f32, b8 = torch.float32, torch.bool
     args = [("planes", planes, f32, (S, W, N)),
             ("mask", bundle["mask"], b8, (W, N)),
-            ("alloc", bundle["alloc"], f32, (N, R)),
-            ("zone", bundle["zone"], f32, (N, Z)),
+            ("allocT", bundle["allocT"], f32, (R, N)),
+            ("zoneT", bundle["zoneT"], f32, (Z, N)),
             ("req", req, f32, (N, R)), ("nz", nz, f32, (N, 2)),
             ("ports_used", ports_used, f32, (N, P)),
             ("breq", bundle["breq"], f32, (W, R)),
@@ -344,18 +348,13 @@ def bind_propose(bundle, live, req, nz, ports_used, extra_flags=()):
             raise ValueError("propose: %s is on %s, planes on %s"
                              % (name, x.device, dev))
         _check(name, x, dt, shape)
-    # node tables go in channel-major ([C, N]) so a warp's loads coalesce;
-    # the round-invariant ones are transposed once per auction
-    allocT = bundle.get("allocT")
-    if allocT is None:
-        allocT = bundle["alloc"].T.contiguous()
-    zoneT = bundle.get("zoneT")
-    if zoneT is None:
-        zoneT = bundle["zone"].T.contiguous()
-    ptrs = [planes, bundle["mask"], allocT, zoneT, req.T.contiguous(),
-            nz.T.contiguous(), ports_used.T.contiguous(), bundle["breq"],
-            bundle["bnz"], bundle["bports"], live, bundle["skip"],
-            bundle["ipa_any"]]
+    # node tables go in channel-major ([C, N]) so a warp's loads coalesce:
+    # the round-invariant ones as node_tables built them, the round's
+    # carries transposed here
+    ptrs = [planes, bundle["mask"], bundle["allocT"], bundle["zoneT"],
+            req.T.contiguous(), nz.T.contiguous(),
+            ports_used.T.contiguous(), bundle["breq"], bundle["bnz"],
+            bundle["bports"], live, bundle["skip"], bundle["ipa_any"]]
     prop = torch.empty((W,), dtype=torch.int32, device=dev)
     best = torch.empty((W,), dtype=torch.float32, device=dev)
     act = torch.empty((W,), dtype=torch.bool, device=dev)

@@ -22,7 +22,12 @@ from tests.torch_port_util import (assert_same, build_jax, jax_gumbel,
 
 
 def _port_bundle(jbundle, cfg, has_bias):
-    b = {k: torch.tensor(np.asarray(v)) for k, v in jbundle.items()}
+    """The reference's bundle in the port's layout: node tables
+    channel-major through the port's own node_tables."""
+    b = {k: torch.tensor(np.asarray(v)) for k, v in jbundle.items()
+         if k not in ("alloc", "zone")}
+    b.update(TPK.node_tables(torch.tensor(np.asarray(jbundle["alloc"])),
+                             torch.tensor(np.asarray(jbundle["zone"]))))
     b["layout"] = TPK.layout_for(cfg, has_bias)
     return b
 
@@ -111,8 +116,10 @@ def test_plain_propose_zero_feasible():
     assert not act[::2].any()
 
 
-def synthetic(seed, W, N, with_bias):
-    """A propose input built directly: N and W off every tile boundary."""
+def synthetic(seed, W, N, with_bias, Z=8):
+    """A propose input built directly: N and W off every tile boundary,
+    Z zones (more than 8 takes the CUDA kernel's shared-memory zone
+    sums)."""
     rs = np.random.RandomState(seed)
     cfg = jprog.ProgramConfig()
     order = JPK.plane_order(cfg, with_bias)
@@ -126,7 +133,7 @@ def synthetic(seed, W, N, with_bias):
             planes.append(rs.randint(-2, 3, (W, N)))
         else:
             planes.append(rs.randint(0, 4, (W, N)))
-    R, P, Z = 5, 8, 8
+    R, P = 5, 8
     alloc = np.zeros((N, R), np.float32)
     alloc[:, 0], alloc[:, 1], alloc[:, 3] = 4000, 32768, 110
     alloc[:, 4] = rs.randint(0, 3, N)
@@ -156,11 +163,11 @@ def synthetic(seed, W, N, with_bias):
     return cfg, bundle, rs.rand(W) < 0.9, req, nz, pu
 
 
-@pytest.mark.parametrize("seed,W,N,bias", [
-    (10, 37, 200, False), (11, 130, 333, True), (12, 5, 1000, False),
-    (13, 1, 129, True)])
-def test_plain_propose_synthetic_shapes(seed, W, N, bias):
-    cfg, jb, live, req, nz, pu = synthetic(seed, W, N, bias)
+@pytest.mark.parametrize("seed,W,N,bias,Z", [
+    (10, 37, 200, False, 8), (11, 130, 333, True, 8), (12, 5, 1000, False, 8),
+    (13, 1, 129, True, 8), (14, 20, 300, True, 16)])
+def test_plain_propose_synthetic_shapes(seed, W, N, bias, Z):
+    cfg, jb, live, req, nz, pu = synthetic(seed, W, N, bias, Z)
     _compare(cfg, jb, bias, live, req, nz, pu, f"synthetic {seed}")
 
 
@@ -172,12 +179,17 @@ def test_propose_refuses_unported_scores():
 
 def test_cuda_kernel_matches_plain():
     """On the card: the CUDA kernel equals the plain version bitwise
-    (chip_smoke.py runs the same check at full width)."""
+    (chip_smoke.py runs the same check at full width).  The last case
+    takes the kernel's size-selected branches: 16 zones (shared-memory
+    zone sums) and N > 16384 (feasibility recomputed in the second
+    pass)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU or "
                     "interpret mode (run on the GPU machine)")
-    for seed, W, N, bias in [(10, 37, 200, False), (11, 130, 333, True)]:
-        cfg, jb, live, req, nz, pu = synthetic(seed, W, N, bias)
+    for seed, W, N, bias, Z in [(10, 37, 200, False, 8),
+                                (11, 130, 333, True, 8),
+                                (15, 9, 17000, True, 16)]:
+        cfg, jb, live, req, nz, pu = synthetic(seed, W, N, bias, Z)
         tb = _port_bundle(jb, port_cfg(cfg), bias)
         dev = {k: (v.cuda() if torch.is_tensor(v) else v)
                for k, v in tb.items()}
