@@ -10,10 +10,17 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              package), every GangResult field, under both backends;
   kernel     the CUDA propose kernel equals its plain PyTorch version
              bitwise (prop/act/best) on seeded worlds at the slice's shapes
-             (W=1024 and W=512 rows x N=8192 nodes, with all-infeasible rows
-             and hostPort conflicts), and on worlds that take the kernel's
-             size-selected branches (16 zones; N=20480 > 16384); prints its
-             time, the plain version's time and the bound;
+             (W=1024 rows, and a W=512 window with sentinel rows of a
+             1,024-row bundle, x N=8192 nodes, with all-infeasible rows and
+             hostPort conflicts), under both instantiations (the default
+             plugin family, and a generic layout with a bias plane), and on
+             worlds that take the kernel's size-selected branches (16
+             zones; N=20480 above the shared-memory staging threshold;
+             ragged N) and its exact-division recompute (operands outside
+             the fast division's range); checks the fast division against
+             __fdiv_rn on 2**28 operand pairs; prints its time, the plain
+             version's time, the bound and the share of the bound, and
+             the SM clock and power draw under load;
   slice      SchedulingBasic5000Nodes (scheduler_perf): 5,000 nodes, 5,000
              initial pods (one per node), 1,000 term-free pending pods,
              batch_size 1,000, mode gang, kernel_backend pallas, drained
@@ -45,7 +52,8 @@ kernel launch count is zeroed just before each and read just after it,
 and reported per path.  The slice never launches the kernel (above); in
 the backlog and fill drains every launch's inputs and outputs are
 recorded (the fill's first 16) and, after the drain, the outputs are held
-bitwise against the plain version on the same inputs.
+bitwise against the plain version on the same inputs, and the kernel is
+timed on the widest recorded launch's real inputs.
 
 The second-to-last lines print the card (nvidia-smi's name and power
 limit) and the kernels' JSON line; the last line is the contract's
@@ -173,12 +181,12 @@ def _record_launches(record, limit):
     def clone(x):
         return x.clone() if torch.is_tensor(x) else x
 
-    def recording(bundle, live, req, nz, ports_used):
+    def recording(bundle, rows, live, req, nz, ports_used):
         if limit is not None and len(record) >= limit:
-            return orig(bundle, live, req, nz, ports_used)
-        ins = ({k: clone(v) for k, v in bundle.items()}, clone(live),
-               clone(req), clone(nz), clone(ports_used))
-        out = orig(bundle, live, req, nz, ports_used)
+            return orig(bundle, rows, live, req, nz, ports_used)
+        ins = ({k: clone(v) for k, v in bundle.items()}, clone(rows),
+               clone(live), clone(req), clone(nz), clone(ports_used))
+        out = orig(bundle, rows, live, req, nz, ports_used)
         record.append((ins, tuple(clone(x) for x in out)))
         return out
 
@@ -202,11 +210,23 @@ def check_recorded(record, what) -> dict:
                                  "the plain version (%d rows)"
                                  % (what, i, int((kp != pp).sum())))
         max_err = max(max_err, float((kb - pb).abs().max()))
-    shapes = sorted({(ins[0]["planes"].shape[1], ins[0]["planes"].shape[2],
-                      ins[0]["breq"].shape[1], ins[0]["bports"].shape[1],
-                      ins[0]["zoneT"].shape[0]) for ins, _ in record})
+    shapes = sorted({(ins[1].shape[0], ins[0]["planes"].shape[2],
+                      ins[0]["planes"].shape[1], ins[0]["breq"].shape[1],
+                      ins[0]["bports"].shape[1], ins[0]["n_zones"])
+                     for ins, _ in record})
+    # the kernel timed on one recorded launch's real inputs (the one with
+    # the most live rows)
+    ins = max((ins for ins, _ in record),
+              key=lambda x: int(x[2].sum()) * x[0]["planes"].shape[2])[0:6]
+    real_ms = kernel_ms(ins)[0]
+    real_bound, _ = bound_of(*ins)
     return dict(checked=len(record), max_abs_err=max_err,
-                shapes_WNRPZ=[list(x) for x in shapes])
+                shapes_WNBRPZ=[list(x) for x in shapes],
+                real_launch=dict(W=ins[1].shape[0],
+                                 N=ins[0]["planes"].shape[2],
+                                 live_rows=int(ins[2].sum()), ms=real_ms,
+                                 bound_ms=real_bound,
+                                 share_of_bound=real_bound / real_ms))
 
 
 def tensorize(store, pods):
@@ -279,83 +299,74 @@ def phase_reference() -> dict:
     return out
 
 
-def random_bundle(seed, W, N, device, with_bias=False, Z=8):
-    """A seeded propose input at real widths: integer-valued score planes
-    (many exact ties), a real gumbel plane, sparse hostPorts, Z zones,
-    all-infeasible rows."""
+def random_bundle(seed, W, N, device, with_bias=False, Z=8, B=None,
+                  scores=None, sentinels=0, extreme=False):
+    """The propose arguments (bundle, rows, live, req, nz, ports_used) of
+    a seeded world at real widths (kubetpu_torch/harness/propose_worlds,
+    the builder the port's tests use): a B-row bundle (B = W by default)
+    with 16 port ids, and W window rows of it, ascending as the gang loop
+    takes them, ``sentinels`` of them past B; extreme: division operands
+    outside the kernel's fast division range."""
+    from kubetpu_torch.harness import propose_worlds as PW
+    B = B or W
+    w = PW.world(seed, B, N, with_bias, Z, scores, P=16, extreme=extreme)
+    rows = (None if W == B and not sentinels
+            else PW.window_rows(seed, B, W, sentinels))
+    return PW.propose_args(w, rows, device)
+
+
+def _sectors(flags, first):
+    """32-byte sectors of f32 rows holding at least one element where
+    flags [W, N] is True; row w's element 0 lies ``first[w]`` floats
+    past a 32-byte boundary."""
     import torch
-    from kubetpu_torch.models.programs import ProgramConfig
+    W, N = flags.shape
+    sec = (first[:, None] + torch.arange(N, device=flags.device)) // 8
+    occ = torch.zeros((W, N // 8 + 2), dtype=torch.int32,
+                      device=flags.device)
+    occ.scatter_add_(1, sec, flags.int())
+    return int((occ > 0).sum())
+
+
+def bound_of(bundle, rows, live, req, nz, ports_used):
+    """Least time on the card for one propose step, from this call's
+    inputs and what its data needs.  Bytes: each live window row's mask
+    row and row-vector entries; its plane values only at the nodes where
+    it is feasible (the gumbel plane only where the row's best score
+    ties, the DefaultPodTopologySpread plane not at all on a spread-skip
+    row), counted in the 32-byte sectors that hold them; the node tables
+    and the round's carries once, at the nodes some live row's mask
+    admits; rows, live and the three outputs; all over HBM bandwidth.
+    Operations: 2 per resource channel and port id at each admitted
+    (row, node), ~40 f32 ops of the default family's combine at each
+    feasible one, over the f32 rate.  Sentinel and non-live rows read
+    no bundle row."""
+    import torch
     from kubetpu_torch.ops import propose as PK
-    from kubetpu_torch.utils import prng
-    g = torch.Generator().manual_seed(seed)
-
-    def ri(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=g).float()
-
-    cfg = ProgramConfig()
-    R, P = 5, 16
-    order = PK.plane_order(cfg, with_bias)
-    planes = []
-    for name in order:
-        if name == "gumbel":
-            keys = prng.fold_in(prng.PRNGKey(seed), torch.arange(W))
-            planes.append(prng.gumbel(keys, (N,)))
-        elif name == "raw:NodePreferAvoidPods":
-            planes.append(torch.where(torch.rand(W, N, generator=g) < 0.05,
-                                      0.0, 100.0))
-        elif name == "ipa_raw":
-            planes.append(ri(-3, 4, (W, N)) * (torch.rand(W, 1, generator=g)
-                                               < 0.5))
-        elif name == "bias":
-            planes.append(ri(-2, 3, (W, N)))
-        else:
-            planes.append(ri(0, 4, (W, N)))
-    mask = torch.rand(W, N, generator=g) < 0.9
-    mask[torch.rand(W, generator=g) < 0.05] = False       # all-infeasible rows
-    alloc = torch.zeros(N, R)
-    alloc[:, 0], alloc[:, 1], alloc[:, 2], alloc[:, 3] = 4000., 32768., 0., 110.
-    alloc[:, 4] = ri(0, 3, (N,))
-    req = torch.zeros(N, R)
-    req[:, 0] = ri(0, 40, (N,)) * 100
-    req[:, 1] = ri(0, 120, (N,)) * 256
-    req[:, 3] = ri(0, 111, (N,))
-    nz = torch.stack([req[:, 0], req[:, 1]], dim=1)
-    zone = torch.zeros(N, Z)
-    zidx = torch.randint(0, Z + 1, (N,), generator=g)
-    zone[torch.arange(N)[zidx < Z], zidx[zidx < Z]] = 1.0
-    ports_used = (torch.rand(N, P, generator=g) < 0.05).float()
-    breq = torch.zeros(W, R)
-    breq[:, 0] = ri(0, 20, (W,)) * 100
-    breq[:, 1] = ri(0, 16, (W,)) * 256
-    breq[:, 3] = 1.0
-    breq[:, 4] = ri(0, 2, (W,))
-    bnz = torch.stack([torch.clamp(breq[:, 0], min=100.),
-                       torch.clamp(breq[:, 1], min=200.)], dim=1)
-    bports = (torch.rand(W, P, generator=g) < 0.03).float()
-    bundle = dict(planes=torch.stack(planes), mask=mask,
-                  ipa_any=torch.rand(W, generator=g) < 0.5,
-                  skip=torch.rand(W, generator=g) < 0.1,
-                  breq=breq, bnz=bnz, bports=bports,
-                  layout=PK.layout_for(cfg, with_bias),
-                  **PK.node_tables(alloc, zone))
-    bundle = {k: (v.to(device).contiguous() if torch.is_tensor(v) else v)
-              for k, v in bundle.items()}
-    live = (torch.rand(W, generator=g) < 0.95).to(device)
-    return bundle, live, req.to(device), nz.to(device), ports_used.to(device)
-
-
-def bound_of(bundle, W, N):
-    """Least time on the card for one propose step: every input read once
-    and every output written once over HBM bandwidth, vs an operation
-    count over the f32 rate (~40 f32 ops per (row, node) for the default
-    family's combine, plus 2 per resource channel and port id for the
-    feasibility recheck)."""
-    nbytes = sum(v.numel() * v.element_size() for v in bundle.values()
-                 if hasattr(v, "numel"))
+    L = bundle["layout"]
+    S, B, N = bundle["planes"].shape
     R, P = bundle["breq"].shape[1], bundle["bports"].shape[1]
-    nbytes += N * R * 4 + N * 2 * 4 + N * P * 4 + W * 1   # req, nz, ports, live
-    nbytes += W * (4 + 4 + 1)                              # prop, best, act
-    ops = W * N * (40 + 2 * R + 2 * P)
+    W = rows.shape[0]
+    sub = PK._rows_of(bundle, rows)
+    f = PK._feasible(sub, L, live, req, ports_used)
+    total = PK._combine(sub, L, f, nz)
+    best = torch.where(f, total, torch.full_like(total, PK.NEG)).amax(1)
+    need = {"gumbel": f & (total == best[:, None]),
+            "dps_raw": f & ~sub["skip"][:, None]}
+    rsafe = rows.long().clamp(0, B - 1)
+    p0 = bundle["planes"].data_ptr() // 4
+    plane_bytes = 0
+    for i, name in enumerate(L.planes):
+        first = (p0 + (i * B + rsafe) * N) % 8
+        plane_bytes += 32 * _sectors(need.get(name, f), first)
+    w_live = int(live.sum())
+    admitted = sub["mask"] & live[:, None]
+    n_admitted = int(admitted.any(0).sum())
+    nbytes = plane_bytes + w_live * (N + R * 4 + 2 * 4 + P * 4 + 1 + 1)
+    nbytes += n_admitted * (R * 4 + 4 + R * 4 + 2 * 4 + P * 4)
+    nbytes += W * (8 + 1) + W * (4 + 4 + 1)     # rows, live; outputs
+    ops = (int(admitted.sum()) * (2 * R + 2 * P)
+           + int(f.sum()) * 40)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -380,19 +391,49 @@ def time_ms(fn, reps, rounds=5):
     return statistics.median(times)
 
 
+def kernel_ms(args, reps=20):
+    """The kernel alone (a staged launch, no wrapper checks), warm."""
+    from kubetpu_torch.ops import propose as PK
+    launch, _ = PK.bind_propose(*args)
+    for _ in range(3):
+        launch()
+    return time_ms(launch, reps), launch
+
+
 def phase_kernel() -> dict:
     import torch
+    from kubetpu_torch.harness.propose_worlds import GENERIC_SCORES
     from kubetpu_torch.models.programs import ProgramConfig
     from kubetpu_torch.ops import propose as PK
-    # (seed, W, N, bias plane, zones): the slice's shapes, then the
-    # kernel's size-selected branches (more than 8 zones: shared-memory
-    # zone sums; N > 16384: feasibility recomputed in the second pass)
-    worlds = [(11, 1024, 8192, False, 8), (12, 1024, 8192, True, 8),
-              (13, 512, 8192, False, 8), (14, 512, 8192, True, 8),
-              (15, 1024, 8192, True, 16), (16, 256, 20480, False, 16)]
+    # (seed, W, N, bias plane, zones, B, scores, sentinels, extreme): the
+    # slice's shapes under the default-family specialisation; a W=512
+    # window of a 1,024-row bundle with sentinel rows; the generic layout
+    # walk (Most/LeastAllocated, weights 2 and 3, bias); 16 zones
+    # (shared-memory zone sums); N above the shared-memory staging
+    # threshold (statistics planes read from device memory in both
+    # passes), under both layouts; ragged N (row starts off 16 bytes: bulk
+    # copies over the aligned interior, scalar ends); division operands
+    # outside the fast division's range (recomputed with __fdiv_rn), under
+    # both layouts
+    worlds = [(11, 1024, 8192, False, 8, 1024, None, 0, False),
+              (12, 1024, 8192, True, 8, 1024, None, 0, False),
+              (13, 512, 8192, False, 8, 1024, None, 24, False),
+              (14, 512, 8192, True, 8, 1024, GENERIC_SCORES, 24, False),
+              (15, 1024, 8192, True, 16, 1024, None, 0, False),
+              (16, 256, 20480, False, 16, 256, None, 8, False),
+              (17, 256, 20480, True, 8, 256, GENERIC_SCORES, 0, False),
+              (18, 512, 8189, False, 8, 700, None, 8, False),
+              (19, 300, 4999, True, 8, 300, GENERIC_SCORES, 0, False),
+              (20, 512, 8192, True, 8, 1024, None, 24, True),
+              (24, 512, 8192, False, 8, 512, GENERIC_SCORES, 0, True)]
+    staged_max = PK.staged_max_n(PK.layout_for(ProgramConfig(), False),
+                                 5, 16, 8)
     max_err = 0.0
-    for seed, W, N, bias, Z in worlds:
-        args = random_bundle(seed, W, N, "cuda", with_bias=bias, Z=Z)
+    for seed, W, N, bias, Z, B, scores, sent, extreme in worlds:
+        args = random_bundle(seed, W, N, "cuda", with_bias=bias, Z=Z, B=B,
+                             scores=scores, sentinels=sent, extreme=extreme)
+        if args[0]["layout"].default_family != (scores is None):
+            raise AssertionError("world %d: wrong instantiation" % seed)
         kp, ka, kb = PK.propose_cuda(*args)
         pp, pa, pb = PK.propose_plain(*args)
         torch.cuda.synchronize()
@@ -406,36 +447,51 @@ def phase_kernel() -> dict:
         if not bool((~pa).any()) or not bool(pa.any()):
             raise AssertionError("world %d lacks active or inactive rows"
                                  % seed)
-    # time at the slice's full width (default family, no bias plane):
-    # the kernel alone (staged launch), the whole wrapper (checks,
-    # transposes, launch), and the plain version
+    # the kernel's branch-free division against __fdiv_rn, bit for bit
+    fast_div_pairs = 1 << 28
+    bad = PK.check_fast_div(fast_div_pairs, seed=7)
+    if bad:
+        raise AssertionError("fast division differs from __fdiv_rn on %d "
+                             "of %d pairs" % (bad, fast_div_pairs))
+    if not 8192 < staged_max < 20480:
+        raise AssertionError("staging threshold %d: the worlds above do "
+                             "not take both branches" % staged_max)
+    # time at the slice's full width (default family, no bias plane): the
+    # kernel alone (staged launch), the whole wrapper (checks, launch),
+    # and the plain version; then a W=512 window of a 1,024-row bundle
+    # (the windowed path's shape)
     args = random_bundle(21, 1024, 8192, "cuda")
-    launch, _ = PK.bind_propose(*args)
-    for _ in range(3):
-        launch()
-    ms = time_ms(launch, 20)
+    ms, launch = kernel_ms(args)
     wrapper_ms = time_ms(lambda: PK.propose_cuda(*args), 20)
     plain_ms = time_ms(lambda: PK.propose_plain(*args), 3)
-    bound_ms, bound_by = bound_of(args[0], 1024, 8192)
-    launch_w, _ = PK.bind_propose(*random_bundle(22, 512, 8192, "cuda"))
-    ms_w = time_ms(launch_w, 20)
+    bound_ms, bound_by = bound_of(*args)
+    args_w = random_bundle(22, 512, 8192, "cuda", B=1024)
+    ms_w = kernel_ms(args_w)[0]
+    bound_w, _ = bound_of(*args_w)
+    plain_w = time_ms(lambda: PK.propose_plain(*args_w), 3)
     # the term-free main path's DefaultPodTopologySpread raw is all zero
     # (no controller selectors): time that input too
     b0 = dict(args[0])
     dps = PK.plane_order(ProgramConfig(), False).index("dps_raw")
     b0["planes"] = args[0]["planes"].clone()
     b0["planes"][dps] = 0.0
-    launch0, _ = PK.bind_propose(b0, *args[1:])
-    ms_dps0 = time_ms(launch0, 20)
-    # the SM clock while the kernel runs: queue ~0.5 s of launches, read
-    # nvidia-smi meanwhile, then drain
-    for _ in range(600):
+    ms_dps0 = kernel_ms((b0,) + tuple(args[1:]))[0]
+    # above the staging threshold (N=20,480, statistics planes read twice)
+    ms_big = kernel_ms(random_bundle(23, 256, 20480, "cuda"))[0]
+    # the SM clock and power while the kernel runs: queue ~0.5 s of
+    # launches, read nvidia-smi meanwhile, then drain
+    for _ in range(max(200, int(500 / ms))):
         launch()
     clocks = gpu_query("clocks.sm,clocks.max.sm,power.draw")
     torch.cuda.synchronize()
     return dict(max_abs_err=max_err, ms=ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                ms_w512=ms_w, ms_dps_zero=ms_dps0, worlds=len(worlds),
+                share_of_bound=bound_ms / ms,
+                ms_w512=ms_w, bound_ms_w512=bound_w, plain_ms_w512=plain_w,
+                share_of_bound_w512=bound_w / ms_w,
+                ms_dps_zero=ms_dps0, ms_n20480_unstaged=ms_big,
+                staged_max_n=staged_max, worlds=len(worlds),
+                fast_div_pairs_checked=fast_div_pairs,
                 under_load=clocks)
 
 
@@ -556,7 +612,7 @@ def _profiled_drain(store, pods, backend, batch_size):
                 device_idle_share=(1.0 - busy_ms / 1e3 / wall
                                    if busy_ms > 0 else None),
                 top=[[e.key[:60], e.count, dev_us(e) / 1e3]
-                     for e in rows[:6] if dev_us(e) > 0],
+                     for e in rows[:8] if dev_us(e) > 0],
                 placed=sum(1 for v in placed.values() if v))
 
 
@@ -615,7 +671,10 @@ def main() -> int:
                                + [r["max_abs_err"] for r in recorded]),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None, "matches_plain": True}]})
+            "library_ms": None, "matches_plain": True,
+            "share_of_bound": k["share_of_bound"],
+            "ms_w512": k["ms_w512"], "bound_ms_w512": k["bound_ms_w512"],
+            "fill_real_launch": recorded[1]["real_launch"]}]})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

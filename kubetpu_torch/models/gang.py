@@ -230,11 +230,25 @@ def schedule_gang(cluster, batch, cfg: ProgramConfig, rng,
                     gumbel=gumbel, score_pre=score_pre, bundle=bundle)
 
     def gather_sub(rows):
+        """The window's sub-round inputs.  Both backends gather the small
+        [W, .] batch fields round_tail reads; only the lax round gathers
+        what round_step reads besides (the [W, N] static masks, gumbel
+        rows, score precompute, term rows).  The kernel reads its rows of
+        the whole-batch bundle by index."""
         rsafe = rows.clamp(0, B - 1)
         wvalid = rows < B
 
         def g(x):
             return x[rsafe]
+
+        tail_fields = dict(req=g(batch.req),
+                           nonzero_req=g(batch.nonzero_req),
+                           ports_hot=g(batch.ports_hot),
+                           ports_asnode_hot=g(batch.ports_asnode_hot),
+                           valid=g(batch.valid) & wvalid)
+        if use_pallas:
+            return dict(rows=rows, valid=tail_fields["valid"],
+                        batch=batch._replace(**tail_fields), bundle=bundle)
 
         def g_pre(v):
             if isinstance(v, K.InterpodScorePre):
@@ -244,22 +258,17 @@ def schedule_gang(cluster, batch, cfg: ProgramConfig, rng,
 
         pref = batch.pref
         sub_batch = batch._replace(
-            req=g(batch.req), nonzero_req=g(batch.nonzero_req),
-            ports_hot=g(batch.ports_hot),
-            ports_asnode_hot=g(batch.ports_asnode_hot),
             spread_skip=g(batch.spread_skip),
-            valid=g(batch.valid) & wvalid,
             pref=pref._replace(ns_hot=g(pref.ns_hot),
                                topo_key=g(pref.topo_key),
                                topo_known=g(pref.topo_known),
                                weight=g(pref.weight), valid=g(pref.valid),
-                               self_match=g(pref.self_match)))
+                               self_match=g(pref.self_match)),
+            **tail_fields)
         return dict(rows=rows, valid=sub_batch.valid, batch=sub_batch,
                     static_ok=g(static_ok), ports_ok0=g(ports_ok0),
                     affinity_ok=g(affinity_ok), gumbel=g(gumbel),
-                    score_pre={k: g_pre(v) for k, v in score_pre.items()},
-                    bundle=(PK.gather_bundle(bundle, rows, B)
-                            if use_pallas else None))
+                    score_pre={k: g_pre(v) for k, v in score_pre.items()})
 
     def unassigned_of(sb):
         rsafe = sb["rows"].clamp(0, B - 1)
@@ -288,8 +297,9 @@ def schedule_gang(cluster, batch, cfg: ProgramConfig, rng,
 
     def pallas_round(sb, windowed: bool):
         unassigned = unassigned_of(sb)
-        prop, active, best = PK.propose(sb["bundle"], unassigned, c["req"],
-                                        c["nz"], c["ports_used"])
+        prop, active, best = PK.propose(sb["bundle"], sb["rows"],
+                                        unassigned, c["req"], c["nz"],
+                                        c["ports_used"])
         return round_tail(sb, prop, active, best, unassigned, windowed)
 
     def round_tail(sb, prop, active, best, unassigned, windowed: bool):

@@ -82,8 +82,13 @@ def load_propose() -> ctypes.CDLL:
         if _propose_lib is None:
             lib = ctypes.CDLL(build("propose"))
             p = ctypes.c_void_p
-            lib.propose_launch.argtypes = [p] * 17 + [p]
+            lib.propose_launch.argtypes = [p] * 19
             lib.propose_launch.restype = ctypes.c_int
+            lib.propose_staged_max_n.argtypes = [p]
+            lib.propose_staged_max_n.restype = ctypes.c_int
+            lib.propose_check_fast_div.argtypes = [
+                ctypes.c_longlong, ctypes.c_uint, p, p]
+            lib.propose_check_fast_div.restype = ctypes.c_int
             lib.propose_error_string.argtypes = [ctypes.c_int]
             lib.propose_error_string.restype = ctypes.c_char_p
             _propose_lib = lib

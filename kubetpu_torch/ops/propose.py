@@ -2,13 +2,19 @@
 score combine -> gumbel tie-broken argmax, for W live pods x N nodes.
 
 Replaces the TPU kernel ``kubetpu/ops/pallas_kernels.py:511 propose``
-(body ``_make_kernel``, ``pallas_call`` at :555).  Two implementations
-share one signature:
+(body ``_make_kernel``, ``pallas_call`` at :555).  Both implementations
+take the round-invariant bundle of the whole batch ([S, B, N] planes,
+[B, N] mask, [B, .] row vectors) and a ``rows`` vector naming the W
+window rows of this step, and share one signature:
 
-* ``propose_plain`` — plain PyTorch over whole [W, N] tensors; the CPU
-  path, and the yardstick the CUDA kernel is held against on the card;
+* ``propose_plain`` — plain PyTorch over whole [W, N] tensors (it gathers
+  the rows); the CPU path, and the yardstick the CUDA kernel is held
+  against on the card;
 * the CUDA kernel in ``csrc/propose.cu`` (built by ``_build.py``) — one
-  thread block per pod row, two strided passes over the nodes.
+  thread block per window row, which reads its bundle row by index,
+  stages the row's statistics planes in shared memory with bulk
+  asynchronous copies, and makes one feasibility pass, one statistics
+  pass and one combine-and-select pass over the nodes.
 
 ``propose`` dispatches on the device of its inputs: CPU tensors take the
 plain version, CUDA tensors launch the kernel (or raise).  There is no
@@ -31,6 +37,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from . import kernels as K
+from ..models.programs import DEFAULT_SCORE_PLUGINS
 from ..state.tensors import CH_CPU, CH_MEM
 
 NEG = float(-2 ** 62)
@@ -62,6 +69,9 @@ SCORE_CODES = {
 }
 SUPPORTED_SCORES = frozenset(SCORE_CODES)
 MAX_SCORES = 16  # descriptor capacity (csrc/propose.cu PROPOSE_MAX_SCORES)
+# models/programs.py DEFAULT_SCORE_PLUGINS as layout_for records it: the
+# kernel's FAMILY_DEFAULT specialisation bakes in this order and weights
+DEFAULT_FAMILY = tuple((n, float(w)) for n, w in DEFAULT_SCORE_PLUGINS)
 
 
 def plane_order(cfg, has_bias: bool) -> Tuple[str, ...]:
@@ -80,22 +90,35 @@ def plane_order(cfg, has_bias: bool) -> Tuple[str, ...]:
 
 
 def node_tables(alloc: torch.Tensor, zone: torch.Tensor
-                ) -> Dict[str, torch.Tensor]:
-    """The bundle's node tables, channel-major so that a warp of the CUDA
-    kernel, whose threads visit consecutive nodes, reads consecutive
-    addresses: allocT [R, N] from allocatable [N, R], and zoneT [Z, N]
-    from the zone one-hot [N, Z] (one all-zero column when there is no
-    zone key)."""
-    if zone.shape[1] == 0:
-        zone = torch.zeros((zone.shape[0], 1), dtype=torch.float32,
-                           device=zone.device)
-    return dict(allocT=alloc.T.contiguous(), zoneT=zone.T.contiguous())
+                ) -> Dict[str, object]:
+    """The bundle's node tables: allocT [R, N], allocatable channel-major
+    so that a warp of the CUDA kernel, whose threads visit consecutive
+    nodes, reads consecutive addresses; zid [N] int32, each node's zone
+    (-1: none) from the zone one-hot [N, Z], which has at most one 1 per
+    node (state/tensors.py); and n_zones, Z (1 when there is no zone key,
+    as the JAX package's one all-zero column)."""
+    has = (zone > 0).any(dim=1) if zone.shape[1] else torch.zeros(
+        (zone.shape[0],), dtype=torch.bool, device=zone.device)
+    first = (zone.argmax(dim=1) if zone.shape[1]
+             else torch.zeros((zone.shape[0],), dtype=torch.int64,
+                              device=zone.device))
+    zid = torch.where(has, first, torch.full_like(first, -1))
+    return dict(allocT=alloc.T.contiguous(),
+                zid=zid.to(torch.int32).contiguous(),
+                n_zones=max(int(zone.shape[1]), 1))
+
+
+def zone_onehot(zid: torch.Tensor, n_zones: int) -> torch.Tensor:
+    """[N, Z] f32 one-hot of node_tables' zone ids (zone_hot again)."""
+    z = torch.arange(n_zones, dtype=zid.dtype, device=zid.device)
+    return (zid[:, None] == z[None, :]).float()
 
 
 def build_bundle(cluster, batch, cfg, static_ok, ports_ok0, score_pre,
-                 score_bias, gumbel) -> Dict[str, torch.Tensor]:
-    """The round-invariant inputs of every propose step of one auction.
-    All [B, N] planes here are assignment-independent under
+                 score_bias, gumbel) -> Dict[str, object]:
+    """The round-invariant inputs of every propose step of one auction,
+    over the whole batch: a step names its rows of it by index.  All
+    [B, N] planes here are assignment-independent under
     intra_batch_topology=False (the pod axis is frozen during the loop)."""
     B = batch.req.shape[0]
     planes: Dict[str, torch.Tensor] = {}
@@ -126,23 +149,8 @@ def build_bundle(cluster, batch, cfg, static_ok, ports_ok0, score_pre,
         bnz=batch.nonzero_req.contiguous(),             # [B, 2] f32
         bports=batch.ports_hot.contiguous(),            # [B, P] f32
         layout=layout_for(cfg, score_bias is not None),
-        **node_tables(cluster.allocatable, cluster.zone_hot),  # [R|Z, N]
+        **node_tables(cluster.allocatable, cluster.zone_hot),
     )
-
-
-_POD_SIDE = ("planes", "mask", "ipa_any", "skip", "breq", "bnz", "bports")
-
-
-def gather_bundle(bundle, rows: torch.Tensor, B: int):
-    """Row-gather the pod-side bundle tensors for a windowed sub-round.
-    Sentinel rows (>= B) clip to row B-1; the caller's ``live`` vector is
-    False there, so the step proposes the no-op segment for them."""
-    rsafe = rows.long().clamp(0, B - 1)
-    out = dict(bundle)
-    for k in _POD_SIDE:
-        x = bundle[k]
-        out[k] = (x[:, rsafe] if k == "planes" else x[rsafe]).contiguous()
-    return out
 
 
 class Layout(NamedTuple):
@@ -152,6 +160,12 @@ class Layout(NamedTuple):
     planes: Tuple[str, ...]
     use_fit: bool
     use_ports: bool
+
+    @property
+    def default_family(self) -> bool:
+        """The default plugin family, whose combine the CUDA kernel has
+        fixed at compile time (every other layout walks the scores)."""
+        return self.scores == DEFAULT_FAMILY
 
 
 def layout_for(cfg, has_bias: bool) -> Layout:
@@ -173,38 +187,67 @@ def layout_for(cfg, has_bias: bool) -> Layout:
 # plain PyTorch version
 
 
-def _feasible(bundle, L: Layout, live, req, ports_used):
+def _feasible(sub, L: Layout, live, req, ports_used):
     """[W, N] feasibility: static mask, live rows, NodeResourcesFit
     against the round's committed usage, no hostPort conflict."""
-    f = bundle["mask"] & live[:, None]
+    f = sub["mask"] & live[:, None]
     if L.use_fit:
-        f = f & K.fit_matrix(bundle["allocT"].T, req, bundle["breq"])
+        f = f & K.fit_matrix(sub["allocT"].T, req, sub["breq"])
     if L.use_ports:
-        f = f & ~((bundle["bports"] @ ports_used.T) > 0.5)
+        f = f & ~((sub["bports"] @ ports_used.T) > 0.5)
     return f
+
+
+_POD_SIDE = ("mask", "ipa_any", "skip", "breq", "bnz", "bports")
+
+
+def _rows_of(bundle, rows):
+    """The window's pod-side rows of the bundle, gathered (the plain
+    version's stand-in for the kernel's reads by index).  Rows clamp to
+    [0, B) as the JAX package's gather_bundle clamps them; the caller's
+    ``live`` is False for a sentinel row, which proposes the no-op."""
+    B = bundle["mask"].shape[0]
+    rsafe = rows.long().clamp(0, B - 1)
+    sub = dict(bundle)
+    sub["planes"] = bundle["planes"][:, rsafe]
+    for k in _POD_SIDE:
+        sub[k] = bundle[k][rsafe]
+    return sub
 
 
 def _rowmax(f, x, fill):
     return torch.where(f, x, torch.full_like(x, fill)).max(dim=1).values
 
 
-def propose_plain(bundle, live, req, nz, ports_used):
-    """One propose step over whole [W, N] tensors -> (prop [W] i32 in
-    [0, N] with N = no-op, act [W] bool, best [W] f32)."""
+def propose_plain(bundle, rows, live, req, nz, ports_used):
+    """One propose step for the window rows ``rows`` [W] of the bundle,
+    over whole [W, N] tensors -> (prop [W] i32 in [0, N] with N = no-op,
+    act [W] bool, best [W] f32)."""
     L: Layout = bundle["layout"]
+    sub = _rows_of(bundle, rows)
+    f = _feasible(sub, L, live, req, ports_used)
+    total = _combine(sub, L, f, nz)
+    best, _, arg = K.gumbel_tiebreak_argmax(
+        total, f, sub["planes"][L.planes.index("gumbel")], 0, NEG)
+    act = f.any(dim=1)
+    prop = torch.where(act, arg, torch.full_like(arg, f.shape[1]))
+    return prop, act, best
+
+
+def _combine(bundle, L: Layout, f, nz):
+    """[W, N] weighted total of the score plugins plus the bias plane,
+    for the gathered window rows ``bundle`` with feasibility f."""
     planes = bundle["planes"]
     plane = {name: i for i, name in enumerate(L.planes)}
-    W, N = bundle["mask"].shape
-    f = _feasible(bundle, L, live, req, ports_used)
-    act = f.any(dim=1)
+    W, N = f.shape
     alloc = bundle["allocT"].T
     bnz = bundle["bnz"]
     req_cpu = nz[None, :, 0] + bnz[:, 0][:, None]
     req_mem = nz[None, :, 1] + bnz[:, 1][:, None]
     alloc_cpu = alloc[None, :, CH_CPU].expand(W, N)
     alloc_mem = alloc[None, :, CH_MEM].expand(W, N)
-    zone = bundle["zoneT"].T
-    has_zone = (zone > 0).any(dim=1)
+    zone = zone_onehot(bundle["zid"], bundle["n_zones"])
+    has_zone = bundle["zid"] >= 0
     zero = torch.zeros((W, N), dtype=torch.float32, device=f.device)
     full = torch.full((W, N), K.MAX_NODE_SCORE, dtype=torch.float32,
                       device=f.device)
@@ -269,10 +312,7 @@ def propose_plain(bundle, live, req, nz, ports_used):
         total = total + torch.where(f, s, zero) * weight
     if "bias" in plane:
         total = total + planes[plane["bias"]]
-    best, _, arg = K.gumbel_tiebreak_argmax(total, f,
-                                            planes[plane["gumbel"]], 0, NEG)
-    prop = torch.where(act, arg, torch.full_like(arg, N))
-    return prop, act, best
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -289,12 +329,15 @@ class _LayoutC(ctypes.Structure):
                 ("use_ports", ctypes.c_int),
                 ("bias_plane", ctypes.c_int),
                 ("gumbel_plane", ctypes.c_int),
+                ("family", ctypes.c_int),
                 ("W", ctypes.c_int), ("N", ctypes.c_int),
                 ("R", ctypes.c_int), ("P", ctypes.c_int),
-                ("Z", ctypes.c_int), ("S", ctypes.c_int)]
+                ("Z", ctypes.c_int), ("S", ctypes.c_int),
+                ("B", ctypes.c_int)]
 
 
-def _layout_c(L: Layout, W: int, N: int, R: int, P: int, Z: int) -> _LayoutC:
+def _layout_c(L: Layout, W: int, N: int, R: int, P: int, Z: int,
+              B: int) -> _LayoutC:
     c = _LayoutC()
     plane = {name: i for i, name in enumerate(L.planes)}
     c.n_scores = len(L.scores)
@@ -306,8 +349,31 @@ def _layout_c(L: Layout, W: int, N: int, R: int, P: int, Z: int) -> _LayoutC:
     c.use_ports = int(L.use_ports)
     c.bias_plane = plane.get("bias", -1)
     c.gumbel_plane = plane["gumbel"]
-    c.W, c.N, c.R, c.P, c.Z, c.S = W, N, R, P, Z, len(L.planes)
+    c.family = int(L.default_family)
+    c.W, c.N, c.R, c.P, c.Z, c.S, c.B = W, N, R, P, Z, len(L.planes), B
     return c
+
+
+def staged_max_n(L: Layout, R: int, P: int, Z: int) -> int:
+    """The largest N at which the CUDA kernel stages layout L's
+    statistics planes in shared memory (above it, it reads them from
+    device memory in both passes)."""
+    from ._build import load_propose
+    c = _layout_c(L, 0, 0, R, P, Z, 0)
+    return int(load_propose().propose_staged_max_n(ctypes.addressof(c)))
+
+
+def check_fast_div(n: int, seed: int = 0) -> int:
+    """On the card: the kernel's branch-free division against __fdiv_rn
+    on n seeded operand pairs; returns how many differ in any bit (or
+    take the fast path outside its range).  0 is the only right answer."""
+    from ._build import load_propose
+    bad = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    rc = load_propose().propose_check_fast_div(
+        n, seed, bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("fast division check failed to launch: %d" % rc)
+    return int(bad.item())
 
 
 def _check(name, x, dtype, shape):
@@ -318,47 +384,47 @@ def _check(name, x, dtype, shape):
         raise ValueError("propose: %s is not contiguous" % name)
 
 
-def bind_propose(bundle, live, req, nz, ports_used):
+def bind_propose(bundle, rows, live, req, nz, ports_used):
     """Check and stage one CUDA launch; returns (launch, (prop, act,
     best)).  ``launch()`` enqueues the kernel on the current stream and
-    counts it; the staged tensors stay alive in its closure."""
+    counts it; the staged tensors stay alive in its closure.  The kernel
+    reads the bundle's rows ``rows`` itself, and the round's carries as
+    the auction keeps them: no copy is made here."""
     from ._build import load_propose
     lib = load_propose()
     L: Layout = bundle["layout"]
     planes = bundle["planes"]
-    S, W, N = planes.shape
+    S, B, N = planes.shape
+    W = rows.shape[0]
     R = bundle["breq"].shape[1]
     P = bundle["bports"].shape[1]
-    Z = bundle["zoneT"].shape[0]
+    Z = bundle["n_zones"]
     dev = planes.device
     f32, b8 = torch.float32, torch.bool
-    args = [("planes", planes, f32, (S, W, N)),
-            ("mask", bundle["mask"], b8, (W, N)),
+    args = [("planes", planes, f32, (S, B, N)),
+            ("mask", bundle["mask"], b8, (B, N)),
             ("allocT", bundle["allocT"], f32, (R, N)),
-            ("zoneT", bundle["zoneT"], f32, (Z, N)),
+            ("zid", bundle["zid"], torch.int32, (N,)),
             ("req", req, f32, (N, R)), ("nz", nz, f32, (N, 2)),
             ("ports_used", ports_used, f32, (N, P)),
-            ("breq", bundle["breq"], f32, (W, R)),
-            ("bnz", bundle["bnz"], f32, (W, 2)),
-            ("bports", bundle["bports"], f32, (W, P)),
-            ("live", live, b8, (W,)), ("skip", bundle["skip"], b8, (W,)),
-            ("ipa_any", bundle["ipa_any"], b8, (W,))]
+            ("breq", bundle["breq"], f32, (B, R)),
+            ("bnz", bundle["bnz"], f32, (B, 2)),
+            ("bports", bundle["bports"], f32, (B, P)),
+            ("rows", rows, torch.int64, (W,)),
+            ("live", live, b8, (W,)), ("skip", bundle["skip"], b8, (B,)),
+            ("ipa_any", bundle["ipa_any"], b8, (B,))]
     for name, x, dt, shape in args:
         if x.device != dev:
             raise ValueError("propose: %s is on %s, planes on %s"
                              % (name, x.device, dev))
         _check(name, x, dt, shape)
-    # node tables go in channel-major ([C, N]) so a warp's loads coalesce:
-    # the round-invariant ones as node_tables built them, the round's
-    # carries transposed here
-    ptrs = [planes, bundle["mask"], bundle["allocT"], bundle["zoneT"],
-            req.T.contiguous(), nz.T.contiguous(),
-            ports_used.T.contiguous(), bundle["breq"], bundle["bnz"],
-            bundle["bports"], live, bundle["skip"], bundle["ipa_any"]]
+    if B == 0 and W > 0:
+        raise ValueError("propose: rows index an empty bundle")
+    ptrs = [x for _, x, _, _ in args]
     prop = torch.empty((W,), dtype=torch.int32, device=dev)
     best = torch.empty((W,), dtype=torch.float32, device=dev)
     act = torch.empty((W,), dtype=torch.bool, device=dev)
-    layout = _layout_c(L, W, N, R, P, Z)
+    layout = _layout_c(L, W, N, R, P, Z, B)
     stream = torch.cuda.current_stream(dev).cuda_stream
     argv = ([ctypes.addressof(layout)] + [x.data_ptr() for x in ptrs]
             + [prop.data_ptr(), best.data_ptr(), act.data_ptr(), stream])
@@ -374,22 +440,24 @@ def bind_propose(bundle, live, req, nz, ports_used):
     return launch, (prop, act, best)
 
 
-def propose_cuda(bundle, live, req, nz, ports_used):
+def propose_cuda(bundle, rows, live, req, nz, ports_used):
     """Launch the CUDA kernel on the current stream (no sync)."""
-    launch, out = bind_propose(bundle, live, req, nz, ports_used)
+    launch, out = bind_propose(bundle, rows, live, req, nz, ports_used)
     launch()
     return out
 
 
-def propose(bundle, live, req, nz, ports_used):
-    """One fused propose step -> (prop [W] i32, act [W] bool, best [W]
-    f32).  CPU tensors run the plain version; CUDA tensors launch the
-    kernel and count the launch in ``propose.launches``."""
+def propose(bundle, rows, live, req, nz, ports_used):
+    """One fused propose step for the window rows ``rows`` [W] (int64,
+    a sentinel >= B where ``live`` is False) of the round-invariant
+    bundle -> (prop [W] i32, act [W] bool, best [W] f32).  CPU tensors
+    run the plain version; CUDA tensors launch the kernel and count the
+    launch in ``propose.launches``."""
     dev = bundle["planes"].device
     if dev.type == "cpu":
-        return propose_plain(bundle, live, req, nz, ports_used)
+        return propose_plain(bundle, rows, live, req, nz, ports_used)
     if dev.type == "cuda":
-        return propose_cuda(bundle, live, req, nz, ports_used)
+        return propose_cuda(bundle, rows, live, req, nz, ports_used)
     raise ValueError("propose: unsupported device %s" % dev)
 
 

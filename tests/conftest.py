@@ -44,6 +44,8 @@ def pytest_configure(config):
     # runs everything)
     config.addinivalue_line(
         "markers", "slow: excluded from tier-1 (-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")
 
 
 @pytest.fixture(autouse=True)

@@ -46,6 +46,36 @@ def test_gang_matches_reference(seed, n_nodes, n_pods, rw, backend):
     assert got.syncs == int(got.rounds)
 
 
+@pytest.mark.parametrize("seed,n_nodes,n_pods,rw", [(7, 10, 70, 16),
+                                                     (8, 24, 90, 32)])
+def test_gang_windowed_pallas_drain(seed, n_nodes, n_pods, rw):
+    """A windowed world (B > residual_window, so windows carry sentinel
+    rows): the pallas sub-round, which reads the window's rows of the
+    whole-batch bundle by index (device="cpu": the plain version), and
+    the lax sub-round find the JAX package's placements and every
+    GangResult field."""
+    jcl, jb, cfg, _ = build_jax(seed, n_nodes, n_pods)
+    tcl, tb, _ = carry(jcl, jb)
+    rng = jax.random.PRNGKey(seed)
+    B, N = jb.req.shape[0], jcl.allocatable.shape[0]
+    assert B > rw
+    gum = torch.tensor(np.asarray(jax_gumbel(rng, B, N)))
+    want = jgang.schedule_gang(jcl, jb, cfg, rng, intra_batch_topology=False,
+                               residual_window=rw, kernel_backend="pallas")
+    got = {}
+    for backend in ("pallas", "lax"):
+        got[backend] = tgang.schedule_gang(
+            tcl, tb, port_cfg(cfg),
+            torch.tensor(np.asarray(rng).astype(np.int64)),
+            intra_batch_topology=False, residual_window=rw,
+            kernel_backend=backend, gumbel=gum)
+        for f in want._fields:
+            assert_same(getattr(want, f), getattr(got[backend], f),
+                        f"{backend} {f}")
+    assert int(want.rounds) > 1
+    assert torch.equal(got["pallas"].chosen, got["lax"].chosen)
+
+
 def test_gang_own_gumbel_matches_shared_plane():
     """Drawing the plane in the port (no gumbel argument) gives the same
     placements here: a 1-ulp log difference flips a tie only when two

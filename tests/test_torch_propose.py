@@ -2,10 +2,11 @@
 the TPU kernel it replaces, kubetpu.ops.pallas_kernels.propose, run in
 interpret mode on the CPU.  prop/act/best are compared bitwise over
 churned worlds (ports, taints, zones, InterPodAffinity raws, a host bias
-plane, windowed rows with sentinels, zero-feasible pods) and over
-synthetic bundles whose N and W are not multiples of any tile.  The CUDA
-kernel is held against the plain version on the card in the last test,
-which skips here (no CUDA device on the CPU test machine)."""
+plane, windowed rows read by index, out of order and with sentinels,
+zero-feasible pods, a non-default score layout) and over synthetic
+bundles whose N and W are not multiples of any tile.  The CUDA kernel is
+held against the plain version on the card in
+tests/test_torch_propose_cuda.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +16,8 @@ import torch
 from kubetpu.models import programs as jprog
 from kubetpu.ops import kernels as JK
 from kubetpu.ops import pallas_kernels as JPK
+from kubetpu_torch.harness import propose_worlds as PW
+from kubetpu_torch.harness.propose_worlds import GENERIC_SCORES
 from kubetpu_torch.models.programs import ProgramConfig as TConfig
 from kubetpu_torch.ops import propose as TPK
 from tests.torch_port_util import (assert_same, build_jax, jax_gumbel,
@@ -22,8 +25,8 @@ from tests.torch_port_util import (assert_same, build_jax, jax_gumbel,
 
 
 def _port_bundle(jbundle, cfg, has_bias):
-    """The reference's bundle in the port's layout: node tables
-    channel-major through the port's own node_tables."""
+    """The reference's bundle in the port's layout: node tables through
+    the port's own node_tables (allocT channel-major, zone ids)."""
     b = {k: torch.tensor(np.asarray(v)) for k, v in jbundle.items()
          if k not in ("alloc", "zone")}
     b.update(TPK.node_tables(torch.tensor(np.asarray(jbundle["alloc"])),
@@ -66,14 +69,24 @@ def world_bundle(seed, n_nodes, n_pods, with_bias):
     return cfg, jbundle, live, req, nz, ports_used
 
 
-def _compare(cfg, jbundle, has_bias, live, req, nz, ports_used, ctx):
+def _compare(cfg, jbundle, has_bias, live, req, nz, ports_used, ctx,
+             rows=None):
+    """The Pallas kernel (interpret mode) against the port's propose.
+    rows: window rows of the bundle (sentinels >= B allowed); the JAX
+    side takes them as the JAX package's gang loop does, through
+    gather_bundle, the port by index.  live is per window row."""
     N = jbundle["alloc"].shape[0]
-    jp, ja, jbest = JPK.propose(jbundle, cfg, jnp.asarray(live),
+    B = jbundle["mask"].shape[0]
+    if rows is None:
+        rows = np.arange(B, dtype=np.int64)
+    jsub = JPK.gather_bundle(jbundle, jnp.asarray(rows.astype(np.int32)), B)
+    jp, ja, jbest = JPK.propose(jsub, cfg, jnp.asarray(live),
                                 jnp.asarray(req), jnp.asarray(nz),
                                 jnp.asarray(ports_used), n_nodes=N,
                                 interpret=True)
     tb = _port_bundle(jbundle, port_cfg(cfg), has_bias)
-    tp, ta, tbest = TPK.propose(tb, torch.tensor(live), torch.tensor(req),
+    tp, ta, tbest = TPK.propose(tb, torch.tensor(rows, dtype=torch.int64),
+                                torch.tensor(live), torch.tensor(req),
                                 torch.tensor(nz), torch.tensor(ports_used))
     assert_same(jp, tp, ctx + " prop")
     assert_same(ja, ta, ctx + " act")
@@ -92,18 +105,41 @@ def test_plain_propose_matches_pallas(seed, n_nodes, n_pods, bias):
 
 @pytest.mark.parametrize("seed", [4, 5])
 def test_plain_propose_windowed_rows(seed):
-    """A windowed sub-round: pod-side tensors row-gathered, the sentinel
-    row B padding the window (live False there -> the no-op proposal)."""
+    """A windowed sub-round: the port reads the window's rows of the
+    whole-batch bundle by index (out of order, sentinels >= B padding the
+    window with live False there -> the no-op proposal), the JAX package
+    gathers them first."""
     cfg, jb, live, req, nz, pu = world_bundle(seed, 40, 30, seed % 2 == 1)
     B = jb["mask"].shape[0]
-    rows = np.array([1, 3, 4, 8, 9, 17, B, B], np.int32)
-    jsub = JPK.gather_bundle(jb, jnp.asarray(rows), B)
+    rows = np.array([9, 3, B, 17, 1, 8, B + 5, 4, 0, B], np.int64)
     wlive = live[np.clip(rows, 0, B - 1)] & (rows < B)
-    _compare(cfg, jsub, seed % 2 == 1, wlive, req, nz, pu, "window")
-    tsub = TPK.gather_bundle(_port_bundle(jb, port_cfg(cfg), seed % 2 == 1),
-                             torch.tensor(rows), B)
-    for k in ("planes", "mask", "breq", "bports", "skip", "ipa_any"):
-        assert_same(jsub[k], tsub[k], k)
+    act = _compare(cfg, jb, seed % 2 == 1, wlive, req, nz, pu, "window",
+                   rows=rows)
+    assert not act[rows >= B].any() and act.any()
+
+
+@pytest.mark.parametrize("Z", [1, 3, 8, 16])
+def test_node_tables_zone_ids(Z):
+    """node_tables' per-node zone id reproduces the one-hot zone_hot,
+    nodes with no zone included (id -1), and a zone-less cluster (Z=0)
+    becomes one all-zero column as in the JAX package's bundle."""
+    rs = np.random.RandomState(Z)
+    N = 57
+    zone = np.zeros((N, Z), np.float32)
+    zi = rs.randint(0, Z + 1, N)
+    zone[np.arange(N)[zi < Z], zi[zi < Z]] = 1.0
+    t = TPK.node_tables(torch.zeros(N, 5), torch.tensor(zone))
+    assert t["zid"].dtype == torch.int32 and t["n_zones"] == Z
+    assert_same(np.where(zi < Z, zi, -1).astype(np.int32), t["zid"], "zid")
+    assert_same(zone, TPK.zone_onehot(t["zid"], t["n_zones"]), "zone_hot")
+    # a world's zone_hot, built by the JAX package
+    jcl, _, _, _ = build_jax(Z, 30, 4)
+    zh = np.asarray(jcl.zone_hot)
+    t = TPK.node_tables(torch.tensor(np.asarray(jcl.allocatable)),
+                        torch.tensor(zh))
+    assert_same(zh, TPK.zone_onehot(t["zid"], t["n_zones"]), "world")
+    empty = TPK.node_tables(torch.zeros(N, 5), torch.zeros(N, 0))
+    assert empty["n_zones"] == 1 and bool((empty["zid"] == -1).all())
 
 
 def test_plain_propose_zero_feasible():
@@ -116,51 +152,20 @@ def test_plain_propose_zero_feasible():
     assert not act[::2].any()
 
 
-def synthetic(seed, W, N, with_bias, Z=8):
-    """A propose input built directly: N and W off every tile boundary,
-    Z zones (more than 8 takes the CUDA kernel's shared-memory zone
-    sums)."""
-    rs = np.random.RandomState(seed)
-    cfg = jprog.ProgramConfig()
-    order = JPK.plane_order(cfg, with_bias)
-    planes = []
-    for name in order:
-        if name == "gumbel":
-            planes.append(rs.gumbel(size=(W, N)))
-        elif name == "ipa_raw":
-            planes.append(rs.randint(-3, 4, (W, N)) * (rs.rand(W, 1) < 0.5))
-        elif name == "bias":
-            planes.append(rs.randint(-2, 3, (W, N)))
-        else:
-            planes.append(rs.randint(0, 4, (W, N)))
-    R, P = 5, 8
-    alloc = np.zeros((N, R), np.float32)
-    alloc[:, 0], alloc[:, 1], alloc[:, 3] = 4000, 32768, 110
-    alloc[:, 4] = rs.randint(0, 3, N)
-    zone = np.zeros((N, Z), np.float32)
-    zi = rs.randint(0, Z + 1, N)
-    zone[np.arange(N)[zi < Z], zi[zi < Z]] = 1.0
-    breq = np.zeros((W, R), np.float32)
-    breq[:, 0] = rs.randint(0, 20, W) * 100
-    breq[:, 1] = rs.randint(0, 16, W) * 256
-    breq[:, 3] = 1
-    breq[:, 4] = rs.randint(0, 2, W)
-    mask = rs.rand(W, N) < 0.9
-    mask[rs.rand(W) < 0.1] = False
-    bundle = dict(
-        planes=jnp.asarray(np.stack(planes).astype(np.float32)),
-        mask=jnp.asarray(mask), ipa_any=jnp.asarray(rs.rand(W) < 0.5),
-        skip=jnp.asarray(rs.rand(W) < 0.1), breq=jnp.asarray(breq),
-        bnz=jnp.asarray(np.maximum(breq[:, :2], 100.0)),
-        bports=jnp.asarray((rs.rand(W, P) < 0.1).astype(np.float32)),
-        alloc=jnp.asarray(alloc), zone=jnp.asarray(zone))
-    req = np.zeros((N, R), np.float32)
-    req[:, 0] = rs.randint(0, 40, N) * 100
-    req[:, 1] = rs.randint(0, 120, N) * 256
-    req[:, 3] = rs.randint(0, 111, N)
-    nz = req[:, :2].copy()
-    pu = (rs.rand(N, P) < 0.1).astype(np.float32)
-    return cfg, bundle, rs.rand(W) < 0.9, req, nz, pu
+def synthetic(seed, W, N, with_bias, Z=8, scores=None, extreme=False):
+    """A propose input built directly (the port's seeded world builder,
+    handed to the JAX package as its bundle): N and W off every tile
+    boundary, Z zones (more than 8 takes the CUDA kernel's shared-memory
+    zone sums); scores: a layout other than the default family; extreme:
+    division operands outside the CUDA kernel's fast division range."""
+    w = PW.world(seed, W, N, with_bias, Z, scores, extreme=extreme)
+    cfg = (jprog.ProgramConfig(scores=scores) if scores
+           else jprog.ProgramConfig())
+    assert JPK.plane_order(cfg, with_bias) == w["layout"].planes
+    bundle = {k: jnp.asarray(w[k])
+              for k in ("planes", "mask", "ipa_any", "skip", "breq", "bnz",
+                        "bports", "alloc", "zone")}
+    return cfg, bundle, w["live"], w["req"], w["nz"], w["ports_used"]
 
 
 @pytest.mark.parametrize("seed,W,N,bias,Z", [
@@ -171,30 +176,28 @@ def test_plain_propose_synthetic_shapes(seed, W, N, bias, Z):
     _compare(cfg, jb, bias, live, req, nz, pu, f"synthetic {seed}")
 
 
+@pytest.mark.parametrize("seed,scores", [(18, None), (19, GENERIC_SCORES)])
+def test_plain_propose_extreme_divisions(seed, scores):
+    """Huge allocatable cpu and NodeAffinity raws near 2**-50: the
+    divisions the CUDA kernel recomputes with __fdiv_rn, under both of
+    its instantiations."""
+    cfg, jb, live, req, nz, pu = synthetic(seed, 30, 257, True,
+                                           scores=scores, extreme=True)
+    _compare(cfg, jb, True, live, req, nz, pu, f"extreme {seed}")
+
+
 def test_propose_refuses_unported_scores():
     cfg = TConfig(scores=(("RequestedToCapacityRatio", 1),))
     with pytest.raises(NotImplementedError):
         TPK.layout_for(cfg, False)
 
 
-def test_cuda_kernel_matches_plain():
-    """On the card: the CUDA kernel equals the plain version bitwise
-    (chip_smoke.py runs the same check at full width).  The last case
-    takes the kernel's size-selected branches: 16 zones (shared-memory
-    zone sums) and N > 16384 (feasibility recomputed in the second
-    pass)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU or "
-                    "interpret mode (run on the GPU machine)")
-    for seed, W, N, bias, Z in [(10, 37, 200, False, 8),
-                                (11, 130, 333, True, 8),
-                                (15, 9, 17000, True, 16)]:
-        cfg, jb, live, req, nz, pu = synthetic(seed, W, N, bias, Z)
-        tb = _port_bundle(jb, port_cfg(cfg), bias)
-        dev = {k: (v.cuda() if torch.is_tensor(v) else v)
-               for k, v in tb.items()}
-        args = [torch.tensor(x).cuda() for x in (live, req, nz, pu)]
-        k = TPK.propose_cuda(dev, *args)
-        p = TPK.propose_plain(dev, *args)
-        for a, b in zip(k, p):
-            assert torch.equal(a, b)
+@pytest.mark.parametrize("seed", [16, 17])
+def test_plain_propose_generic_layout(seed):
+    """A layout other than the default family (Most/LeastAllocated,
+    weights 2 and 3, a bias plane), with window rows out of order."""
+    cfg, jb, live, req, nz, pu = synthetic(seed, 24, 150, True,
+                                           scores=GENERIC_SCORES)
+    rows = np.array([5, 2, 23, 24, 11, 0, 30], np.int64)
+    wlive = live[np.clip(rows, 0, 23)] & (rows < 24)
+    _compare(cfg, jb, True, wlive, req, nz, pu, "generic", rows=rows)
