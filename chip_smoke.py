@@ -7,7 +7,11 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 
   reference  a small term-free auction on the card equals the same auction
              on the CPU (the plain path the CPU tests tie to the JAX
-             package), every GangResult field, under both backends;
+             package), every GangResult field, under both backends; and
+             the sequential replay on a seeded world with every default
+             family live (kubetpu_torch/harness/seq_worlds.py: 1,000
+             nodes x 512 pods, adaptive sampling, start index 37) equals
+             the CPU's run, every SeqResult field, under a shared plane;
   kernel     the CUDA propose kernel equals its plain PyTorch version
              bitwise (prop/act/best) on seeded worlds at the slice's shapes
              (W=1024 rows, and a W=512 window with sentinel rows of a
@@ -42,18 +46,48 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              last batches find one free slot per node and contend.
              Drained under "pallas" and "lax": every pod placed, four per
              node, identical placements;
+  seq_slice  SchedulingBasic5000Nodes under the default configuration: mode
+             sequential (the replay, models/sequential.py), adaptive
+             sampling (500 of 5,000 nodes per pod), batch 1,000.  Every
+             pod placed, no capacity violated, and the placements and the
+             final start index equal the same drain with device="cpu"
+             (whose time is reported beside the card's);
+  seq_anti   SchedulingPodAntiAffinity5000Nodes (scheduler_perf
+             config/performance-config.yaml:20-26): 5,000 nodes, 1,000
+             init pods bound one per node on every fifth node (a cut: the
+             benchmark schedules them), 1,000 pending pods with required
+             hostname anti-affinity on app-{i % 1000}
+             (kubetpu/harness/perf.py:146-148), init pods alike.  Every
+             pod placed, no two pods of one app on a node, no capacity
+             violated;
+  seq_spread TopologySpreading5000Nodes (:120-125): 5,000 nodes in 8 zones,
+             5,000 init pods bound one per node (a cut, as above), 2,000
+             pending pods with a DoNotSchedule zone constraint, max_skew 2
+             over group: measured (perf.py:169-172).  Every pod placed, the
+             measured group's zone skew at most 2, no capacity violated;
   profile    the slice, backlog and fill (pallas) drains once more under
              torch.profiler: device busy time, the drain's device idle
              share, top kernels (separate runs, so the profiler's overhead
-             stays out of the numbers above).
+             stays out of the numbers above); and the seq_slice drain with
+             the profiler on over a steady window of 128 scan steps: the
+             same numbers for the window, the kernel launches per step and
+             the gemv kernels' share of the device time;
 
-The main path is the pallas drain of each of slice, backlog and fill: the
-kernel launch count is zeroed just before each and read just after it,
-and reported per path.  The slice never launches the kernel (above); in
-the backlog and fill drains every launch's inputs and outputs are
-recorded (the fill's first 16) and, after the drain, the outputs are held
-bitwise against the plain version on the same inputs, and the kernel is
-timed on the widest recorded launch's real inputs.
+Every sequential scan (the reference check's and each seq_* drain's) runs
+under torch.cuda.set_sync_debug_mode("error"): a host sync inside the
+step fails the smoke.  The scans' wall time per step (enqueue, and until
+the device is done) is reported, with the time of one of the step's two
+dense [N, L] matvecs at the drain's own shape.
+
+The main path is the pallas drain of each of slice, backlog and fill, and
+each sequential drain: the kernel launch count is zeroed just before each
+and read just after it, and reported per path.  The slice never launches
+the kernel (above), nor does the sequential replay (no propose step: the
+JAX package's scan reaches no Pallas kernel); in the backlog and fill
+drains every launch's inputs and outputs are recorded (the fill's first
+16) and, after the drain, the outputs are held bitwise against the plain
+version on the same inputs, and the kernel is timed on the widest
+recorded launch's real inputs.
 
 The second-to-last lines print the card (nvidia-smi's name and power
 limit) and the kernels' JSON line; the last line is the contract's
@@ -70,8 +104,10 @@ import sys
 import time
 
 ALL_PHASES = ("reference", "kernel", "slice", "backlog", "fill",
-              "profile")
-MAIN_PATHS = ("slice", "backlog", "fill")
+              "seq_slice", "seq_anti", "seq_spread", "profile")
+MAIN_PATHS = ("slice", "backlog", "fill", "seq_slice", "seq_anti",
+              "seq_spread")
+SEQ_PATHS = ("seq_slice", "seq_anti", "seq_spread")
 FILL_NODES = 5000             # Preemption5000Nodes: 5,000 nodes,
 FILL_PODS = 4 * FILL_NODES    # 20,000 init pods (four 900m pods fill a node)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -138,16 +174,18 @@ def pending_pods(n, prefix, group_labels=10, cpu_milli=100, mem=250 << 20):
 
 def drain(store, pods, backend, batch_size, device, record=None,
           record_limit=None):
-    """Drain ``pods`` through Scheduler.schedule_pending.  record: a
-    list that receives the first ``record_limit`` (default: all) propose
-    launches as (inputs, outputs), cloned, for the check against the
-    plain version."""
+    """Drain ``pods`` through Scheduler.schedule_pending, in gang mode
+    under ``backend``, or, with backend None, under the default
+    configuration (the sequential replay).  record: a list that receives
+    the first ``record_limit`` (default: all) propose launches as
+    (inputs, outputs), cloned, for the check against the plain version."""
     from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
                                            KubeSchedulerProfile)
     from kubetpu_torch.scheduler import Scheduler
     cfg = KubeSchedulerConfiguration(profiles=[KubeSchedulerProfile()],
-                                     batch_size=batch_size, mode="gang",
-                                     kernel_backend=backend)
+                                     batch_size=batch_size)
+    if backend is not None:
+        cfg.mode, cfg.kernel_backend = "gang", backend
     sched = Scheduler(store, config=cfg, device=device)
     for p in pods:
         store.add(p)
@@ -251,6 +289,149 @@ def tensorize(store, pods):
     return host, batch
 
 
+class SeqScans:
+    """Instruments the sequential replay on the card: each scan (the
+    loop over the pod rows, models/sequential._scan) runs under
+    torch.cuda.set_sync_debug_mode("error") and is timed (host enqueue,
+    and until the device is done); the scheduler's calls record the
+    cluster's [N, L] label shape.  Restores everything on exit."""
+
+    def __init__(self):
+        self.scans = self.steps = 0
+        self.enqueue_s = self.done_s = 0.0
+        self.kv_shape = None
+
+    def __enter__(self):
+        import torch
+        import kubetpu_torch.scheduler as SCH
+        from kubetpu_torch.models import sequential as S
+        self._orig = (S._scan, SCH.schedule_sequential)
+        orig_scan, orig_entry = self._orig
+
+        def scan(step, B):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = orig_scan(step, B)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            self.scans += 1
+            self.steps += B
+            self.enqueue_s += t1 - t0
+            self.done_s += time.perf_counter() - t0
+            return out
+
+        def entry(cluster, batch, *args, **kw):
+            self.kv_shape = tuple(cluster.kv.shape)
+            return orig_entry(cluster, batch, *args, **kw)
+
+        S._scan, SCH.schedule_sequential = scan, entry
+        return self
+
+    def __exit__(self, *exc):
+        import kubetpu_torch.scheduler as SCH
+        from kubetpu_torch.models import sequential as S
+        S._scan, SCH.schedule_sequential = self._orig
+
+    def summary(self) -> dict:
+        return dict(scans=self.scans, steps=self.steps,
+                    enqueue_ms_per_step=self.enqueue_s / self.steps * 1e3,
+                    ms_per_step=self.done_s / self.steps * 1e3,
+                    sync_debug="error")
+
+
+def kv_matvec_ms(shape) -> float:
+    """One of the step's two dense matvecs (torch.mv of the [N, L] label
+    one-hot, as f32, with an [L] vector) at ``shape``, on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(0)
+    kv = (torch.rand(shape, device="cuda", generator=g) < 0.001).float()
+    v = torch.rand(shape[1], device="cuda", generator=g)
+    torch.mv(kv, v)
+    return time_ms(lambda: torch.mv(kv, v), 50)
+
+
+def anti_world():
+    """SchedulingPodAntiAffinity5000Nodes (kubetpu/harness/perf.py:146-148
+    builds its pods): 1,000 init pods bound one per node on every fifth
+    node, 1,000 pending; every pod has app-{i % 1000} and required
+    hostname anti-affinity to its own app."""
+    from kubetpu_torch.api import types as api
+    from kubetpu_torch.client.store import ClusterStore
+    from kubetpu_torch.harness import hollow
+    store = ClusterStore()
+    nodes = hollow.make_nodes(5000, zones=8)
+    for n in nodes:
+        store.add(n)
+
+    def pod(prefix, i):
+        app = f"app-{i % 1000}"
+        p = hollow.make_pod(f"{prefix}-{i}", mem=250 << 20,
+                            labels={"app": app, "group": prefix})
+        return hollow.with_anti_affinity(p, api.LABEL_HOSTNAME,
+                                         match={"app": app})
+    for i in range(1000):
+        p = pod("init", i)
+        p.spec.node_name = nodes[5 * i].name
+        store.add(p)
+    return store, [pod("measured", i) for i in range(1000)]
+
+
+def spread_world():
+    """TopologySpreading5000Nodes (perf.py:169-172): 5,000 nodes in 8
+    zones, 5,000 init pods bound one per node, 2,000 pending; every pod
+    has a DoNotSchedule zone constraint, max_skew 2, over its group."""
+    from kubetpu_torch.api import types as api
+    from kubetpu_torch.client.store import ClusterStore
+    from kubetpu_torch.harness import hollow
+    store = ClusterStore()
+    nodes = hollow.make_nodes(5000, zones=8)
+    for n in nodes:
+        store.add(n)
+
+    def pod(prefix, i):
+        p = hollow.make_pod(f"{prefix}-{i}", mem=250 << 20,
+                            labels={"app": f"app-{i % 10}", "group": prefix})
+        return hollow.with_spread(p, api.LABEL_ZONE, max_skew=2,
+                                  when="DoNotSchedule",
+                                  match={"group": prefix})
+    for i in range(5000):
+        p = pod("init", i)
+        p.spec.node_name = nodes[i].name
+        store.add(p)
+    return store, [pod("measured", i) for i in range(2000)]
+
+
+def _seq_drain(what, store, pods, n_expected):
+    """One sequential drain on the card under SeqScans, K1's launches
+    counted; every pod placed and no capacity violated."""
+    from kubetpu_torch.ops import propose as PK
+    from kubetpu_torch.scheduler import capacity_violations
+    PK.propose.launches = 0          # this path starts: zero the count
+    with SeqScans() as scans:
+        sched, placed, seconds = drain(store, pods, None, 1000, "cuda")
+    launches = PK.propose.launches
+    n_placed = sum(1 for v in placed.values() if v)
+    if n_placed != n_expected:
+        raise AssertionError("%s: %d/%d pods placed"
+                             % (what, n_placed, n_expected))
+    bad = capacity_violations(store)
+    if bad:
+        raise AssertionError("%s: capacity violated on %s" % (what, bad[:5]))
+    kv_ms = kv_matvec_ms(scans.kv_shape)
+    scan = scans.summary()
+    return sched, placed, dict(
+        placed=n_placed, cycles=sched.cycle_count, launches=launches,
+        drain_s=seconds, stage_s=sched.stage_s,
+        pods_per_s=n_placed / seconds,
+        next_start=sched._next_start_node_index, scan=scan,
+        kv_shape_NL=list(scans.kv_shape), kv_matvec_ms=kv_ms,
+        kv_matvecs_share_of_step=2 * kv_ms / scan["ms_per_step"])
+
+
 # ---------------------------------------------------------------------------
 # phases
 
@@ -268,7 +449,7 @@ def phase_reference() -> dict:
     rng = prng.PRNGKey(7)
     B = hbatch.valid.shape[0]
     N = host.arrays["allocatable"].shape[0]
-    gumbel = prng.gumbel(prng.fold_in(rng, torch.arange(B)), (N,))
+    gumbel = prng.select_plane(rng, B, N)
     out = {}
     for backend in ("lax", "pallas"):
         for window in (0, 64):
@@ -296,7 +477,57 @@ def phase_reference() -> dict:
             out["%s_w%d_rounds" % (backend, window)] = int(res["cpu"].rounds)
             out["%s_w%d_placed" % (backend, window)] = int(
                 (res["cpu"].chosen >= 0).sum())
+    out["sequential"] = _seq_reference()
     return out
+
+
+def _seq_reference() -> dict:
+    """The sequential replay, card vs CPU, identical SeqResult (shared
+    plane), on a world with every default family live."""
+    import torch
+    from kubetpu_torch.harness import seq_worlds as SW
+    from kubetpu_torch.models import sequential as S
+    from kubetpu_torch.models.batch import batch_to_device
+    from kubetpu_torch.models.programs import ProgramConfig
+    from kubetpu_torch.utils import prng
+    host, hbatch, host_key = SW.port_inputs(31, 1000, 512)
+    cfg = ProgramConfig(hostname_topokey=host_key,
+                        percentage_of_nodes_to_score=0)
+    rng = prng.PRNGKey(13)
+    B = hbatch.valid.shape[0]
+    N = host.arrays["allocatable"].shape[0]
+    gumbel = prng.select_plane(rng, B, N)
+
+    def run(dev):
+        return S.schedule_sequential(host.to_device(dev),
+                                     batch_to_device(hbatch, dev), cfg,
+                                     rng.to(dev), start_index=37,
+                                     gumbel=gumbel.to(dev))
+    t0 = time.perf_counter()
+    cpu = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    with SeqScans() as scans:
+        t0 = time.perf_counter()
+        card = run("cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    for f in cpu._fields:
+        a, c = getattr(cpu, f), getattr(card, f)
+        ok = torch.equal(a, c.cpu())
+        if a.dtype.is_floating_point:
+            ok = ok and bool(torch.isfinite(c).all())
+        if not ok:
+            raise AssertionError("reference: sequential %s differs card vs "
+                                 "CPU" % f)
+    placed = int((cpu.chosen >= 0).sum())
+    n_feas = cpu.n_feasible[cpu.chosen >= 0]
+    if placed < 256 or int(n_feas.max()) >= int(host.arrays[
+            "node_valid"].sum()):
+        raise AssertionError("reference: the sequential world did not "
+                             "place most pods under binding sampling")
+    return dict(B=B, N=N, placed=placed, n_feasible_max=int(n_feas.max()),
+                next_start=int(cpu.next_start), cpu_s=cpu_s, card_s=card_s,
+                scan=scans.summary(), matches_cpu=True)
 
 
 def random_bundle(seed, W, N, device, with_bias=False, Z=8, B=None,
@@ -518,6 +749,68 @@ def phase_slice() -> dict:
                 pods_per_s=n_placed / seconds)
 
 
+def phase_seq_slice() -> dict:
+    """SchedulingBasic5000Nodes under the default configuration, on the
+    card and on the CPU: same placements, same final start index."""
+    sched, placed, out = _seq_drain("seq_slice", hollow_store(5000, 1),
+                                    pending_pods(1000, "measured"), 1000)
+    csched, cplaced, cseconds = drain(hollow_store(5000, 1),
+                                      pending_pods(1000, "measured"), None,
+                                      1000, "cpu")
+    if cplaced != placed:
+        diff = [k for k in placed if placed[k] != cplaced.get(k)]
+        raise AssertionError("seq_slice: %d placements differ card vs CPU"
+                             % len(diff))
+    if csched._next_start_node_index != sched._next_start_node_index:
+        raise AssertionError("seq_slice: start index differs card vs CPU")
+    out.update(cpu_drain_s=cseconds, cpu_stage_s=csched.stage_s,
+               matches_cpu=True)
+    return out
+
+
+def check_anti(store) -> int:
+    """No two pods of one app on a node; returns the apps checked."""
+    nodes_of = {}
+    for p in store.list("Pod"):
+        nodes_of.setdefault(p.metadata.labels["app"], []).append(
+            p.spec.node_name)
+    shared = [a for a, ns in nodes_of.items() if len(set(ns)) != len(ns)]
+    if shared:
+        raise AssertionError("seq_anti: pods of one app share a node (%s)"
+                             % shared[:5])
+    return len(nodes_of)
+
+
+def check_spread(store) -> list:
+    """The measured group's pods per zone, skew at most 2."""
+    from kubetpu_torch.api import types as api
+    zone_of = {n.name: n.metadata.labels[api.LABEL_ZONE]
+               for n in store.list("Node")}
+    counts = {}
+    for p in store.list("Pod"):
+        if p.metadata.labels.get("group") == "measured":
+            z = zone_of[p.spec.node_name]
+            counts[z] = counts.get(z, 0) + 1
+    per_zone = [counts.get(z, 0) for z in sorted(set(zone_of.values()))]
+    if max(per_zone) - min(per_zone) > 2:
+        raise AssertionError("seq_spread: zone skew %s" % per_zone)
+    return per_zone
+
+
+def phase_seq_anti() -> dict:
+    store, pods = anti_world()
+    _, _, out = _seq_drain("seq_anti", store, pods, 1000)
+    out["apps_checked"] = check_anti(store)
+    return out
+
+
+def phase_seq_spread() -> dict:
+    store, pods = spread_world()
+    _, _, out = _seq_drain("seq_spread", store, pods, 2000)
+    out["measured_per_zone"] = check_spread(store)
+    return out
+
+
 def _pallas_vs_lax(what, make_world, batch_size, record_limit=None):
     """Drain one world under "pallas" (counting and recording the
     kernel's launches) and a fresh copy under "lax"; the placements must
@@ -588,6 +881,26 @@ def phase_fill() -> dict:
     return out
 
 
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _device_rows(prof):
+    """Device kernels only, by device time: an operator's row also carries
+    the device time of the kernels it launched, so summing every row
+    counts it twice."""
+    import torch
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=_dev_us, reverse=True)
+
+
+def _top(rows):
+    return [[e.key[:60], e.count, _dev_us(e) / 1e3]
+            for e in rows[:8] if _dev_us(e) > 0]
+
+
 def _profiled_drain(store, pods, backend, batch_size):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -598,21 +911,63 @@ def _profiled_drain(store, pods, backend, batch_size):
         sched, placed, _ = drain(store, pods, backend, batch_size, "cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    # device kernels only: an operator's row also carries the device time
-    # of the kernels it launched, so summing every row counts it twice
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    rows = _device_rows(prof)
+    busy_ms = sum(_dev_us(e) for e in rows) / 1e3
     return dict(wall_s=wall, device_busy_ms=busy_ms,
                 device_idle_share=(1.0 - busy_ms / 1e3 / wall
                                    if busy_ms > 0 else None),
-                top=[[e.key[:60], e.count, dev_us(e) / 1e3]
-                     for e in rows[:8] if dev_us(e) > 0],
+                top=_top(rows),
+                placed=sum(1 for v in placed.values() if v))
+
+
+def _profiled_scan_window(store, pods, first=256, steps=128):
+    """The seq_slice drain with torch.profiler on over a steady window of
+    its scan (steps first .. first+steps-1; the whole scan's ~500k
+    launches would take the profiler minutes to parse): device busy time
+    and idle share of the window, top kernels, kernel launches per step
+    (the host's CUDA launch calls, and the device kernels), the gemv
+    kernels' share of the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kubetpu_torch.models import sequential as S
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+    orig_scan = S._scan
+
+    def scan(step, B):
+        # models/sequential._scan, with the profiler on over the window
+        outs = []
+        for i in range(B):
+            if i == first:
+                torch.cuda.synchronize()
+                prof.start()
+                window["t0"] = time.perf_counter()
+            outs.append(step(i))
+            if i == first + steps - 1:
+                torch.cuda.synchronize()
+                window["wall"] = time.perf_counter() - window["t0"]
+                prof.stop()
+        return [torch.stack(col) for col in zip(*outs)]
+    S._scan = scan
+    try:
+        _, placed, _ = drain(store, pods, None, 1000, "cuda")
+    finally:
+        S._scan = orig_scan
+    rows = _device_rows(prof)
+    busy_ms = sum(_dev_us(e) for e in rows) / 1e3
+    launches = sum(1 for e in prof.events() if "LaunchKernel" in e.name)
+    gemv_ms = sum(_dev_us(e) for e in rows if "gemv" in e.key) / 1e3
+    wall = window["wall"]
+    return dict(window_steps=steps, first_step=first, wall_s=wall,
+                wall_ms_per_step=wall / steps * 1e3,
+                device_busy_ms=busy_ms,
+                device_ms_per_step=busy_ms / steps,
+                device_idle_share=(1.0 - busy_ms / 1e3 / wall
+                                   if busy_ms > 0 else None),
+                top=_top(rows), launches_per_step=launches / steps,
+                device_kernels_per_step=sum(e.count for e in rows) / steps,
+                gemv_device_ms=gemv_ms,
+                gemv_share_of_busy=gemv_ms / busy_ms if busy_ms else None,
                 placed=sum(1 for v in placed.values() if v))
 
 
@@ -622,7 +977,9 @@ def phase_profile() -> dict:
                               pending_pods(1000, "measured"), "pallas",
                               1000),
         backlog=_profiled_drain(*backlog_world(), "pallas", 4096),
-        fill=_profiled_drain(*fill_world(), "pallas", 1000))
+        fill=_profiled_drain(*fill_world(), "pallas", 1000),
+        seq_slice=_profiled_scan_window(hollow_store(5000, 1),
+                                        pending_pods(1000, "measured")))
 
 
 def main() -> int:
@@ -652,8 +1009,9 @@ def main() -> int:
         log({"phase": ph, "card": card, **results[ph]})
     if {"kernel", *MAIN_PATHS} <= set(phases):
         # the pallas drain of each main path, counted on its own
-        by_path = {ph: (results[ph]["launches"] if ph == "slice"
-                        else results[ph]["pallas"]["launches"])
+        by_path = {ph: (results[ph]["pallas"]["launches"]
+                        if ph in ("backlog", "fill")
+                        else results[ph]["launches"])
                    for ph in MAIN_PATHS}
         launches = sum(by_path.values())
         if launches <= 0:

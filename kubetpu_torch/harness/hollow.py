@@ -1,7 +1,8 @@
 """Hollow cluster generation: synthetic node fleets and pod workloads.
 
-A copy of the JAX package's node/pod makers (its open-loop arrival
-streams and restart worlds are not needed by the port).  The analog of
+A copy of the JAX package's node/pod makers and term helpers (its
+open-loop arrival streams and restart worlds are not needed by the
+port).  The analog of
 kubemark's hollow nodes (reference:
 cmd/kubemark/hollow-node.go, pkg/kubemark/hollow_kubelet.go:35) and the
 scheduler_perf node-prepare strategies (reference:
@@ -95,6 +96,31 @@ def with_anti_affinity(pod: api.Pod, topo_key: str = api.LABEL_HOSTNAME,
     if aff.pod_anti_affinity is None:
         aff.pod_anti_affinity = api.PodAntiAffinity()
     aff.pod_anti_affinity.required_during_scheduling_ignored_during_execution \
+        .append(term)
+    pod.spec.affinity = aff
+    return pod
+
+
+def with_spread(pod: api.Pod, topo_key: str, max_skew: int = 1,
+                when: str = "DoNotSchedule",
+                match: Optional[Dict[str, str]] = None) -> api.Pod:
+    pod.spec.topology_spread_constraints.append(api.TopologySpreadConstraint(
+        max_skew=max_skew, topology_key=topo_key, when_unsatisfiable=when,
+        label_selector=api.LabelSelector(match_labels=dict(
+            match or pod.metadata.labels))))
+    return pod
+
+
+def with_affinity(pod: api.Pod, topo_key: str = api.LABEL_ZONE,
+                  match: Optional[Dict[str, str]] = None) -> api.Pod:
+    term = api.PodAffinityTerm(
+        label_selector=api.LabelSelector(match_labels=dict(
+            match or pod.metadata.labels)),
+        topology_key=topo_key)
+    aff = pod.spec.affinity or api.Affinity()
+    if aff.pod_affinity is None:
+        aff.pod_affinity = api.PodAffinity()
+    aff.pod_affinity.required_during_scheduling_ignored_during_execution \
         .append(term)
     pod.spec.affinity = aff
     return pod

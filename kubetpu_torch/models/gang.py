@@ -201,10 +201,7 @@ def schedule_gang(cluster, batch, cfg: ProgramConfig, rng,
         score_pre["default_spread"] = K.default_spread_match_ns(cluster,
                                                                 batch)
     if gumbel is None:
-        tie_keys = prng.fold_in(rng.to(dev),
-                                torch.arange(B, dtype=torch.int64,
-                                             device=dev))
-        gumbel = prng.gumbel(tie_keys, (N,))
+        gumbel = prng.select_plane(rng.to(dev), B, N)
     gumbel = gumbel.to(device=dev, dtype=torch.float32)
     use_pallas = backend == "pallas"
     bundle = (PK.build_bundle(cluster, batch, cfg, static_ok, ports_ok0,

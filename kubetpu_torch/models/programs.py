@@ -55,8 +55,9 @@ class ProgramConfig(NamedTuple):
     # per-plugin static kernel args ((plugin, args-tuple), ...); none of the
     # default family reads any
     plugin_args: Tuple[Tuple[str, Tuple], ...] = ()
-    # kept for field parity with the JAX package; the auction always
-    # searches every node
+    # adaptive node sampling of the sequential replay (reference:
+    # percentageOfNodesToScore, generic_scheduler.go:54-59; 0 = adaptive,
+    # >= 100 = search every node); the auction always searches every node
     percentage_of_nodes_to_score: int = 100
     # topology-key ids that can appear in the batch's term sets; () = all
     # keys (always safe); a non-empty tuple MUST be a superset

@@ -1,7 +1,8 @@
 """Batched Filter/Score kernels for the gang auction, in PyTorch.
 
-The counterpart of kubetpu/ops/kernels.py for the functions a term-free
-gang cycle reaches (reference: pkg/scheduler/framework/plugins/*).  Shape
+The counterpart of kubetpu/ops/kernels.py for the functions the
+sequential replay and the term-free gang cycle reach (reference:
+pkg/scheduler/framework/plugins/*).  Shape
 conventions: B pending pods x N nodes x P existing pods.  Every function
 takes (ClusterTensors, PodBatch) NamedTuples of tensors and runs on
 whichever device those tensors live on.
@@ -120,10 +121,39 @@ def _samepair_nodes(cluster, values_sn, keys_s, active_keys=None):
     return out
 
 
+def pair_scatter(values_sn: torch.Tensor, pair_sn: torch.Tensor,
+                 L: int) -> torch.Tensor:
+    """Sum per-(s, item) values by topology-pair id -> [S, L]; pair id -1
+    entries are dropped.  A scatter-add: exact in any order (the card's
+    atomics) for the integer-valued values every caller passes."""
+    ids = torch.where(pair_sn >= 0, pair_sn.long(),
+                      torch.full_like(pair_sn, L, dtype=torch.long))
+    out = torch.zeros((values_sn.shape[0], L + 1), dtype=torch.float32,
+                      device=values_sn.device)
+    return out.scatter_add_(1, ids, _f(values_sn))[:, :L]
+
+
+def pair_gather(pair_counts_sl: torch.Tensor,
+                pair_sn: torch.Tensor) -> torch.Tensor:
+    """[S, L] pair values gathered back to items via [S, N] pair ids;
+    -1 -> 0."""
+    got = pair_counts_sl.gather(1, pair_sn.long().clamp(min=0))
+    return torch.where(pair_sn >= 0, got, torch.zeros_like(got))
+
+
 def node_topo_pairs(cluster, topo_key_s: torch.Tensor) -> torch.Tensor:
     """Each node's pair id [S, N] for topology-key ids [S] (-1 when the
     node lacks the key)."""
     return cluster.topo_pair.T[topo_key_s.long()]
+
+
+def pod_topo_pairs(cluster, topo_key_s: torch.Tensor) -> torch.Tensor:
+    """Pair ids of each existing pod's node for keys [S] -> [S, P] (-1 for
+    unplaced or invalid pods)."""
+    pod_topo = cluster.topo_pair[cluster.pod_node.long().clamp(min=0)]
+    pairs = pod_topo.T[topo_key_s.long()]
+    placed = (cluster.pod_node >= 0) & cluster.pod_valid
+    return torch.where(placed[None, :], pairs, torch.full_like(pairs, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +251,53 @@ def spread_match_ns(cluster, batch, constraints) -> torch.Tensor:
     m = match_selectors(constraints.sel, cluster.pod_kv, cluster.pod_key)
     ns_ok = (batch.ns_hot @ cluster.pod_ns_hot.T) > 0.5
     return m.reshape(B, C, -1) & ns_ok[:, None, :]
+
+
+class SpreadState(NamedTuple):
+    node_counts: torch.Tensor   # [B, C, N] matching-pod counts per node
+    pair_counts: torch.Tensor   # [B*C, L] counts per registered pair
+    registered: torch.Tensor    # [B*C, L] bool: an eligible node has the pair
+    node_pair: torch.Tensor     # [B*C, N] node's pair id per constraint
+    has_key: torch.Tensor       # [B, C, N] node has the topology key
+    eligible: torch.Tensor      # [B, N] affinity-ok nodes with every key
+    any_eligible: torch.Tensor  # [B]
+
+
+def _spread_state(cluster, batch, constraints, affinity_ok, count_mask_nodes,
+                  match_ns=None) -> SpreadState:
+    """Pair-space state shared by the hard filter and the soft score of
+    the sequential replay.  count_mask_nodes [B, N]: nodes whose pods are
+    counted into pair sums (PreFilter counts every node's pods into
+    registered pairs; PreScore only affinity-matching nodes with all
+    keys)."""
+    B, C = constraints.topo_key.shape
+    N = cluster.allocatable.shape[0]
+    L = cluster.kv.shape[1]
+    if match_ns is None:
+        match_ns = spread_match_ns(cluster, batch, constraints)
+    countable = cluster.pod_valid & ~cluster.pod_terminating
+    m = match_ns & countable[None, None, :]
+    node_counts = per_node_counts(m.reshape(B * C, -1), cluster.pod_node,
+                                  N).reshape(B, C, N)
+    node_pair = node_topo_pairs(cluster, constraints.topo_key.reshape(-1))
+    has_key = ((node_pair >= 0).reshape(B, C, N)
+               & constraints.topo_known.reshape(B, C)[:, :, None])
+    node_pair = torch.where(has_key.reshape(B * C, N), node_pair,
+                            torch.full_like(node_pair, -1))
+    all_keys = (has_key | ~constraints.valid[:, :, None]).all(dim=1)
+    eligible = affinity_ok & cluster.node_valid[None, :] & all_keys
+    any_eligible = eligible.any(dim=1)
+    elig_bc = eligible[:, None, :].expand(B, C, N).reshape(B * C, N)
+    registered = pair_scatter(elig_bc, node_pair, L) > 0.5
+    counted = count_mask_nodes[:, None, :].expand(B, C, N).reshape(B * C, N)
+    pair_counts = pair_scatter(node_counts.reshape(B * C, N) * _f(counted),
+                               node_pair, L)
+    pair_counts = torch.where(registered, pair_counts,
+                              torch.zeros_like(pair_counts))
+    return SpreadState(node_counts=node_counts, pair_counts=pair_counts,
+                       registered=registered, node_pair=node_pair,
+                       has_key=has_key, eligible=eligible,
+                       any_eligible=any_eligible)
 
 
 def spread_filter(cluster, batch, affinity_ok, match_ns=None,

@@ -1,28 +1,31 @@
-"""Scheduler core: queue -> snapshot -> tensorize -> auction -> packed
-readback -> assume + bind, on a CUDA device.
+"""Scheduler core: queue -> snapshot -> tensorize -> device program ->
+packed readback -> assume + bind, on a CUDA device.
 
 reference: pkg/scheduler/scheduler.go (scheduleOne :509, assume :435,
 bind :457, recordSchedulingFailure :391) and eventhandlers.go
 (addAllEventHandlers :362).  Like the JAX package's scheduler, each cycle
-pops a BATCH of pods and places it with one gang auction
-(models/gang.py); unlike it, this is the slim term-free slice:
+pops a BATCH of pods and places it with one device program:
 
   schedule_pending -> pop a batch (PrioritySort order) -> cache snapshot
-  -> fresh tensorize (SnapshotBuilder + PodBatchBuilder) -> run_auction
-  with PRNGKey(cycle counter) -> ONE readback of ``packed`` -> assume +
-  bind through the store; unschedulable pods return to the queue.
+  -> fresh tensorize (SnapshotBuilder + PodBatchBuilder) -> the mode's
+  program with PRNGKey(cycle counter) -> ONE readback of ``packed`` ->
+  assume + bind through the store; failed pods return to the queue after
+  every placement of the cycle has committed.
 
-Supported: ``mode="gang"``, the default plugin family, batches without
-pod (anti-)affinity, spread constraints, controller spread selectors or
-volumes (the scheduler would route those to intra-batch topology or host
-filters; here they raise NotImplementedError).  Deferred, each a ROADMAP
-item: the framework extension points (PreFilter/Reserve/Permit/PreBind/
-PostBind plugins, host filters and scores), volumes, preemption and the
-nominated-pods overlay, extenders, cycle chaining, delta tensorization,
-the pipelined drain, and the JAX runtime's journal/chaos/devstats/AOT
-utilities.  The JAX scheduler's placements do not depend on chaining or
-the delta path (its tests prove both placement-identical to fresh
-builds), so a fresh build per cycle gives the same placements.
+Modes: "sequential" (the default) replays scheduleOne over the batch in
+pod order (models/sequential.py) with the adaptive-sampling start index
+kept across cycles; "gang" runs the conflict-free auction
+(models/gang.py).  Both run the default plugin family.  Gang batches may
+not carry pod (anti-)affinity, spread constraints or a controller spread
+selector (they need intra-batch topology); volumes are refused in both
+modes.  Each refusal raises NotImplementedError.  Deferred, each a
+ROADMAP item: the framework extension points (PreFilter/Reserve/Permit/
+PreBind/PostBind plugins, host filters and scores), volumes, preemption
+and the nominated-pods overlay, extenders, cycle chaining, delta
+tensorization, the pipelined drain, and the JAX runtime's journal/chaos/
+devstats/AOT utilities.  The JAX scheduler's placements do not depend on
+chaining or the delta path (its tests prove both placement-identical to
+fresh builds), so a fresh build per cycle gives the same placements.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from .framework.types import PodInfo, QueuedPodInfo, pod_with_affinity
 from .models import programs
 from .models.batch import PodBatchBuilder, batch_to_device
 from .models.gang import run_auction
+from .models.sequential import schedule_sequential
 from .schedqueue.queue import SchedulingQueue
 from .state.cache import SchedulerCache, Snapshot
 from .state.tensors import SnapshotBuilder
@@ -76,13 +80,18 @@ class Scheduler:
             pod_max_backoff=self.config.pod_max_backoff_seconds)
         self.snapshot = Snapshot()
         self._rng_counter = 0   # PRNGKey(cycle) — the JAX scheduler's seed 0
-        # per-cycle diagnostics (the benchmark surface)
+        # rotating node-search start of the sequential replay (reference:
+        # nextStartNodeIndex, generic_scheduler.go:451); kept across cycles
+        self._next_start_node_index = 0
+        # per-cycle diagnostics (the benchmark surface); the gang lists
+        # stay empty in sequential mode
         self.cycle_count = 0
         self.gang_rounds: List[int] = []
         self.gang_syncs: List[int] = []
         # host wall seconds per cycle stage, summed over cycles: snapshot,
         # tensorize (numpy build), upload (copy to the device), auction
-        # (run_auction through the packed readback), commit (assume + bind)
+        # (the mode's program through the packed readback), commit
+        # (assume + bind, then the failures)
         self.stage_s: Dict[str, float] = dict.fromkeys(
             ("snapshot", "tensorize", "upload", "auction", "commit"), 0.0)
         self._add_all_event_handlers()
@@ -174,10 +183,12 @@ class Scheduler:
 
     def _check_supported(self, qpods: List[QueuedPodInfo],
                          spread_sels) -> None:
+        gang = self.config.mode == "gang"
         for qp, sel in zip(qpods, spread_sels):
             pod = qp.pod
-            if (pod_with_affinity(pod) or pod.spec.topology_spread_constraints
-                    or sel is not None):
+            if gang and (pod_with_affinity(pod)
+                         or pod.spec.topology_spread_constraints
+                         or sel is not None):
                 raise NotImplementedError(
                     "pod %s/%s carries topology terms or a controller "
                     "spread selector; its batch needs intra-batch topology "
@@ -222,31 +233,48 @@ class Scheduler:
         cfg = programs.ProgramConfig(
             filters=programs.DEFAULT_FILTER_PLUGINS,
             scores=programs.DEFAULT_SCORE_PLUGINS,
-            hostname_topokey=max(table.topokey.get(api.LABEL_HOSTNAME), 0))
-
-        res = run_auction(cluster, batch, cfg, self._next_rng(),
-                          intra_batch_topology=False,
-                          kernel_backend=self.config.kernel_backend)
-        packed = res.packed.cpu().numpy()     # the cycle's one readback
-        t = self._stage("auction", t)
+            hostname_topokey=max(table.topokey.get(api.LABEL_HOSTNAME), 0),
+            percentage_of_nodes_to_score=(
+                self.config.percentage_of_nodes_to_score))
 
         B = batch.valid.shape[0]
+        if self.config.mode == "gang":
+            res = run_auction(cluster, batch, cfg, self._next_rng(),
+                              intra_batch_topology=False,
+                              kernel_backend=self.config.kernel_backend)
+            packed = res.packed.cpu().numpy()     # the cycle's one readback
+            self.gang_rounds.append(int(packed[3 * B]))
+            self.gang_syncs.append(res.syncs)
+        else:
+            start = self._next_start_node_index % n_nodes
+            res = schedule_sequential(cluster, batch, cfg, self._next_rng(),
+                                      hard_pod_affinity_weight=1.0,
+                                      start_index=start)
+            packed = res.packed.cpu().numpy()     # the cycle's one readback
+            self._next_start_node_index = int(packed[3 * B])
+        t = self._stage("auction", t)
+
         self.cycle_count += 1
-        self.gang_rounds.append(int(packed[3 * B]))
-        self.gang_syncs.append(res.syncs)
         chosen = packed[:B][:len(qpods)].tolist()
         n_feas = packed[B:2 * B][:len(qpods)].tolist()
         unres = (packed[2 * B:3 * B][:len(qpods)] != 0).tolist()
-        outcomes: List[ScheduleOutcome] = []
+        outcomes: List[Optional[ScheduleOutcome]] = []
+        failed = []
         for i, qp in enumerate(qpods):
             if chosen[i] < 0:
-                outcomes.append(self._fail(
-                    qp, f"0/{n_nodes} nodes are available",
-                    preemption_may_help=not unres[i]))
+                outcomes.append(None)
+                failed.append(i)
                 continue
             outcomes.append(self._commit(qp, pinfos[i],
                                          node_infos[chosen[i]].node_name,
                                          n_feas[i]))
+        # failures requeue after every commit has landed, as the JAX
+        # scheduler defers them: the queue's move-request cycle then
+        # reflects this cycle's binds
+        for i in failed:
+            outcomes[i] = self._fail(
+                qpods[i], f"0/{n_nodes} nodes are available",
+                preemption_may_help=not unres[i])
         self._stage("commit", t)
         return outcomes
 

@@ -21,6 +21,14 @@ rotate is exact on both the CPU and the card.  Keys are int64 tensors of
 shape ``[..., 2]``; a batch of keys draws a batch of rows.  The ``log``
 may differ from XLA's by an ulp (tests/test_torch_prng.py measures how
 often); the integer bits and the uniforms are identical.
+
+``select_plane`` draws a batch's selectHost rows at once.  The JAX
+package's sequential replay draws ``jax.random.categorical(fold_in(rng,
+i), logits)`` per pod, which is ``argmax(gumbel(fold_in(rng, i), (N,)) +
+logits)``; its logits are 0 on the score ties and -2**62 elsewhere, and a
+gumbel plus -2**62 rounds to -2**62, so the draw equals
+``argmax(where(ties, gumbel_row, -2**62))`` with first-index ties — the
+gang auction's tie-break over the same row.
 """
 
 from __future__ import annotations
@@ -99,3 +107,11 @@ def gumbel(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """jax.random.gumbel(key, shape, float32) in its default "low" mode."""
     u = uniform(keys, shape, _TINY, 1.0)
     return -torch.log(-torch.log(u))
+
+
+def select_plane(rng: torch.Tensor, B: int, N: int) -> torch.Tensor:
+    """The [B, N] selectHost plane of a batch: row i is
+    ``gumbel(fold_in(rng, i), (N,))``, drawn on rng's device."""
+    keys = fold_in(rng, torch.arange(B, dtype=torch.int64,
+                                     device=rng.device))
+    return gumbel(keys, (N,))

@@ -143,6 +143,42 @@ CASES = {
                                                  f, False),
                             TK.default_normalize(
                                 TK.taint_toleration_score(c, b), f, True))),
+    # the sequential replay's pair machinery: node and pod pair ids of the
+    # batch's term keys, a scatter of per-node values (feasible mask x
+    # node index, ids -1 dropped) and the gather back
+    "pod_topo_pairs": (
+        lambda c, b, f, g: JK.pod_topo_pairs(c, b.raa.topo_key.reshape(-1)),
+        lambda c, b, f, g: TK.pod_topo_pairs(c, b.raa.topo_key.reshape(-1))),
+    "pair_scatter": (
+        lambda c, b, f, g: JK.pair_scatter(
+            f * (jnp.arange(f.shape[1]) % 5)[None, :],
+            JK.node_topo_pairs(c, b.pref.topo_key[:, 0]), c.kv.shape[1]),
+        lambda c, b, f, g: TK.pair_scatter(
+            f * (torch.arange(f.shape[1]) % 5)[None, :],
+            TK.node_topo_pairs(c, b.pref.topo_key[:, 0]), c.kv.shape[1])),
+    "pair_gather": (
+        lambda c, b, f, g: JK.pair_gather(
+            JK.pair_scatter(f, JK.node_topo_pairs(c, b.ra.topo_key[:, 0]),
+                            c.kv.shape[1]),
+            JK.node_topo_pairs(c, b.ra.topo_key[:, 0])),
+        lambda c, b, f, g: TK.pair_gather(
+            TK.pair_scatter(f, TK.node_topo_pairs(c, b.ra.topo_key[:, 0]),
+                            c.kv.shape[1]),
+            TK.node_topo_pairs(c, b.ra.topo_key[:, 0]))),
+    "spread_state_hard": (
+        lambda c, b, f, g: JK._spread_state(
+            c, b, b.spread, JK.node_affinity_filter(c, b),
+            c.node_valid[None, :] & jnp.ones(f.shape, bool)),
+        lambda c, b, f, g: TK._spread_state(
+            c, b, b.spread, TK.node_affinity_filter(c, b),
+            c.node_valid[None, :].expand(f.shape))),
+    "spread_state_soft": (
+        lambda c, b, f, g: JK._spread_state(
+            c, b, b.spread_soft, jnp.zeros(f.shape, bool),
+            f & JK.node_affinity_filter(c, b)),
+        lambda c, b, f, g: TK._spread_state(
+            c, b, b.spread_soft, torch.zeros(f.shape, dtype=torch.bool),
+            f & TK.node_affinity_filter(c, b))),
     "run_filters": (lambda c, b, f, g: jprog.run_filters(c, b, g),
                     lambda c, b, f, g: tprog.run_filters(c, b, g)),
     "static_raw_scores": (lambda c, b, f, g: jprog.static_raw_scores(c, b, g),

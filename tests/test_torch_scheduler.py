@@ -2,8 +2,9 @@
 as bench.py's backend_compare case) drained through the JAX package's
 Scheduler(mode="gang", kernel_backend="pallas") and through the port's
 Scheduler(..., device="cpu") gives every pod the same node.  Plus the
-port's entry-point contract (CUDA by default, raising without it) and its
-isolation from JAX and the JAX package."""
+port's entry-point contract (CUDA by default, raising without it; a
+default configuration runs the sequential replay) and its isolation from
+JAX and the JAX package."""
 import os
 import re
 import subprocess
@@ -17,6 +18,7 @@ import kubetpu.client.store as jstore
 import kubetpu.harness.hollow as jhollow
 import kubetpu.scheduler as jsched
 import kubetpu_torch
+import kubetpu_torch.api.types as tapi
 import kubetpu_torch.apis.config as tconf
 import kubetpu_torch.client.store as tstore
 import kubetpu_torch.harness.hollow as thollow
@@ -104,10 +106,32 @@ def test_scheduler_defaults_to_cuda():
                          tconf.KubeSchedulerConfiguration(mode="gang"))
 
 
-def test_sequential_mode_is_refused():
-    with pytest.raises(NotImplementedError, match="sequential"):
-        tsched.Scheduler(tstore.ClusterStore(),
-                         tconf.KubeSchedulerConfiguration(), device="cpu")
+def test_default_config_runs_sequential():
+    """A default configuration validates and drains through the
+    sequential replay, term-bearing pods included; the start index
+    rotates across cycles."""
+    cfg = tconf.KubeSchedulerConfiguration(batch_size=8)
+    assert cfg.mode == "sequential"
+    assert cfg.percentage_of_nodes_to_score == 0
+    store, pending = _world(tstore, thollow, 12, 1, 20, 300)
+    for p in pending[::3]:
+        thollow.with_anti_affinity(p, match={"app": "x"})
+        p.metadata.labels["app"] = "x"
+    for p in pending[1::3]:
+        thollow.with_affinity(p, match={"app": "x"})
+    s = tsched.Scheduler(store, cfg, device="cpu")
+    placed = _drain(s, store, pending)
+    s.close()
+    assert s.cycle_count == 3 and s.gang_rounds == []
+    assert sum(1 for v in placed.values() if v) == 20
+    xs = [placed[p.metadata.name] for p in pending[::3]]
+    assert len(set(xs)) == len(xs)       # anti-affinity: one per node
+    zone = {n.name: n.metadata.labels[tapi.LABEL_ZONE]
+            for n in store.list("Node")}
+    # required zone affinity: beside some app=x pod
+    assert ({zone[placed[p.metadata.name]] for p in pending[1::3]}
+            <= {zone[n] for n in xs})
+    assert tsched.capacity_violations(store) == []
 
 
 def test_topology_batch_is_refused():
@@ -143,6 +167,15 @@ while True:
         break
     placed += sum(1 for o in out if o.node)
 assert placed == 10, placed
+# the default mode: one term-bearing sequential cycle
+s = Scheduler(store, KubeSchedulerConfiguration(batch_size=8), device="cpu")
+pods = hollow.make_pods(4, prefix="seq-", group_labels=2)
+for p in pods:
+    hollow.with_anti_affinity(p)
+    store.add(p)
+out = s.schedule_pending()
+assert len(out) == 4 and all(o.node for o in out), out
+assert len({o.node for o in out if o.pod.metadata.labels["app"] == "app-0"}) == 2
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "kubetpu" or m.startswith("kubetpu.")]
 assert not bad, bad

@@ -23,6 +23,7 @@ from kubetpu.models.batch import PodBatchBuilder as JBatchBuilder
 from kubetpu.models.batch import densify_for as jdensify
 from kubetpu.state.tensors import SnapshotBuilder as JSnapshotBuilder
 from kubetpu_torch.framework.types import NodeInfo as TNodeInfo
+from kubetpu_torch.harness import seq_worlds
 from kubetpu_torch.framework.types import PodInfo as TPodInfo
 from kubetpu_torch.models import programs as tprog
 from kubetpu_torch.models.batch import PodBatchBuilder as TBatchBuilder
@@ -163,12 +164,27 @@ def _infos(NodeInfo, nodes, existing):
 
 def build_jax(seed, n_nodes, n_pods, terms=False):
     """(cluster jnp, batch numpy, cfg, host arrays) from the JAX package."""
-    nodes, existing, pending = churned(japi, seed, n_nodes, n_pods, terms)
+    return _build_jax_world(*churned(japi, seed, n_nodes, n_pods, terms))
+
+
+def build_jax_seq(seed, n_nodes, n_pods):
+    """The same, for kubetpu_torch/harness/seq_worlds.term_world built in
+    the JAX package's API types (every default family live, Service
+    selectors included)."""
+    nodes, existing, pending = seq_worlds.term_world(japi, seed, n_nodes,
+                                                     n_pods)
+    return _build_jax_world(nodes, existing, pending,
+                            [seq_worlds.spread_selector(japi, p)
+                             for p in pending])
+
+
+def _build_jax_world(nodes, existing, pending, spread_selectors=None):
     sb = JSnapshotBuilder()
     pinfos = [JPodInfo(p) for p in pending]
     sb.intern_pending(pinfos)
     host = sb.build(_infos(JNodeInfo, nodes, existing))
-    batch = jax.tree.map(np.asarray, JBatchBuilder(sb.table).build(pinfos))
+    batch = jax.tree.map(np.asarray, JBatchBuilder(sb.table).build(
+        pinfos, spread_selectors=spread_selectors))
     cfg = jprog.ProgramConfig(
         filters=FULL_FILTERS, scores=jprog.DEFAULT_SCORE_PLUGINS,
         hostname_topokey=max(sb.table.topokey.get(japi.LABEL_HOSTNAME), 0))
