@@ -7,11 +7,16 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 
   reference  a small term-free auction on the card equals the same auction
              on the CPU (the plain path the CPU tests tie to the JAX
-             package), every GangResult field, under both backends; and
-             the sequential replay on a seeded world with every default
-             family live (kubetpu_torch/harness/seq_worlds.py: 1,000
-             nodes x 512 pods, adaptive sampling, start index 37) equals
-             the CPU's run, every SeqResult field, under a shared plane;
+             package), every GangResult field, under both backends, and
+             with a host score bias on the pallas route (K1's bias
+             plane); the gang auction with intra-batch topology on a
+             seeded world with every default family live
+             (kubetpu_torch/harness/seq_worlds.py: 1,000 nodes x 512
+             pods, random host_ok and score_bias), at full width and with
+             a 64-row window, equals the CPU's run, every GangResult
+             field; and the sequential replay on the same world (adaptive
+             sampling, start index 37) equals the CPU's run, every
+             SeqResult field; every plane shared;
   kernel     the CUDA propose kernel equals its plain PyTorch version
              bitwise (prop/act/best) on seeded worlds at the slice's shapes
              (W=1024 rows, and a W=512 window with sentinel rows of a
@@ -65,25 +70,42 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              pending pods with a DoNotSchedule zone constraint, max_skew 2
              over group: measured (perf.py:169-172).  Every pod placed, the
              measured group's zone skew at most 2, no capacity violated;
+  gang_anti  SchedulingPodAntiAffinity5000Nodes (the seq_anti world and
+             cut) in gang mode under "pallas", batch 1,000: the batch
+             needs intra-batch topology, so the cycle runs the lax round
+             (route recorded, K1 not launched).  Every pod placed, no two
+             pods of one app on a node, no capacity violated;
+  gang_spread TopologySpreading5000Nodes (the seq_spread world and cut) in
+             gang mode under "pallas", batch 1,000: two cycles, each
+             windowed (B = 1,024 > 512), lax round.  Every pod placed,
+             zone skew at most 2, no capacity violated; ms per round;
   profile    the slice, backlog and fill (pallas) drains once more under
              torch.profiler: device busy time, the drain's device idle
              share, top kernels (separate runs, so the profiler's overhead
              stays out of the numbers above); and the seq_slice drain with
              the profiler on over a steady window of 128 scan steps: the
              same numbers for the window, the kernel launches per step and
-             the gemv kernels' share of the device time;
+             the gemv kernels' share of the device time; and the
+             gang_spread drain with the profiler on over 16 auction rounds
+             (rounds 40-55): the same numbers per round;
 
 Every sequential scan (the reference check's and each seq_* drain's) runs
 under torch.cuda.set_sync_debug_mode("error"): a host sync inside the
 step fails the smoke.  The scans' wall time per step (enqueue, and until
 the device is done) is reported, with the time of one of the step's two
-dense [N, L] matvecs at the drain's own shape.
+dense [N, L] matvecs at the drain's own shape.  Likewise every gang
+auction on the card (each gang drain's and the reference checks') runs
+under "error" but for its two permitted reads, the exact-sum check
+before the rounds and the one flags read per round (GangRounds), and
+each auction's flag reads must equal its rounds.
 
-The main path is the pallas drain of each of slice, backlog and fill, and
-each sequential drain: the kernel launch count is zeroed just before each
-and read just after it, and reported per path.  The slice never launches
-the kernel (above), nor does the sequential replay (no propose step: the
-JAX package's scan reaches no Pallas kernel); in the backlog and fill
+The main path is the pallas drain of each of slice, backlog, fill,
+gang_anti and gang_spread, and each sequential drain: the kernel launch
+count is zeroed just before each and read just after it, and reported
+per path.  The slice never launches the kernel (above), nor do the
+term-bearing gang drains (routed to the lax round, as the JAX package
+routes them) or the sequential replay (no propose step: the JAX
+package's scan reaches no Pallas kernel); in the backlog and fill
 drains every launch's inputs and outputs are recorded (the fill's first
 16) and, after the drain, the outputs are held bitwise against the plain
 version on the same inputs, and the kernel is timed on the widest
@@ -97,6 +119,7 @@ limit) and the kernels' JSON line; the last line is the contract's
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -104,10 +127,10 @@ import sys
 import time
 
 ALL_PHASES = ("reference", "kernel", "slice", "backlog", "fill",
-              "seq_slice", "seq_anti", "seq_spread", "profile")
+              "seq_slice", "seq_anti", "seq_spread", "gang_anti",
+              "gang_spread", "profile")
 MAIN_PATHS = ("slice", "backlog", "fill", "seq_slice", "seq_anti",
-              "seq_spread")
-SEQ_PATHS = ("seq_slice", "seq_anti", "seq_spread")
+              "seq_spread", "gang_anti", "gang_spread")
 FILL_NODES = 5000             # Preemption5000Nodes: 5,000 nodes,
 FILL_PODS = 4 * FILL_NODES    # 20,000 init pods (four 900m pods fill a node)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -178,7 +201,10 @@ def drain(store, pods, backend, batch_size, device, record=None,
     under ``backend``, or, with backend None, under the default
     configuration (the sequential replay).  record: a list that receives
     the first ``record_limit`` (default: all) propose launches as
-    (inputs, outputs), cloned, for the check against the plain version."""
+    (inputs, outputs), cloned, for the check against the plain version.
+    A gang drain on the card runs every auction under GangRounds (one
+    host read per round, nothing else); returns (scheduler, placements,
+    seconds, GangRounds summary or None)."""
     from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
                                            KubeSchedulerProfile)
     from kubetpu_torch.scheduler import Scheduler
@@ -192,20 +218,95 @@ def drain(store, pods, backend, batch_size, device, record=None,
     placed = {}
     restore = (_record_launches(record, record_limit)
                if record is not None else None)
+    gang_card = backend is not None and device == "cuda"
     try:
-        t0 = time.perf_counter()
-        while True:
-            out = sched.schedule_pending()
-            if not out:
-                break
-            for o in out:
-                placed[o.pod.metadata.name] = o.node
-        seconds = time.perf_counter() - t0
+        with GangRounds() if gang_card else contextlib.nullcontext() as gr:
+            t0 = time.perf_counter()
+            while True:
+                out = sched.schedule_pending()
+                if not out:
+                    break
+                for o in out:
+                    placed[o.pod.metadata.name] = o.node
+            seconds = time.perf_counter() - t0
     finally:
         if restore is not None:
             restore()
     sched.close()
-    return sched, placed, seconds
+    return sched, placed, seconds, gr.summary() if gang_card else None
+
+
+class GangRounds:
+    """Instruments the gang auction on the card: every call of
+    models/gang._gang_program runs under
+    torch.cuda.set_sync_debug_mode("error") except its two permitted host
+    reads, the exact-sum check before the rounds and the one flags read
+    that ends each round (each run with the mode off).  A hidden sync
+    anywhere else in the auction raises.  Checks that each auction read
+    the flags exactly once per round, and times the auctions (wall, until
+    the device is done).  Restores everything on exit."""
+
+    def __init__(self):
+        self.auctions = self.rounds = self.reads = 0
+        self.seconds = 0.0
+
+    def __enter__(self):
+        import torch
+        from kubetpu_torch.models import gang as G
+        self._orig = (G._gang_program, G._check_exact_sums, G._read_flags)
+        program, check, read = self._orig
+
+        def allowed(fn):
+            def call(*args, **kw):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode(0)
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            return call
+
+        def read_flags(flags):
+            self.reads += 1
+            return allowed(read)(flags)
+
+        def gang_program(cluster, batch, *args, **kw):
+            if batch.req.device.type != "cuda":
+                return program(cluster, batch, *args, **kw)
+            reads0 = self.reads
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = program(cluster, batch, *args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            rounds = int(out.rounds)
+            if not self.reads - reads0 == out.syncs == rounds:
+                raise AssertionError(
+                    "gang auction: %d flag reads, %d syncs, %d rounds"
+                    % (self.reads - reads0, out.syncs, rounds))
+            self.auctions += 1
+            self.rounds += rounds
+            return out
+
+        G._gang_program = gang_program
+        G._check_exact_sums = allowed(check)
+        G._read_flags = read_flags
+        return self
+
+    def __exit__(self, *exc):
+        from kubetpu_torch.models import gang as G
+        G._gang_program, G._check_exact_sums, G._read_flags = self._orig
+
+    def summary(self) -> dict:
+        return dict(auctions=self.auctions, rounds=self.rounds,
+                    flag_reads=self.reads, sync_debug="error",
+                    auction_s=self.seconds,
+                    ms_per_round=(self.seconds / self.rounds * 1e3
+                                  if self.rounds else None))
 
 
 def _record_launches(record, limit):
@@ -354,41 +455,43 @@ def kv_matvec_ms(shape) -> float:
     return time_ms(lambda: torch.mv(kv, v), 50)
 
 
-def anti_world():
+def anti_world(n_nodes=5000, n_pods=1000):
     """SchedulingPodAntiAffinity5000Nodes (kubetpu/harness/perf.py:146-148
     builds its pods): 1,000 init pods bound one per node on every fifth
     node, 1,000 pending; every pod has app-{i % 1000} and required
-    hostname anti-affinity to its own app."""
+    hostname anti-affinity to its own app.  (Smaller sizes only for a
+    CPU rehearsal.)"""
     from kubetpu_torch.api import types as api
     from kubetpu_torch.client.store import ClusterStore
     from kubetpu_torch.harness import hollow
     store = ClusterStore()
-    nodes = hollow.make_nodes(5000, zones=8)
+    nodes = hollow.make_nodes(n_nodes, zones=8)
     for n in nodes:
         store.add(n)
 
     def pod(prefix, i):
-        app = f"app-{i % 1000}"
+        app = f"app-{i % n_pods}"
         p = hollow.make_pod(f"{prefix}-{i}", mem=250 << 20,
                             labels={"app": app, "group": prefix})
         return hollow.with_anti_affinity(p, api.LABEL_HOSTNAME,
                                          match={"app": app})
-    for i in range(1000):
+    for i in range(n_pods):
         p = pod("init", i)
         p.spec.node_name = nodes[5 * i].name
         store.add(p)
-    return store, [pod("measured", i) for i in range(1000)]
+    return store, [pod("measured", i) for i in range(n_pods)]
 
 
-def spread_world():
+def spread_world(n_nodes=5000, n_pods=2000):
     """TopologySpreading5000Nodes (perf.py:169-172): 5,000 nodes in 8
     zones, 5,000 init pods bound one per node, 2,000 pending; every pod
-    has a DoNotSchedule zone constraint, max_skew 2, over its group."""
+    has a DoNotSchedule zone constraint, max_skew 2, over its group.
+    (Smaller sizes only for a CPU rehearsal.)"""
     from kubetpu_torch.api import types as api
     from kubetpu_torch.client.store import ClusterStore
     from kubetpu_torch.harness import hollow
     store = ClusterStore()
-    nodes = hollow.make_nodes(5000, zones=8)
+    nodes = hollow.make_nodes(n_nodes, zones=8)
     for n in nodes:
         store.add(n)
 
@@ -398,11 +501,11 @@ def spread_world():
         return hollow.with_spread(p, api.LABEL_ZONE, max_skew=2,
                                   when="DoNotSchedule",
                                   match={"group": prefix})
-    for i in range(5000):
+    for i in range(n_nodes):
         p = pod("init", i)
         p.spec.node_name = nodes[i].name
         store.add(p)
-    return store, [pod("measured", i) for i in range(2000)]
+    return store, [pod("measured", i) for i in range(n_pods)]
 
 
 def _seq_drain(what, store, pods, n_expected):
@@ -412,7 +515,7 @@ def _seq_drain(what, store, pods, n_expected):
     from kubetpu_torch.scheduler import capacity_violations
     PK.propose.launches = 0          # this path starts: zero the count
     with SeqScans() as scans:
-        sched, placed, seconds = drain(store, pods, None, 1000, "cuda")
+        sched, placed, seconds, _ = drain(store, pods, None, 1000, "cuda")
     launches = PK.propose.launches
     n_placed = sum(1 for v in placed.values() if v)
     if n_placed != n_expected:
@@ -436,12 +539,43 @@ def _seq_drain(what, store, pods, n_expected):
 # phases
 
 
+def _same_gang_result(cpu, card, what) -> None:
+    """Every GangResult field equal card vs CPU (floats finite)."""
+    import torch
+    for f in cpu._fields:
+        a, c = getattr(cpu, f), getattr(card, f)
+        if f == "syncs":
+            ok = a == c
+        else:
+            ok = torch.equal(a, c.cpu())
+            if a.dtype.is_floating_point:
+                ok = ok and bool(torch.isfinite(c).all())
+        if not ok:
+            raise AssertionError("reference: %s differs card vs CPU (%s)"
+                                 % (f, what))
+
+
+def _gang_card_vs_cpu(run, what) -> tuple:
+    """run(device) on the CPU and on the card (under GangRounds): the
+    results, equal on every field, and the card run's sync check."""
+    cpu = run("cpu")
+    with GangRounds() as rounds:
+        card = run("cuda")
+    _same_gang_result(cpu, card, what)
+    return cpu, rounds.summary()
+
+
 def phase_reference() -> dict:
-    """Small auction, card vs CPU, identical GangResult (shared gumbel)."""
+    """Small auctions card vs CPU, identical GangResult (shared gumbel):
+    a term-free world under both backends, at full width and windowed,
+    and with a host score bias on the pallas route (K1's bias plane); a
+    world with every default family live under intra-batch topology;
+    and the sequential replay."""
     import torch
     from kubetpu_torch.models.batch import batch_to_device
     from kubetpu_torch.models.gang import schedule_gang
     from kubetpu_torch.models.programs import ProgramConfig
+    from kubetpu_torch.ops import propose as PK
     from kubetpu_torch.utils import prng
     store = hollow_store(48, 2)
     pods = pending_pods(200, "ref", cpu_milli=900)
@@ -450,34 +584,78 @@ def phase_reference() -> dict:
     B = hbatch.valid.shape[0]
     N = host.arrays["allocatable"].shape[0]
     gumbel = prng.select_plane(rng, B, N)
+    bias = torch.rand((B, N), generator=torch.Generator().manual_seed(5)) * 9
     out = {}
-    for backend in ("lax", "pallas"):
-        for window in (0, 64):
-            res = {}
-            for dev in ("cpu", "cuda"):
-                cl = host.to_device(dev)
-                b = batch_to_device(hbatch, dev)
-                res[dev] = schedule_gang(cl, b, ProgramConfig(), rng.to(dev),
-                                         intra_batch_topology=False,
-                                         residual_window=window,
-                                         kernel_backend=backend,
-                                         gumbel=gumbel.to(dev))
-            for f in res["cpu"]._fields:
-                a, c = getattr(res["cpu"], f), getattr(res["cuda"], f)
-                if f == "syncs":
-                    ok = a == c
-                else:
-                    ok = torch.equal(a, c.cpu())
-                    if a.dtype.is_floating_point:
-                        ok = ok and bool(torch.isfinite(c).all())
-                if not ok:
-                    raise AssertionError("reference: %s differs card vs CPU "
-                                         "(%s, window %d)" % (f, backend,
-                                                              window))
-            out["%s_w%d_rounds" % (backend, window)] = int(res["cpu"].rounds)
-            out["%s_w%d_placed" % (backend, window)] = int(
-                (res["cpu"].chosen >= 0).sum())
+    for backend, window, with_bias in (("lax", 0, False), ("lax", 64, False),
+                                       ("pallas", 0, False),
+                                       ("pallas", 64, False),
+                                       ("pallas", 0, True)):
+        def run(dev):
+            return schedule_gang(
+                host.to_device(dev), batch_to_device(hbatch, dev),
+                ProgramConfig(), rng.to(dev), intra_batch_topology=False,
+                residual_window=window, kernel_backend=backend,
+                score_bias=bias.to(dev) if with_bias else None,
+                gumbel=gumbel.to(dev))
+        name = "%s_w%d%s" % (backend, window, "_bias" if with_bias else "")
+        launches = PK.propose.launches
+        res, _ = _gang_card_vs_cpu(run, name)
+        out[name + "_rounds"] = int(res.rounds)
+        out[name + "_placed"] = int((res.chosen >= 0).sum())
+        if with_bias:
+            out[name + "_k1_launches"] = PK.propose.launches - launches
+            if out[name + "_k1_launches"] <= 0:
+                raise AssertionError("reference: the bias world did not "
+                                     "launch K1")
+    out["gang_topology"] = _gang_topology_reference()
     out["sequential"] = _seq_reference()
+    return out
+
+
+def _gang_topology_reference() -> dict:
+    """The gang auction with intra-batch topology, card vs CPU, identical
+    GangResult (shared plane), on the world with every default family
+    live (seq_worlds seed 31, 1,000 nodes x 512 pods), with a random
+    host_ok and score_bias, at full width and with a 64-row window."""
+    import torch
+    from kubetpu_torch.harness import seq_worlds as SW
+    from kubetpu_torch.models.batch import batch_to_device
+    from kubetpu_torch.models.gang import schedule_gang
+    from kubetpu_torch.models.programs import ProgramConfig
+    from kubetpu_torch.utils import prng
+    host, hbatch, host_key = SW.port_inputs(31, 1000, 512)
+    cfg = ProgramConfig(hostname_topokey=host_key,
+                        active_topo_keys=SW.term_keys(hbatch))
+    rng = prng.PRNGKey(17)
+    B = hbatch.valid.shape[0]
+    N = host.arrays["allocatable"].shape[0]
+    gumbel = prng.select_plane(rng, B, N)
+    g = torch.Generator().manual_seed(19)
+    host_ok = torch.rand((B, N), generator=g) < 0.9
+    bias = torch.rand((B, N), generator=g) * 7
+    out = dict(B=B, N=N, active_topo_keys=list(cfg.active_topo_keys))
+    for window in (0, 64):
+        def run(dev):
+            t0 = time.perf_counter()
+            res = schedule_gang(host.to_device(dev),
+                                batch_to_device(hbatch, dev), cfg,
+                                rng.to(dev), host_ok=host_ok.to(dev),
+                                intra_batch_topology=True,
+                                residual_window=window,
+                                score_bias=bias.to(dev),
+                                gumbel=gumbel.to(dev))
+            out["w%d_%s_s" % (window, dev)] = time.perf_counter() - t0
+            return res
+        res, rounds = _gang_card_vs_cpu(run, "intra w%d" % window)
+        placed = int((res.chosen >= 0).sum())
+        if placed < 256 or int(res.rounds) < 2:
+            raise AssertionError("reference: the topology world placed %d "
+                                 "pods in %d rounds" % (placed,
+                                                        int(res.rounds)))
+        out["w%d" % window] = dict(rounds=int(res.rounds), placed=placed,
+                                   unresolvable=int(res.unresolvable.sum()),
+                                   sync_check=rounds)
+    out["matches_cpu"] = True
     return out
 
 
@@ -726,27 +904,68 @@ def phase_kernel() -> dict:
                 under_load=clocks)
 
 
-def phase_slice() -> dict:
-    """SchedulingBasic5000Nodes through Scheduler.schedule_pending."""
+def _gang_drain(what, store, pods, n_expected, batch_size=1000):
+    """One gang drain on the card under "pallas" (the serving
+    configuration), K1's launches counted, every auction under
+    GangRounds; every pod placed and no capacity violated."""
     from kubetpu_torch.ops import propose as PK
     from kubetpu_torch.scheduler import capacity_violations
-    store = hollow_store(5000, 1)
-    pods = pending_pods(1000, "measured")
     PK.propose.launches = 0          # this path starts: zero the count
-    sched, placed, seconds = drain(store, pods, "pallas", 1000, "cuda")
+    sched, placed, seconds, rounds = drain(store, pods, "pallas",
+                                           batch_size, "cuda")
     launches = PK.propose.launches
     n_placed = sum(1 for v in placed.values() if v)
-    if n_placed != 1000:
-        raise AssertionError("slice: %d/1000 pods placed" % n_placed)
+    if n_placed != n_expected:
+        raise AssertionError("%s: %d/%d pods placed"
+                             % (what, n_placed, n_expected))
     bad = capacity_violations(store)
     if bad:
-        raise AssertionError("slice: capacity violated on %s" % bad[:5])
-    # identical nodes: every round-0 proposal fits, so the cycle ends
-    # after the plain round 0 and the kernel (rounds >= 1) never runs
-    return dict(placed=n_placed, cycles=sched.cycle_count,
-                rounds=sched.gang_rounds, syncs=sched.gang_syncs,
-                launches=launches, drain_s=seconds, stage_s=sched.stage_s,
-                pods_per_s=n_placed / seconds)
+        raise AssertionError("%s: capacity violated on %s" % (what, bad[:5]))
+    return sched, dict(placed=n_placed, cycles=sched.cycle_count,
+                       rounds=sched.gang_rounds, syncs=sched.gang_syncs,
+                       routes=sched.gang_backends, launches=launches,
+                       drain_s=seconds, stage_s=sched.stage_s,
+                       pods_per_s=n_placed / seconds, sync_check=rounds)
+
+
+def phase_slice() -> dict:
+    """SchedulingBasic5000Nodes through Scheduler.schedule_pending.  On
+    identical nodes every round-0 proposal fits, so the cycle ends after
+    the plain round 0 and the kernel (rounds >= 1) never runs."""
+    return _gang_drain("slice", hollow_store(5000, 1),
+                       pending_pods(1000, "measured"), 1000)[1]
+
+
+def _intra_routes(what, out):
+    """Every cycle of a term-bearing drain ran the lax round, routed for
+    the reason the reference gives, and K1 never launched."""
+    if set(out["routes"]) != {("lax", "intra-batch-topology")}:
+        raise AssertionError("%s: routes %s" % (what, out["routes"]))
+    if out["launches"] != 0:
+        raise AssertionError("%s: K1 launched %d times"
+                             % (what, out["launches"]))
+
+
+def phase_gang_anti() -> dict:
+    """SchedulingPodAntiAffinity5000Nodes in gang mode (the seq_anti
+    world and cut), batch 1,000: intra-batch topology."""
+    store, pods = anti_world()
+    _, out = _gang_drain("gang_anti", store, pods, 1000)
+    _intra_routes("gang_anti", out)
+    out["apps_checked"] = check_anti(store, "gang_anti")
+    return out
+
+
+def phase_gang_spread() -> dict:
+    """TopologySpreading5000Nodes in gang mode (the seq_spread world and
+    cut), batch 1,000: two cycles, each windowed (B = 1,024 > 512)."""
+    store, pods = spread_world()
+    _, out = _gang_drain("gang_spread", store, pods, 2000)
+    _intra_routes("gang_spread", out)
+    out["measured_per_zone"] = check_spread(store, "gang_spread")
+    out["rounds_per_cycle"] = out["rounds"]
+    out["ms_per_round"] = out["sync_check"]["ms_per_round"]
+    return out
 
 
 def phase_seq_slice() -> dict:
@@ -754,7 +973,7 @@ def phase_seq_slice() -> dict:
     card and on the CPU: same placements, same final start index."""
     sched, placed, out = _seq_drain("seq_slice", hollow_store(5000, 1),
                                     pending_pods(1000, "measured"), 1000)
-    csched, cplaced, cseconds = drain(hollow_store(5000, 1),
+    csched, cplaced, cseconds, _ = drain(hollow_store(5000, 1),
                                       pending_pods(1000, "measured"), None,
                                       1000, "cpu")
     if cplaced != placed:
@@ -768,7 +987,7 @@ def phase_seq_slice() -> dict:
     return out
 
 
-def check_anti(store) -> int:
+def check_anti(store, what) -> int:
     """No two pods of one app on a node; returns the apps checked."""
     nodes_of = {}
     for p in store.list("Pod"):
@@ -776,12 +995,12 @@ def check_anti(store) -> int:
             p.spec.node_name)
     shared = [a for a, ns in nodes_of.items() if len(set(ns)) != len(ns)]
     if shared:
-        raise AssertionError("seq_anti: pods of one app share a node (%s)"
-                             % shared[:5])
+        raise AssertionError("%s: pods of one app share a node (%s)"
+                             % (what, shared[:5]))
     return len(nodes_of)
 
 
-def check_spread(store) -> list:
+def check_spread(store, what) -> list:
     """The measured group's pods per zone, skew at most 2."""
     from kubetpu_torch.api import types as api
     zone_of = {n.name: n.metadata.labels[api.LABEL_ZONE]
@@ -793,21 +1012,21 @@ def check_spread(store) -> list:
             counts[z] = counts.get(z, 0) + 1
     per_zone = [counts.get(z, 0) for z in sorted(set(zone_of.values()))]
     if max(per_zone) - min(per_zone) > 2:
-        raise AssertionError("seq_spread: zone skew %s" % per_zone)
+        raise AssertionError("%s: zone skew %s" % (what, per_zone))
     return per_zone
 
 
 def phase_seq_anti() -> dict:
     store, pods = anti_world()
     _, _, out = _seq_drain("seq_anti", store, pods, 1000)
-    out["apps_checked"] = check_anti(store)
+    out["apps_checked"] = check_anti(store, "seq_anti")
     return out
 
 
 def phase_seq_spread() -> dict:
     store, pods = spread_world()
     _, _, out = _seq_drain("seq_spread", store, pods, 2000)
-    out["measured_per_zone"] = check_spread(store)
+    out["measured_per_zone"] = check_spread(store, "seq_spread")
     return out
 
 
@@ -822,8 +1041,9 @@ def _pallas_vs_lax(what, make_world, batch_size, record_limit=None):
         store, pods = make_world()
         record = [] if backend == "pallas" else None
         PK.propose.launches = 0      # this path starts: zero the count
-        sched, placed, seconds = drain(store, pods, backend, batch_size,
-                                       "cuda", record, record_limit)
+        sched, placed, seconds, rounds = drain(store, pods, backend,
+                                               batch_size, "cuda", record,
+                                               record_limit)
         launches = PK.propose.launches
         if capacity_violations(store):
             raise AssertionError("%s: capacity violated (%s)"
@@ -834,7 +1054,8 @@ def _pallas_vs_lax(what, make_world, batch_size, record_limit=None):
                             rounds=sched.gang_rounds, syncs=sched.gang_syncs,
                             launches=launches, drain_s=seconds,
                             stage_s=sched.stage_s,
-                            pods_per_s=n_placed / seconds)
+                            pods_per_s=n_placed / seconds,
+                            sync_check=rounds)
         if record is not None:
             if launches <= 0:
                 raise AssertionError("%s: the propose kernel never launched"
@@ -908,7 +1129,8 @@ def _profiled_drain(store, pods, backend, batch_size):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sched, placed, _ = drain(store, pods, backend, batch_size, "cuda")
+        sched, placed, _, _ = drain(store, pods, backend, batch_size,
+                                    "cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = _device_rows(prof)
@@ -950,7 +1172,7 @@ def _profiled_scan_window(store, pods, first=256, steps=128):
         return [torch.stack(col) for col in zip(*outs)]
     S._scan = scan
     try:
-        _, placed, _ = drain(store, pods, None, 1000, "cuda")
+        _, placed, _, _ = drain(store, pods, None, 1000, "cuda")
     finally:
         S._scan = orig_scan
     rows = _device_rows(prof)
@@ -971,6 +1193,55 @@ def _profiled_scan_window(store, pods, first=256, steps=128):
                 placed=sum(1 for v in placed.values() if v))
 
 
+def _profiled_rounds_window(store, pods, first=40, n=16):
+    """A gang drain with torch.profiler on over a steady window of its
+    auction rounds (rounds first .. first+n-1, counted by flag reads,
+    across cycles): device busy time and idle share of the window, top
+    kernels, kernel launches per round (the host's CUDA launch calls, and
+    the device kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kubetpu_torch.models import gang as G
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = dict(reads=0)
+    orig_read = G._read_flags
+
+    def read_flags(flags):
+        # runs with the sync debug mode off (GangRounds allows this read)
+        out = orig_read(flags)
+        window["reads"] += 1
+        if window["reads"] == first:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif window["reads"] == first + n:
+            torch.cuda.synchronize()
+            window["wall"] = time.perf_counter() - window["t0"]
+            prof.stop()
+        return out
+    G._read_flags = read_flags
+    try:
+        _, placed, _, _ = drain(store, pods, "pallas", 1000, "cuda")
+    finally:
+        G._read_flags = orig_read
+    if "wall" not in window:
+        raise AssertionError("profile: the drain ran %d rounds, fewer than "
+                             "the window's end %d" % (window["reads"],
+                                                      first + n))
+    rows = _device_rows(prof)
+    busy_ms = sum(_dev_us(e) for e in rows) / 1e3
+    launches = sum(1 for e in prof.events() if "LaunchKernel" in e.name)
+    wall = window["wall"]
+    return dict(window_rounds=n, first_round=first, wall_s=wall,
+                wall_ms_per_round=wall / n * 1e3, device_busy_ms=busy_ms,
+                device_ms_per_round=busy_ms / n,
+                device_idle_share=(1.0 - busy_ms / 1e3 / wall
+                                   if busy_ms > 0 else None),
+                top=_top(rows), launches_per_round=launches / n,
+                device_kernels_per_round=sum(e.count for e in rows) / n,
+                placed=sum(1 for v in placed.values() if v))
+
+
 def phase_profile() -> dict:
     return dict(
         slice=_profiled_drain(hollow_store(5000, 1),
@@ -979,7 +1250,8 @@ def phase_profile() -> dict:
         backlog=_profiled_drain(*backlog_world(), "pallas", 4096),
         fill=_profiled_drain(*fill_world(), "pallas", 1000),
         seq_slice=_profiled_scan_window(hollow_store(5000, 1),
-                                        pending_pods(1000, "measured")))
+                                        pending_pods(1000, "measured")),
+        gang_spread=_profiled_rounds_window(*spread_world()))
 
 
 def main() -> int:

@@ -37,11 +37,12 @@ class KubeSchedulerConfiguration:
     batch_size: int = 256        # pods per device batch (the B axis)
     # "sequential": the serial replay of scheduleOne over the batch
     # (models/sequential.py); "gang": the conflict-free auction
-    # (models/gang.py), term-free batches only
+    # (models/gang.py), with intra-batch topology for term-bearing batches
     mode: str = "sequential"
     # "lax": every auction round through the plain PyTorch round;
     # "pallas": rounds after the first through the fused propose kernel
-    # (ops/propose.py; the name matches the JAX package's option)
+    # (ops/propose.py; the name matches the JAX package's option) for the
+    # batches it serves (utils/pallas_backend.py); others run "lax"
     kernel_backend: str = "lax"
 
     def validate(self) -> None:

@@ -1,9 +1,10 @@
-"""Seeded worlds for the sequential replay with every default family live.
+"""Seeded worlds with every default family live, for both modes.
 
-One builder for the replay's checks: the port's CPU tests (the same world
-built in the JAX package's API types and in the port's, each tensorized
-by its own package) and chip_smoke.py's card-against-CPU check.  The API
-module is a parameter, so this module imports nothing but the port.
+One builder for the sequential replay's and the gang auction's
+(intra-batch topology) checks: the port's CPU tests (the same world built
+in the JAX package's API types and in the port's, each tensorized by its
+own package) and chip_smoke.py's card-against-CPU checks.  The API module
+is a parameter, so this module imports nothing but the port.
 
 A world is heterogeneous nodes (capacities, zones with some nodes
 zone-less, NoSchedule and PreferNoSchedule taints, a few unschedulable
@@ -18,6 +19,8 @@ from __future__ import annotations
 
 import random
 from typing import List
+
+import numpy as np
 
 from ..api import types as port_api
 
@@ -215,3 +218,14 @@ def port_inputs(seed: int, n_nodes: int, n_pods: int) -> tuple:
     batch = PodBatchBuilder(builder.table).build(
         pinfos, spread_selectors=[spread_selector(A, p) for p in pending])
     return host, batch, max(builder.table.topokey.get(A.LABEL_HOSTNAME), 0)
+
+
+def term_keys(batch) -> tuple:
+    """The topology-key ids of a host batch's valid term sets (the
+    ProgramConfig.active_topo_keys the scheduler sets for it)."""
+    keys = set()
+    for t in (batch.ra, batch.raa, batch.pref, batch.spread,
+              batch.spread_soft):
+        live = np.asarray(t.valid) & np.asarray(t.topo_known)
+        keys.update(np.asarray(t.topo_key)[live].tolist())
+    return tuple(sorted(keys))

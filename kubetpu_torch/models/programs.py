@@ -177,7 +177,10 @@ def run_scores(cluster, batch, cfg: ProgramConfig, feasible, affinity_ok,
             if s is None:
                 s = K.prefer_avoid_pods_score(cluster, batch)
         elif name == "PodTopologySpread":
-            s = K.spread_soft_score_termfree(feasible)
+            s = K.spread_soft_score(cluster, batch, feasible, affinity_ok,
+                                    cfg.hostname_topokey,
+                                    match_ns=pre.get("spread_soft"),
+                                    active_keys=cfg.active_keys)
         elif name == "DefaultPodTopologySpread":
             raw = K.default_spread_score(cluster, batch,
                                          match_ns=pre.get("default_spread"))

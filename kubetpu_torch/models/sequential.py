@@ -27,11 +27,12 @@ Exactness, beyond ops/kernels.py's rules:
 * every carry holds integer-valued f32 (counts, integer weights, request
   channels), so ``index_add_``'s atomics on the card give the same sums as
   the reference's ordered scatter, duplicate ids included;
-* the soft-spread weight log(size + 2) is taken in float64 and rounded
-  once to float32 (correctly rounded, the same bits on the CPU and the
-  card; XLA:CPU's f32 log differs from it on a few sizes, listed by
-  tests/test_torch_sequential.py), and its products are summed over the
-  constraints left to right, as the reference's reduction does;
+* the soft-spread weight log(size + 2) is ops/kernels.spread_log_weight,
+  taken in float64 and rounded once to float32 (correctly rounded, the
+  same bits on the CPU and the card; XLA:CPU's f32 log differs from it on
+  a few sizes, listed by tests/test_torch_sequential.py), and its
+  products are summed over the constraints left to right, as the
+  reference's reduction does;
 * selectHost draws from a [B, N] plane made before the loop
   (utils/prng.select_plane): argmax(where(ties, gumbel_row, -2**62)) is
   the reference's ``categorical(fold_in(rng, i), logits)``.
@@ -83,12 +84,6 @@ def _num_feasible_nodes_to_find(n_valid: torch.Tensor, pct: int):
     adaptive = pct if pct > 0 else torch.clamp(50 - n_valid // 125, min=5)
     num = torch.clamp(n_valid * adaptive // 100, min=100)
     return torch.where(n_valid < 100, n_valid, num)
-
-
-def spread_log_weight(size: torch.Tensor) -> torch.Tensor:
-    """log(size + 2) of the soft-spread score (scoring.go:286): the f32
-    sum size + 2, its log in float64, rounded once to float32."""
-    return torch.log((size + 2.0).double()).float()
 
 
 def _term_state(cluster, terms, B: int):
@@ -486,7 +481,7 @@ def schedule_sequential(cluster, batch, cfg: ProgramConfig, rng,
             topo_size = _f(reg).sum(dim=1)
             n_scored = _f(scored).sum()
             size = torch.where(is_host, n_scored, topo_size)
-            weight = spread_log_weight(size)
+            weight = K.spread_log_weight(size)
             pair_c = K.pair_gather(torch.where(reg, c["sps_cnt"][rows], 0.0),
                                    npair)
             cval = torch.where(is_host[:, None], c["sps_node"][rows], pair_c)

@@ -338,14 +338,99 @@ def spread_filter(cluster, batch, affinity_ok, match_ns=None,
     return torch.where(gate, ok, torch.ones_like(ok))
 
 
-def spread_soft_score_termfree(feasible) -> torch.Tensor:
-    """PodTopologySpread scoring for a batch with no soft constraints: the
-    reference's maxScore==0 branch gives MaxNodeScore on every feasible
-    node (scoring.go).  Batches with soft constraints need the full
-    scorer, which is not ported (ROADMAP: intra-batch topology)."""
-    return torch.where(feasible, torch.full(feasible.shape, MAX_NODE_SCORE,
-                                            device=feasible.device),
-                       torch.zeros(feasible.shape, device=feasible.device))
+def spread_log_weight(size: torch.Tensor) -> torch.Tensor:
+    """log(size + 2) of the soft-spread score (scoring.go:286): the f32
+    sum size + 2, its log in float64, rounded once to float32 (the same
+    bits on the CPU and the card)."""
+    return torch.log((size + 2.0).double()).float()
+
+
+def spread_soft_score(cluster, batch, feasible, affinity_ok,
+                      hostname_topokey: int, match_ns=None,
+                      active_keys=None) -> torch.Tensor:
+    """PodTopologySpread soft constraints, normalized (reference:
+    podtopologyspread/scoring.go PreScore/Score/NormalizeScore).  The
+    distinct-pair count sums 1/members over each pair's eligible members
+    (a non-integer sum, rounded); the constraints' weighted counts are
+    added left to right before the floor, as the reference's reduction."""
+    cons = batch.spread_soft
+    B, C = cons.topo_key.shape
+    N = cluster.allocatable.shape[0]
+    count_nodes = affinity_ok & cluster.node_valid[None, :]
+    if match_ns is None:
+        match_ns = spread_match_ns(cluster, batch, cons)
+    countable = cluster.pod_valid & ~cluster.pod_terminating
+    m = match_ns & countable[None, None, :]                       # [B, C, P]
+    keys = torch.where(cons.topo_known, cons.topo_key,
+                       torch.full_like(cons.topo_key, -1)).reshape(-1)
+    node_pair = node_topo_pairs(cluster, cons.topo_key.reshape(-1))
+    has_key = ((node_pair >= 0).reshape(B, C, N)
+               & cons.topo_known.reshape(B, C)[:, :, None])
+    is_host = (cons.topo_key == hostname_topokey) & cons.topo_known
+    valid = cons.valid
+
+    # per-node match counts (hostname constraints read these directly)
+    node_counts = per_node_counts(m.reshape(B * C, -1), cluster.pod_node,
+                                  N).reshape(B, C, N)
+    # pair sums count only pods on PreScore-eligible nodes (scoring.go:139)
+    pod_node = cluster.pod_node.long()
+    cm_pods = count_nodes[:, pod_node.clamp(min=0)] & (pod_node >= 0)[None, :]
+    m_counted = (m & cm_pods[:, None, :]).reshape(B * C, -1)
+    cnt_pair = _samepair_pods_to_nodes(cluster, m_counted, keys,
+                                       cluster.pod_node, cluster.pod_valid,
+                                       active_keys=active_keys)
+
+    # eligibility and registration from the filtered nodes only
+    all_keys = (has_key | ~valid[:, :, None]).all(dim=1)         # [B, N]
+    ignored = feasible & ~all_keys
+    scored = feasible & all_keys
+    eligible = feasible & cluster.node_valid[None, :] & all_keys
+    elig_bc = eligible[:, None, :].expand(B, C, N).reshape(B * C, N)
+    members = _samepair_nodes(cluster, elig_bc, keys,
+                              active_keys=active_keys)           # [B*C, N]
+    registered = members > 0.5
+    # each registered pair's eligible members contribute 1/members: the
+    # row sum is the distinct-pair count up to rounding
+    inv = torch.where(registered & elig_bc,
+                      1.0 / torch.clamp(members, min=1.0),
+                      torch.zeros_like(members))
+    topo_size = torch.round(inv.sum(dim=1)).reshape(B, C)
+    n_scored = _f(scored).sum(dim=1)
+    size = torch.where(is_host, n_scored[:, None], topo_size)
+    weight = spread_log_weight(size)
+
+    pair_cnt = torch.where(registered, cnt_pair,
+                           torch.zeros_like(cnt_pair)).reshape(B, C, N)
+    cnt = torch.where(is_host[:, :, None], node_counts, pair_cnt)
+    ms = cons.max_skew[:, :, None]                # adjustForMaxSkew (:294)
+    cnt = torch.where(cnt < ms, ms - 1.0, cnt)
+    scope = (valid & cons.topo_known)[:, :, None] & has_key
+    contrib = torch.where(scope, cnt * weight[:, :, None],
+                          torch.zeros_like(cnt))
+    raw = contrib[:, 0]                    # C >= 1: the builder pads to 1
+    for j in range(1, C):
+        raw = raw + contrib[:, j]
+    raw = torch.floor(raw)                                     # int64(score)
+    raw = torch.where(ignored, torch.zeros_like(raw), raw)
+
+    # NormalizeScore (scoring.go:210-257): min/max over scored nodes
+    big = float(2 ** 62)
+    min_s = torch.where(scored, raw, torch.full_like(raw, big)).min(
+        dim=1, keepdim=True).values
+    max_s = torch.where(scored, raw, torch.full_like(raw, -big)).max(
+        dim=1, keepdim=True).values
+    max_s = torch.clamp(max_s, min=0.0)
+    norm = torch.where(
+        max_s > 0,
+        _idiv(MAX_NODE_SCORE * (max_s + torch.clamp(min_s, max=big) - raw),
+              torch.clamp(max_s, min=1.0)),
+        torch.full_like(raw, MAX_NODE_SCORE))
+    out = torch.where(ignored, torch.zeros_like(norm), norm)
+    # no soft constraints: every filtered node scores MaxNodeScore (the
+    # reference's maxScore == 0 branch)
+    has_any = valid.any(dim=1, keepdim=True)
+    out = torch.where(has_any, out, torch.full_like(out, MAX_NODE_SCORE))
+    return torch.where(feasible, out, torch.zeros_like(out))
 
 
 # ---------------------------------------------------------------------------
@@ -406,9 +491,11 @@ def _owner_pairs(cluster, terms):
 
 
 def interpod_filter(cluster, batch, pre: InterpodPre | None = None,
-                    active_keys=None):
+                    return_no_matches: bool = False, active_keys=None):
     """InterPodAffinity filter -> (ok, affinity_unresolvable) (reference:
-    interpodaffinity/filtering.go:314-396)."""
+    interpodaffinity/filtering.go:314-396).  With return_no_matches, also
+    the [B] bool marking pods whose required-affinity terms match nothing
+    yet: the self-match bootstrap (filtering.go:356) is what admits them."""
     B = batch.req.shape[0]
     N = cluster.allocatable.shape[0]
     if pre is None:
@@ -464,6 +551,8 @@ def interpod_filter(cluster, batch, pre: InterpodPre | None = None,
     exist_fail = (_f(pre.em).T @ _f(sp_rows)) > 0.5
 
     ok = aff_ok & ~anti_fail & ~exist_fail
+    if return_no_matches:
+        return ok, ~aff_ok, no_matches
     return ok, ~aff_ok
 
 

@@ -110,6 +110,45 @@ def match_selectors_unique(sel: SelectorSet, kv: torch.Tensor,
     return ok.all(dim=1) & sel.sel_valid[:, None]
 
 
+def pad_selector_slots(s: SelectorSet, to: int) -> SelectorSet:
+    """Pad the SLOT axis to ``to`` entries (index 0; callers mask the
+    padding with their own validity arrays)."""
+    idx = s.index
+    n = to - idx.shape[0]
+    if n <= 0:
+        return s
+    return s._replace(index=torch.cat(
+        [idx, torch.zeros((n,), dtype=idx.dtype, device=idx.device)]))
+
+
+def concat_selector_sets(a: SelectorSet, b: SelectorSet) -> SelectorSet:
+    """Concatenate two SelectorSets compiled against the same vocab: the
+    unique rows are stacked, b's slot indices shift by a's unique count,
+    and the requirement axis is zero-padded to the larger Q (padding
+    requirements are invalid, so they match everything)."""
+    qa, qb = a.req_valid.shape[1], b.req_valid.shape[1]
+    q = max(qa, qb)
+
+    def padq(x, have):
+        if have == q:
+            return x
+        pad = [0, 0] * (x.ndim - 2) + [0, q - have]
+        return torch.nn.functional.pad(x, pad)
+
+    def cat(name):
+        x, y = getattr(a, name), getattr(b, name)
+        return torch.cat([padq(x, qa), padq(y, qb)])
+
+    ua = a.sel_valid.shape[0]
+    return SelectorSet(
+        vals_hot=cat("vals_hot"), key_hot=cat("key_hot"),
+        negate=cat("negate"), use_key=cat("use_key"),
+        req_valid=cat("req_valid"), num_key=cat("num_key"),
+        num_op=cat("num_op"), num_val=cat("num_val"),
+        sel_valid=torch.cat([a.sel_valid, b.sel_valid]),
+        index=torch.cat([a.index, b.index + ua]))
+
+
 # ---------------------------------------------------------------------------
 # host-side compiler
 

@@ -15,10 +15,14 @@ pops a BATCH of pods and places it with one device program:
 Modes: "sequential" (the default) replays scheduleOne over the batch in
 pod order (models/sequential.py) with the adaptive-sampling start index
 kept across cycles; "gang" runs the conflict-free auction
-(models/gang.py).  Both run the default plugin family.  Gang batches may
-not carry pod (anti-)affinity, spread constraints or a controller spread
-selector (they need intra-batch topology); volumes are refused in both
-modes.  Each refusal raises NotImplementedError.  Deferred, each a
+(models/gang.py).  Both run the default plugin family and restrict the
+same-pair key loops to the topology keys of the batch's terms
+(ProgramConfig.active_topo_keys).  A gang batch whose pods carry pod
+(anti-)affinity, spread constraints or a controller spread selector runs
+the auction with intra-batch topology, and so the lax round whatever the
+configured backend; each cycle's route is recorded in ``gang_backends``.
+Pods with volumes are refused in both modes (NotImplementedError).
+Deferred, each a
 ROADMAP item: the framework extension points (PreFilter/Reserve/Permit/
 PreBind/PostBind plugins, host filters and scores), volumes, preemption
 and the nominated-pods overlay, extenders, cycle chaining, delta
@@ -33,7 +37,7 @@ from __future__ import annotations
 import copy
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from .api import types as api
 from .apis.config import KubeSchedulerConfiguration, KubeSchedulerProfile
@@ -46,6 +50,7 @@ from .models.sequential import schedule_sequential
 from .schedqueue.queue import SchedulingQueue
 from .state.cache import SchedulerCache, Snapshot
 from .state.tensors import SnapshotBuilder
+from .utils import pallas_backend as PB
 from .utils import prng
 from .utils.device import DeviceLike, resolve_device
 
@@ -88,6 +93,10 @@ class Scheduler:
         self.cycle_count = 0
         self.gang_rounds: List[int] = []
         self.gang_syncs: List[int] = []
+        # (backend, reason) per gang cycle: the round the auction ran
+        # ("pallas" or "lax") and, when a pallas request was routed to
+        # lax, why (utils/pallas_backend.unsupported_reason)
+        self.gang_backends: List[Tuple[str, Optional[str]]] = []
         # host wall seconds per cycle stage, summed over cycles: snapshot,
         # tensorize (numpy build), upload (copy to the device), auction
         # (the mode's program through the packed readback), commit
@@ -181,23 +190,46 @@ class Scheduler:
             return True
         return self.cache.is_assumed_pod(pod)
 
-    def _check_supported(self, qpods: List[QueuedPodInfo],
-                         spread_sels) -> None:
-        gang = self.config.mode == "gang"
-        for qp, sel in zip(qpods, spread_sels):
+    @staticmethod
+    def _check_supported(qpods: List[QueuedPodInfo]) -> None:
+        for qp in qpods:
             pod = qp.pod
-            if gang and (pod_with_affinity(pod)
-                         or pod.spec.topology_spread_constraints
-                         or sel is not None):
-                raise NotImplementedError(
-                    "pod %s/%s carries topology terms or a controller "
-                    "spread selector; its batch needs intra-batch topology "
-                    "(ROADMAP: intra-batch topology)"
-                    % (pod.namespace, pod.metadata.name))
             if pod.spec.volumes:
                 raise NotImplementedError(
                     "pod %s/%s has volumes (ROADMAP: volumes)"
                     % (pod.namespace, pod.metadata.name))
+
+    @staticmethod
+    def _needs_topo(qpods: List[QueuedPodInfo], spread_sels) -> bool:
+        """reference: kubetpu/scheduler.py:997-1006 — a batch needs
+        intra-batch topology when a pod carries pod (anti-)affinity or
+        spread constraints, or a controller selects it (Service or
+        ReplicaSet replicas score through DefaultPodTopologySpread)."""
+        return (any(pod_with_affinity(qp.pod)
+                    or qp.pod.spec.topology_spread_constraints
+                    for qp in qpods)
+                or any(s is not None for s in spread_sels))
+
+    @staticmethod
+    def _batch_topo_keys(table, pinfos: List[PodInfo]) -> Tuple[int, ...]:
+        """reference: kubetpu/scheduler.py:1919-1937 — the topology-key
+        vocab ids of the batch's term sets, the key set of the same-pair
+        loops (a superset of every key in the batch's terms)."""
+        keys = set()
+        get = table.topokey.get
+        for pi in pinfos:
+            for term in pi.required_affinity_terms:
+                keys.add(get(term.topology_key))
+            for term in pi.required_anti_affinity_terms:
+                keys.add(get(term.topology_key))
+            for w in pi.preferred_affinity_terms:
+                keys.add(get(w.term.topology_key))
+            for w in pi.preferred_anti_affinity_terms:
+                keys.add(get(w.term.topology_key))
+            for c in pi.pod.spec.topology_spread_constraints:
+                keys.add(get(c.topology_key))
+        keys.discard(-1)
+        return tuple(sorted(keys))
 
     def _stage(self, name: str, t0: float) -> float:
         t1 = time.perf_counter()
@@ -215,7 +247,7 @@ class Scheduler:
                                preemption_may_help=False) for qp in qpods]
         spread_sels = [self.store.default_spread_selector(qp.pod)
                        for qp in qpods]
-        self._check_supported(qpods, spread_sels)
+        self._check_supported(qpods)
         pinfos = [PodInfo(qp.pod) for qp in qpods]
         t = self._stage("snapshot", t)
 
@@ -235,13 +267,17 @@ class Scheduler:
             scores=programs.DEFAULT_SCORE_PLUGINS,
             hostname_topokey=max(table.topokey.get(api.LABEL_HOSTNAME), 0),
             percentage_of_nodes_to_score=(
-                self.config.percentage_of_nodes_to_score))
+                self.config.percentage_of_nodes_to_score),
+            active_topo_keys=self._batch_topo_keys(table, pinfos))
 
         B = batch.valid.shape[0]
         if self.config.mode == "gang":
+            needs_topo = self._needs_topo(qpods, spread_sels)
+            self.gang_backends.append(self._gang_backend(cfg, needs_topo,
+                                                         hbatch))
             res = run_auction(cluster, batch, cfg, self._next_rng(),
-                              intra_batch_topology=False,
-                              kernel_backend=self.config.kernel_backend)
+                              intra_batch_topology=needs_topo,
+                              kernel_backend=self.gang_backends[-1][0])
             packed = res.packed.cpu().numpy()     # the cycle's one readback
             self.gang_rounds.append(int(packed[3 * B]))
             self.gang_syncs.append(res.syncs)
@@ -277,6 +313,16 @@ class Scheduler:
                 preemption_may_help=not unres[i])
         self._stage("commit", t)
         return outcomes
+
+    def _gang_backend(self, cfg, needs_topo: bool, hbatch
+                      ) -> Tuple[str, Optional[str]]:
+        """reference: kubetpu/scheduler.py:1372-1380 — the round this
+        cycle runs, decided from the host batch (no device read), and
+        why a pallas request runs lax."""
+        if self.config.kernel_backend != "pallas":
+            return "lax", None
+        reason = PB.unsupported_reason(cfg, needs_topo, hbatch)
+        return ("lax", reason) if reason is not None else ("pallas", None)
 
     # ------------------------------------------------------------------ commit
 

@@ -98,8 +98,9 @@ def uniform(keys: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     bits = random_bits(keys, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+    # filled on the device: no host->device copy
+    lo = torch.full((), minval, dtype=torch.float32, device=keys.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=keys.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

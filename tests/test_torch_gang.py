@@ -89,11 +89,16 @@ def test_gang_own_gumbel_matches_shared_plane():
     assert_same(want.chosen, got.chosen, "chosen")
 
 
-def test_gang_refuses_topology():
-    jcl, jb, cfg, _ = build_jax(0, 6, 4)
+def test_gang_pallas_refuses_intra():
+    """The auction program refuses a pallas round under intra-batch
+    topology, as the reference's does; schedule_gang routes such a
+    request to lax one level up (tests/test_torch_gang_topology.py)."""
+    jcl, jb, cfg, _ = build_jax(0, 6, 4, terms=True)
     tcl, tb, _ = carry(jcl, jb)
-    with pytest.raises(NotImplementedError, match="intra-batch topology"):
-        tgang.schedule_gang(tcl, tb, port_cfg(cfg), torch.tensor([0, 1]))
+    with pytest.raises(ValueError, match="intra_batch_topology=False"):
+        tgang._gang_program(tcl, tb, port_cfg(cfg), torch.tensor([0, 1]),
+                            intra_batch_topology=True,
+                            kernel_backend="pallas")
 
 
 def test_gang_refuses_inexact_sums():

@@ -196,14 +196,10 @@ def test_kernel_matches_reference(name, seed):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_run_scores_matches_reference(seed):
-    """The weighted combine of the default family on a term-free batch
-    (soft spread constraints stripped: the port scores PodTopologySpread
-    by its term-free constant path only)."""
+    """The weighted combine of the default family, soft spread
+    constraints included (the full PodTopologySpread scorer)."""
     jcl, jb, tcl, tb, cfg, feas = world(seed)
-    jb = jb._replace(spread_soft=jb.spread_soft._replace(
-        valid=jnp.zeros_like(jb.spread_soft.valid)))
-    tb = tb._replace(spread_soft=tb.spread_soft._replace(
-        valid=torch.zeros_like(tb.spread_soft.valid)))
+    assert np.asarray(jb.spread_soft.valid).any()
     aff_j = JK.node_affinity_filter(jcl, jb)
     aff_t = TK.node_affinity_filter(tcl, tb)
     a = jprog.run_scores(jcl, jb, cfg, jnp.asarray(feas), aff_j)

@@ -3,8 +3,9 @@ as bench.py's backend_compare case) drained through the JAX package's
 Scheduler(mode="gang", kernel_backend="pallas") and through the port's
 Scheduler(..., device="cpu") gives every pod the same node.  Plus the
 port's entry-point contract (CUDA by default, raising without it; a
-default configuration runs the sequential replay) and its isolation from
-JAX and the JAX package."""
+default configuration runs the sequential replay; a term-bearing gang
+batch runs with intra-batch topology) and its isolation from JAX and the
+JAX package."""
 import os
 import re
 import subprocess
@@ -134,15 +135,21 @@ def test_default_config_runs_sequential():
     assert tsched.capacity_violations(store) == []
 
 
-def test_topology_batch_is_refused():
+def test_gang_topology_batch_runs():
+    """A gang batch with a term-bearing pod runs the auction with
+    intra-batch topology: both pods placed, the anti-affinity held (its
+    empty selector matches every pod, so the two never share a node),
+    the cycle routed to lax for the reason the reference gives."""
     store, pending = _world(tstore, thollow, 4, 0, 2, 100)
     thollow.with_anti_affinity(pending[0])
     s = tsched.Scheduler(store, tconf.KubeSchedulerConfiguration(
-        mode="gang"), device="cpu")
-    for p in pending:
-        store.add(p)
-    with pytest.raises(NotImplementedError, match="intra-batch topology"):
-        s.schedule_pending()
+        mode="gang", kernel_backend="pallas"), device="cpu")
+    placed = _drain(s, store, pending)
+    s.close()
+    assert all(placed.values()) and len(placed) == 2
+    assert placed["pend-0"] != placed["pend-1"]
+    assert s.gang_backends == [("lax", "intra-batch-topology")]
+    assert s.gang_syncs == s.gang_rounds
 
 
 _ISOLATION = r"""
@@ -176,6 +183,18 @@ for p in pods:
 out = s.schedule_pending()
 assert len(out) == 4 and all(o.node for o in out), out
 assert len({o.node for o in out if o.pod.metadata.labels["app"] == "app-0"}) == 2
+# one term-bearing gang cycle: intra-batch topology, routed to lax
+s = Scheduler(store, KubeSchedulerConfiguration(
+    profiles=[KubeSchedulerProfile()], mode="gang", kernel_backend="pallas",
+    batch_size=8), device="cpu")
+pods = hollow.make_pods(4, prefix="gang-", group_labels=2)
+for p in pods:
+    hollow.with_anti_affinity(p)
+    store.add(p)
+out = s.schedule_pending()
+assert len(out) == 4 and all(o.node for o in out), out
+assert len({o.node for o in out if o.pod.metadata.labels["app"] == "app-0"}) == 2
+assert s.gang_backends == [("lax", "intra-batch-topology")], s.gang_backends
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "kubetpu" or m.startswith("kubetpu.")]
 assert not bad, bad

@@ -29,6 +29,7 @@ from kubetpu.models import sequential as jseq
 from kubetpu_torch.harness import seq_worlds
 from kubetpu_torch.models.batch import batch_to_device
 from kubetpu_torch.models import sequential as tseq
+from kubetpu_torch.ops import kernels as tK
 from tests.torch_port_util import (assert_same, build_jax_seq, carry,
                                    jax_gumbel, port_cfg)
 
@@ -185,7 +186,7 @@ def test_spread_log_weight_ulps():
     """The port's weight is log(size + 2) correctly rounded to f32; it
     differs from jnp.log's on exactly LOG_ULP_SIZES, by one ulp."""
     s = np.arange(0, 20001, dtype=np.float32)
-    port = tseq.spread_log_weight(torch.tensor(s)).numpy()
+    port = tK.spread_log_weight(torch.tensor(s)).numpy()
     exact = np.log((s + np.float32(2.0)).astype(np.float64)).astype(
         np.float32)
     np.testing.assert_array_equal(port.view(np.int32), exact.view(np.int32))

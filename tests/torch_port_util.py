@@ -178,7 +178,9 @@ def build_jax_seq(seed, n_nodes, n_pods):
                              for p in pending])
 
 
-def _build_jax_world(nodes, existing, pending, spread_selectors=None):
+def _build_jax_world(nodes, existing, pending, spread_selectors=None,
+                     filters=FULL_FILTERS,
+                     scores=jprog.DEFAULT_SCORE_PLUGINS):
     sb = JSnapshotBuilder()
     pinfos = [JPodInfo(p) for p in pending]
     sb.intern_pending(pinfos)
@@ -186,9 +188,31 @@ def _build_jax_world(nodes, existing, pending, spread_selectors=None):
     batch = jax.tree.map(np.asarray, JBatchBuilder(sb.table).build(
         pinfos, spread_selectors=spread_selectors))
     cfg = jprog.ProgramConfig(
-        filters=FULL_FILTERS, scores=jprog.DEFAULT_SCORE_PLUGINS,
+        filters=tuple(filters), scores=tuple(scores),
         hostname_topokey=max(sb.table.topokey.get(japi.LABEL_HOSTNAME), 0))
     return host.to_device(), batch, cfg, host
+
+
+def build_jax_from(nodes, existing, pending, filters, scores):
+    """(cluster jnp, batch numpy, cfg) of a world given in the JAX
+    package's API types, under the given plugin sets."""
+    return _build_jax_world(nodes, existing, pending, filters=filters,
+                            scores=scores)[:3]
+
+
+def build_port_from(nodes, existing, pending, filters, scores):
+    """The same world given in the port's API types, tensorized by the
+    port's builders: (cluster, batch, cfg) on the CPU."""
+    from kubetpu_torch.models.batch import batch_to_device
+    sb = TSnapshotBuilder()
+    pinfos = [TPodInfo(p) for p in pending]
+    sb.intern_pending(pinfos)
+    host = sb.build(_infos(TNodeInfo, nodes, existing))
+    batch = TBatchBuilder(sb.table).build(pinfos)
+    cfg = tprog.ProgramConfig(
+        filters=tuple(filters), scores=tuple(scores),
+        hostname_topokey=max(sb.table.topokey.get(tapi.LABEL_HOSTNAME), 0))
+    return host.to_device("cpu"), batch_to_device(batch, "cpu"), cfg
 
 
 def build_port(seed, n_nodes, n_pods, terms=False, device="cpu"):
