@@ -16,7 +16,17 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              a 64-row window, equals the CPU's run, every GangResult
              field; and the sequential replay on the same world (adaptive
              sampling, start index 37) equals the CPU's run, every
-             SeqResult field; every plane shared;
+             SeqResult field; every plane shared; and two preemption
+             drains, card against CPU, with the same deleted victims in
+             the same order, the same nominations and the same placements:
+             scheduler_perf's Preemption (500 nodes packed with 2,000
+             low-priority fillers, 500 preemptors) under the default
+             configuration (the sequential replay, every scan under
+             "error"), and a term-bearing preemption world
+             (kubetpu_torch/harness/preempt_worlds.py: 48 nodes, 16
+             preemptors, PDBs, parked nominations) in gang mode under
+             "pallas", whose what-ifs take the per-pod reprieve (its ms
+             per call reported);
   kernel     the CUDA propose kernel equals its plain PyTorch version
              bitwise (prop/act/best) on seeded worlds at the slice's shapes
              (W=1024 rows, and a W=512 window with sentinel rows of a
@@ -51,6 +61,20 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              last batches find one free slot per node and contend.
              Drained under "pallas" and "lax": every pod placed, four per
              node, identical placements;
+  preempt    Preemption5000Nodes' measured phase (config/performance-
+             config.yaml:163-171): the fill's end state (20,000 900m
+             fillers at priority -10, four on each of 5,000 nodes, bound
+             directly: the fill phase drains the same packing) and 5,000
+             preemptors (600m, 250 Mi, priority 100,
+             kubetpu/harness/perf.py:111-116), drained in gang mode under
+             "pallas", batch 1,000, through the PostFilter wave and the
+             nominated-pods overlay.  Every preemptor bound, every evicted
+             pod a lower-priority filler, none deleted twice, no capacity
+             violated, no wave failed; every auction under "error".
+             Reports cycles, waves, wave rounds, evictions, device reads
+             per wave, the stages (with "preempt"), the what-if's device
+             ms per wave and K1's launches (recorded and held against the
+             plain version);
   seq_slice  SchedulingBasic5000Nodes under the default configuration: mode
              sequential (the replay, models/sequential.py), adaptive
              sampling (500 of 5,000 nodes per pod), batch 1,000.  Every
@@ -100,14 +124,15 @@ before the rounds and the one flags read per round (GangRounds), and
 each auction's flag reads must equal its rounds.
 
 The main path is the pallas drain of each of slice, backlog, fill,
-gang_anti and gang_spread, and each sequential drain: the kernel launch
+preempt, gang_anti and gang_spread, and each sequential drain: the kernel launch
 count is zeroed just before each and read just after it, and reported
 per path.  The slice never launches the kernel (above), nor do the
 term-bearing gang drains (routed to the lax round, as the JAX package
 routes them) or the sequential replay (no propose step: the JAX
 package's scan reaches no Pallas kernel); in the backlog and fill
 drains every launch's inputs and outputs are recorded (the fill's first
-16) and, after the drain, the outputs are held bitwise against the plain
+16, the preempt drain's first 16) and, after the drain, the outputs are
+held bitwise against the plain
 version on the same inputs, and the kernel is timed on the widest
 recorded launch's real inputs.
 
@@ -127,10 +152,10 @@ import sys
 import time
 
 ALL_PHASES = ("reference", "kernel", "slice", "backlog", "fill",
-              "seq_slice", "seq_anti", "seq_spread", "gang_anti",
+              "preempt", "seq_slice", "seq_anti", "seq_spread", "gang_anti",
               "gang_spread", "profile")
-MAIN_PATHS = ("slice", "backlog", "fill", "seq_slice", "seq_anti",
-              "seq_spread", "gang_anti", "gang_spread")
+MAIN_PATHS = ("slice", "backlog", "fill", "preempt", "seq_slice",
+              "seq_anti", "seq_spread", "gang_anti", "gang_spread")
 FILL_NODES = 5000             # Preemption5000Nodes: 5,000 nodes,
 FILL_PODS = 4 * FILL_NODES    # 20,000 init pods (four 900m pods fill a node)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -233,6 +258,9 @@ def drain(store, pods, backend, batch_size, device, record=None,
         if restore is not None:
             restore()
     sched.close()
+    if sched.preempt_wave_failures:
+        raise AssertionError("drain: %d preemption waves failed"
+                             % sched.preempt_wave_failures)
     return sched, placed, seconds, gr.summary() if gang_card else None
 
 
@@ -609,6 +637,7 @@ def phase_reference() -> dict:
                                      "launch K1")
     out["gang_topology"] = _gang_topology_reference()
     out["sequential"] = _seq_reference()
+    out.update(_preemption_references())
     return out
 
 
@@ -887,6 +916,19 @@ def phase_kernel() -> dict:
     ms_dps0 = kernel_ms((b0,) + tuple(args[1:]))[0]
     # above the staging threshold (N=20,480, statistics planes read twice)
     ms_big = kernel_ms(random_bundle(23, 256, 20480, "cuda"))[0]
+    # the selectHost gumbel plane at the slice's widths: XLA's f32 log
+    # (float64 fused multiply-adds), and the torch-log plane it replaced
+    import numpy as np
+    from kubetpu_torch.utils import prng
+    rng = prng.PRNGKey(3, device="cuda")
+    tiny = float(np.finfo(np.float32).tiny)
+
+    def torch_log_plane():
+        keys = prng.fold_in(rng, torch.arange(1024, device="cuda"))
+        u = prng.uniform(keys, (8192,), tiny, 1.0)
+        return -torch.log(-torch.log(u))
+    plane_ms = time_ms(lambda: prng.select_plane(rng, 1024, 8192), 5)
+    plane_torch_log_ms = time_ms(torch_log_plane, 5)
     # the SM clock and power while the kernel runs: queue ~0.5 s of
     # launches, read nvidia-smi meanwhile, then drain
     for _ in range(max(200, int(500 / ms))):
@@ -900,6 +942,8 @@ def phase_kernel() -> dict:
                 share_of_bound_w512=bound_w / ms_w,
                 ms_dps_zero=ms_dps0, ms_n20480_unstaged=ms_big,
                 staged_max_n=staged_max, worlds=len(worlds),
+                gumbel_plane_ms_1024x8192=plane_ms,
+                gumbel_plane_torch_log_ms=plane_torch_log_ms,
                 fast_div_pairs_checked=fast_div_pairs,
                 under_load=clocks)
 
@@ -1085,8 +1129,16 @@ def phase_backlog() -> dict:
 
 def phase_fill() -> dict:
     """Preemption5000Nodes' init phase: every filler placed, four on every
-    node (the template packs the cluster exactly)."""
-    out, stores = _pallas_vs_lax("fill", fill_world, 1000, record_limit=16)
+    node (the template packs the cluster exactly); nothing is nominated,
+    so no cycle runs a nominated-pods overlay pass."""
+    from kubetpu_torch.models import programs as PR
+    with DeviceTimed(PR, "nominated_fit_mask") as overlay:
+        out, stores = _pallas_vs_lax("fill", fill_world, 1000,
+                                     record_limit=16)
+    if overlay.events:
+        raise AssertionError("fill: %d nominated-pods overlay passes with "
+                             "nothing nominated" % len(overlay.events))
+    out["overlay_passes"] = 0
     for backend, store in stores.items():
         if out[backend]["placed"] != FILL_PODS:
             raise AssertionError("fill: %d/%d pods placed (%s)"
@@ -1099,6 +1151,264 @@ def phase_fill() -> dict:
         if len(per_node) != FILL_NODES or set(per_node.values()) != {4}:
             raise AssertionError("fill: nodes not packed four each (%s)"
                                  % backend)
+    return out
+
+
+def packed_fill_store(n_nodes=FILL_NODES):
+    """The fill's end state: 4 * n_nodes fillers bound four per node (the
+    fill phase drains exactly this packing)."""
+    store = hollow_store(n_nodes, 0)
+    for i, p in enumerate(filler_pods(4 * n_nodes)):
+        p.spec.node_name = f"node-{i // 4}"
+        store.add(p)
+    return store
+
+
+def preemptor_pods(n):
+    """Preemption's measured pods (kubetpu/harness/perf.py:111-116): 600m,
+    250 Mi, priority 100 — more cpu than a packed node has free."""
+    from kubetpu_torch.harness import hollow
+    return [hollow.make_pod(f"measured-{i}", cpu_milli=600, mem=250 << 20,
+                            priority=100,
+                            labels={"app": f"app-{i % 10}",
+                                    "group": "measured"})
+            for i in range(n)]
+
+
+class DeviceTimed:
+    """CUDA-event device time of every call of ``module.name`` whose first
+    argument (the cluster) lies on the card; calls on the CPU pass
+    through.  Events only: no sync inside the call.  Restored on exit."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.events = module, name, []
+
+    def __enter__(self):
+        import torch
+        self._orig = fn = getattr(self.module, self.name)
+
+        def call(cluster, *args, **kw):
+            if not cluster.requested.is_cuda:
+                return fn(cluster, *args, **kw)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(cluster, *args, **kw)
+            b.record()
+            self.events.append((a, b))
+            return out
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._orig)
+
+    def ms(self) -> list:
+        import torch
+        if not self.events:
+            return []
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def _preempt_drain(store, pods, backend, device, batch_size=None,
+                   parked=(), record=None, record_limit=None):
+    """Drain ``pods`` through the failure path: gang under ``backend``, or
+    the default configuration with backend None.  Backoff is 0 and, when
+    nothing is active but pods wait, the unschedulable pods move at once
+    (the reference's 60 s leftover flush, compressed).  ``parked``: (pod,
+    node) nominations made before the drain.  On the card every auction
+    runs under GangRounds, every scan under SeqScans.  Returns (scheduler,
+    placements, deleted pods [(name, priority, group)] in order,
+    nominations, seconds, sync summary)."""
+    import torch
+    from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
+                                           KubeSchedulerProfile)
+    from kubetpu_torch.scheduler import Scheduler
+    cfg = KubeSchedulerConfiguration(profiles=[KubeSchedulerProfile()],
+                                     pod_initial_backoff_seconds=0.0,
+                                     pod_max_backoff_seconds=0.0)
+    if batch_size:
+        cfg.batch_size = batch_size
+    if backend is not None:
+        cfg.mode, cfg.kernel_backend = "gang", backend
+    sched = Scheduler(store, config=cfg, device=device)
+    deleted = []
+    orig_delete = store.delete
+
+    def delete(obj):
+        if obj.kind == "Pod":
+            deleted.append((obj.metadata.name, obj.priority(),
+                            obj.metadata.labels.get("group")))
+        return orig_delete(obj)
+    store.delete = delete
+    for p, nn in parked:
+        sched.queue.add_nominated_pod(p, nn)
+    for p in pods:
+        store.add(p)
+    placed = {}
+    restore = (_record_launches(record, record_limit)
+               if record is not None else None)
+    card = device == "cuda"
+    guard = (GangRounds() if card and backend is not None
+             else SeqScans() if card else contextlib.nullcontext())
+    try:
+        with guard as gr:
+            t0 = time.perf_counter()
+            idle = 0
+            while len(sched.queue):
+                sched.queue.flush_backoff_completed()
+                out = sched.schedule_pending()
+                if out:
+                    idle = 0
+                    for o in out:
+                        placed[o.pod.metadata.name] = o.node
+                    continue
+                idle += 1
+                if idle > 2:
+                    raise AssertionError("preemption drain stalled with %d "
+                                         "pods queued" % len(sched.queue))
+                sched.queue.move_all_to_active_or_backoff_queue(
+                    "UnschedulableTimeout")
+            if card:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        if restore is not None:
+            restore()
+        store.delete = orig_delete
+    sched.close()
+    noms = {p.metadata.name: p.status.nominated_node_name
+            for p in store.list("Pod") if p.status.nominated_node_name}
+    return (sched, placed, deleted, noms, seconds,
+            gr.summary() if card else None)
+
+
+def _preempt_stats(sched) -> dict:
+    """The drain's preemption counters (Scheduler.preempt_stats)."""
+    tot = {k: sum(c[k] for c in sched.preempt_stats)
+           for k in ("waves", "rounds", "evictions", "reads")}
+    tot["wave_rounds"] = tot.pop("rounds")
+    tot["reads_per_wave"] = (tot["reads"] / tot["waves"] if tot["waves"]
+                             else None)
+    return tot
+
+
+def phase_preempt(n_nodes=FILL_NODES, device="cuda") -> dict:
+    """Preemption5000Nodes' measured phase on the packed fill: 5,000
+    preemptors through the PostFilter wave, gang under "pallas", batch
+    1,000.  (Smaller sizes and the CPU only for a rehearsal.)"""
+    from kubetpu_torch import preemption as PRE
+    from kubetpu_torch.models import programs as PR
+    from kubetpu_torch.ops import propose as PK
+    from kubetpu_torch.scheduler import capacity_violations
+    store = packed_fill_store(n_nodes)
+    pods = preemptor_pods(n_nodes)
+    record = []
+    PK.propose.launches = 0          # this path starts: zero the count
+    with DeviceTimed(PR, "whatif_wave") as wave_t, \
+            DeviceTimed(PRE, "_whatif_reprieve") as rep_t:
+        sched, placed, deleted, noms, seconds, rounds = _preempt_drain(
+            store, pods, "pallas", device, n_nodes // 5, record=record,
+            record_limit=16)
+    launches = PK.propose.launches
+    unbound = [p.metadata.name for p in store.list("Pod")
+               if p.metadata.labels.get("group") == "measured"
+               and not p.spec.node_name]
+    if unbound or len(placed) != n_nodes:
+        raise AssertionError("preempt: %d preemptors unbound (%s)"
+                             % (len(unbound), unbound[:5]))
+    names = [d[0] for d in deleted]
+    if len(set(names)) != len(names):
+        raise AssertionError("preempt: a pod was deleted twice")
+    bad = [d for d in deleted if d[2] != "init" or d[1] >= 100]
+    if bad:
+        raise AssertionError("preempt: evicted non-fillers or peers: %s"
+                             % bad[:5])
+    if capacity_violations(store):
+        raise AssertionError("preempt: capacity violated")
+    if sched.preempt_wave_failures:
+        raise AssertionError("preempt: %d waves failed"
+                             % sched.preempt_wave_failures)
+    stats = _preempt_stats(sched)
+    wave_ms = wave_t.ms()
+    if stats["evictions"] != len(deleted):
+        raise AssertionError("preempt: %d evictions counted, %d pods "
+                             "deleted" % (stats["evictions"], len(deleted)))
+    out = dict(placed=len(placed), cycles=sched.cycle_count,
+               **stats, launches=launches,
+               routes=sorted(set(sched.gang_backends)),
+               auction_rounds=sched.gang_rounds, drain_s=seconds,
+               stage_s=sched.stage_s, pods_per_s=len(placed) / seconds,
+               whatif_calls=len(wave_ms), whatif_ms=wave_ms,
+               whatif_ms_per_wave=(sum(wave_ms) / stats["waves"]
+                                   if stats["waves"] else None),
+               reprieve_calls=len(rep_t.ms()), sync_check=rounds)
+    if record:
+        out["recorded"] = check_recorded(record, "preempt")
+    return out
+
+
+def _preempt_card_vs_cpu(what, make, backend, batch_size=None):
+    """make() -> (store, pods, parked), drained on the CPU and on the
+    card: the same deleted pods in the same order, the same nominations,
+    the same placements."""
+    from kubetpu_torch import preemption as PRE
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        store, pods, parked = make()
+        with DeviceTimed(PRE, "_whatif_reprieve") as rep_t:
+            sched, placed, deleted, noms, seconds, sync = _preempt_drain(
+                store, pods, backend, dev, batch_size, parked)
+        runs[dev] = (placed, deleted, noms)
+        if sched.preempt_wave_failures:
+            raise AssertionError("reference %s: a wave failed" % what)
+        if dev == "cuda":
+            rep_ms = rep_t.ms()
+            out = dict(placed=sum(1 for v in placed.values() if v),
+                       pods=len(pods), cycles=sched.cycle_count,
+                       deleted=len(deleted), **_preempt_stats(sched),
+                       card_s=seconds, sync_check=sync,
+                       reprieve_calls=len(rep_ms),
+                       reprieve_ms_per_call=(sum(rep_ms) / len(rep_ms)
+                                             if rep_ms else None))
+        else:
+            cpu_s = seconds
+    if runs["cpu"] != runs["cuda"]:
+        raise AssertionError("reference %s: card and CPU differ (deleted "
+                             "%s, nominations %s, placements %s)" % (
+                                 what, runs["cpu"][1] == runs["cuda"][1],
+                                 runs["cpu"][2] == runs["cuda"][2],
+                                 runs["cpu"][0] == runs["cuda"][0]))
+    if not runs["cpu"][1] or not runs["cpu"][2]:
+        raise AssertionError("reference %s: nothing was preempted" % what)
+    out.update(cpu_s=cpu_s, matches_cpu=True)
+    return out
+
+
+def _preemption_references() -> dict:
+    """scheduler_perf's Preemption (500 nodes, 2,000 fillers, 500
+    preemptors) in the default configuration, and a term-bearing
+    preempt_worlds world in gang mode (the per-pod reprieve)."""
+    from kubetpu_torch.api import types as api
+    from kubetpu_torch.client.store import ClusterStore
+    from kubetpu_torch.harness import preempt_worlds as PW
+
+    def perf_preemption():
+        return packed_fill_store(500), preemptor_pods(500), ()
+
+    def term_world():
+        w = PW.world(api, 21, 48, 16, terms=True)
+        store = ClusterStore()
+        PW.populate(store, w)
+        return store, w.pending, w.parked
+
+    out = dict(preemption_seq=_preempt_card_vs_cpu(
+        "Preemption", perf_preemption, None))
+    terms = _preempt_card_vs_cpu("terms", term_world, "pallas", 8)
+    if not terms["reprieve_calls"]:
+        raise AssertionError("reference terms: no per-pod reprieve ran")
+    out["preemption_terms"] = terms
     return out
 
 
@@ -1292,6 +1602,8 @@ def main() -> int:
         k = results["kernel"]
         recorded = [results[ph]["pallas"]["recorded"]
                     for ph in ("backlog", "fill")]
+        if "recorded" in results["preempt"]:
+            recorded.append(results["preempt"]["recorded"])
         log({"kernels": [{
             "name": "propose", "route": "cuda",
             "source": "kubetpu_torch/ops/csrc/propose.cu",

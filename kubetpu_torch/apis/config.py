@@ -44,6 +44,9 @@ class KubeSchedulerConfiguration:
     # (ops/propose.py; the name matches the JAX package's option) for the
     # batches it serves (utils/pallas_backend.py); others run "lax"
     kernel_backend: str = "lax"
+    # reference: types.go:85 DisablePreemption — off, a pod that fits
+    # nowhere is requeued without the PostFilter (no evictions)
+    disable_preemption: bool = False
 
     def validate(self) -> None:
         if self.mode not in MODES:

@@ -7,7 +7,9 @@ them at once on the device.  Everything string-typed is resolved against
 the cluster InternTable at batch-build time (lookups only — a pod
 referencing a label value that exists nowhere in the cluster simply never
 matches).  The numpy builder is the JAX package's, unchanged (B =
-pow2_bucket(pods, 8)); batch_to_device and densify_for are torch.
+pow2_bucket(pods, 8)); batch_to_device and densify_for are torch.  The
+nominated-pods overlay arrays (NominatedPods, build_nominated) are the
+JAX package's too.
 """
 
 from __future__ import annotations
@@ -138,6 +140,60 @@ def batch_from_numpy(d, device) -> PodBatch:
     for f in sels:
         d[f] = SelectorSet(**dict(d[f]))
     return batch_to_device(PodBatch(**d), device)
+
+
+class NominatedPods(NamedTuple):
+    """Pods nominated to nodes by preemption, overlaid onto node usage when
+    filtering lower/equal-priority pods (reference: addNominatedPods,
+    core/generic_scheduler.go:530 — equal-or-greater priority nominated
+    pods are treated as running on their nominated node).  The overlay
+    covers the resource/pod-count dimension of AddPod; the topology
+    dimension is models/programs.nominated_topology_mask."""
+    req: np.ndarray    # [M, R] request channels (CH_PODS = 1)
+    node: np.ndarray   # [M] i32 node row
+    prio: np.ndarray   # [M] i32 pod priority
+    valid: np.ndarray  # [M] bool
+    self_row: np.ndarray  # [M] i32 — the nominated pod's own row in the
+                       # CURRENT batch (-1 if not in it); a pod never
+                       # overlays itself (addNominatedPods skips the pod
+                       # being scheduled)
+
+
+def build_nominated(entries: Sequence, table: InternTable,
+                    pad_m: Optional[int] = None) -> NominatedPods:
+    """entries: (PodInfo, node_row) or (PodInfo, node_row, self_row) tuples
+    for pods nominated to snapshot rows.  Returns the host overlay arrays
+    (pow2-padded)."""
+    R = N_FIXED_CHANNELS + table.rname.cap
+    M = pad_m if pad_m is not None else pow2_bucket(len(entries), 1)
+    req = np.zeros((M, R), np.float32)
+    node = np.full((M,), -1, np.int32)
+    prio = np.zeros((M,), np.int32)
+    valid = np.zeros((M,), bool)
+    self_row = np.full((M,), -1, np.int32)
+    for i, entry in enumerate(entries):
+        pi, row = entry[0], entry[1]
+        req[i] = resource_to_channels(pi.resource, table, R, intern_new=False)
+        req[i, CH_PODS] = 1.0
+        node[i] = row
+        prio[i] = pi.pod.priority()
+        valid[i] = True
+        if len(entry) > 2:
+            self_row[i] = entry[2]
+    return NominatedPods(req=req, node=node, prio=prio, valid=valid,
+                         self_row=self_row)
+
+
+def nominated_to_device(nom: NominatedPods, device) -> NominatedPods:
+    """Copy every leaf of a NominatedPods to ``device`` (always a copy)."""
+    return NominatedPods(*[copy_to(x, device) for x in nom])
+
+
+def nominated_from_numpy(d, device) -> NominatedPods:
+    """A device NominatedPods from the leaves of a JAX-package
+    NominatedPods given as a dict of numpy arrays with the same field
+    names, as batch_from_numpy does for a PodBatch."""
+    return nominated_to_device(NominatedPods(**dict(d)), device)
 
 
 def densify_for(cluster, batch: "PodBatch") -> "PodBatch":

@@ -376,6 +376,7 @@ def _gang_program(cluster, batch, cfg: ProgramConfig, rng,
     if "PodTopologySpread" in score_names:
         score_pre["spread_soft"] = K.spread_match_ns(ext, batch,
                                                      batch.spread_soft)
+        score_pre["spread_log"] = K.spread_log_table(N, dev)
     if "DefaultPodTopologySpread" in score_names:
         score_pre["default_spread"] = K.default_spread_match_ns(ext, batch)
     term_pre: Dict[str, object] = {}
@@ -467,7 +468,8 @@ def _gang_program(cluster, batch, cfg: ProgramConfig, rng,
         sb = dict(rows=rows, valid=sub_batch.valid, batch=sub_batch,
                   static_ok=g(static_ok), ports_ok0=g(ports_ok0),
                   affinity_ok=g(affinity_ok), gumbel=g(gumbel),
-                  score_pre={k: g_pre(v) for k, v in score_pre.items()},
+                  score_pre={k: v if k == "spread_log" else g_pre(v)
+                             for k, v in score_pre.items()},
                   score_bias=None if score_bias is None else g(score_bias))
         for k, v in term_pre.items():
             sb[k] = v[:, rsafe] if k.startswith("mu_") else g_pre(v)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import kernels as K
@@ -145,9 +146,8 @@ def run_scores(cluster, batch, cfg: ProgramConfig, feasible, affinity_ok,
     """Per-plugin normalized scores x weight, summed (reference:
     framework.go:579-656 RunScorePlugins).  pre: precomputed
     assignment-independent tensors ("interpod_score", "default_spread",
-    "raw:<plugin>").  PodTopologySpread scores the term-free constant path
-    only: a batch with soft spread constraints is refused before the
-    auction (ROADMAP: intra-batch topology)."""
+    "spread_soft", "spread_log" — the soft-spread weight table of
+    ops/kernels.spread_log_table — and "raw:<plugin>")."""
     pre = pre or {}
     total = torch.zeros(feasible.shape, dtype=torch.float32,
                         device=feasible.device)
@@ -180,6 +180,7 @@ def run_scores(cluster, batch, cfg: ProgramConfig, feasible, affinity_ok,
             s = K.spread_soft_score(cluster, batch, feasible, affinity_ok,
                                     cfg.hostname_topokey,
                                     match_ns=pre.get("spread_soft"),
+                                    log_table=pre.get("spread_log"),
                                     active_keys=cfg.active_keys)
         elif name == "DefaultPodTopologySpread":
             raw = K.default_spread_score(cluster, batch,
@@ -198,3 +199,162 @@ def run_scores(cluster, batch, cfg: ProgramConfig, feasible, affinity_ok,
         per_plugin[name] = s
         total = total + s
     return total, per_plugin
+
+
+# ---------------------------------------------------------------------------
+# preemption's programs and the nominated-pods overlay
+# (kubetpu/models/programs.py:358-443, 528-612)
+
+
+def filter_verdicts(cluster, batch, cfg: ProgramConfig, host_ok=None):
+    """Filters only — (feasible, unresolvable) [B, N].  Preemption's shared
+    verdict refresh uses this; scores there would be pure waste."""
+    from .batch import densify_for
+    batch = densify_for(cluster, batch)
+    feasible, unresolvable, _ = run_filters(cluster, batch, cfg, host_ok)
+    return feasible, unresolvable
+
+
+def whatif_static_ok(cluster, batch, cfg: ProgramConfig):
+    """Per-(pod, node) verdict of every filter EXCEPT NodeResourcesFit —
+    the victim-removal-invariant half of the preemption what-if (removing
+    victims perturbs only the resource channels for the term-free pods the
+    wave serves).  cfg must already have the droppable topology filters
+    removed."""
+    from .batch import densify_for
+    batch = densify_for(cluster, batch)
+    feasible, _, _ = run_filters(cluster, batch, cfg,
+                                 skip=("NodeResourcesFit",))
+    return feasible
+
+
+def whatif_wave(cluster, static_ok, wave_req, cand_rows, cand_valid,
+                nom_add, tab_req, tab_valid, cand_idx):
+    """Wave-batched selectVictimsOnNode (generic_scheduler.go:949) for a
+    whole cycle's failed pods at once, the [B, C, K] axis of the
+    preemption wave (preemption.py preempt_wave).  Victims arrive as a
+    compact per-(priority, node) table plus per-(pod, candidate) indices
+    into it; the [B, C, K, R] expansion happens on the device.
+
+    static_ok [B, N]      all non-fit filter verdicts (whatif_static_ok)
+    wave_req  [B, R]      preemptor resource request channels
+    cand_rows [B, C]      candidate node rows per pod (-1 pad)
+    cand_valid [B, C]     real (pod, candidate) pairs
+    nom_add   [B, C, R]   nominated-pod requests reserved on each candidate
+    tab_req   [S, K, R]   victim resources per table row, reprieve order
+    tab_valid [S, K]      real victim slots per table row
+    cand_idx  [B, C]      table row per (pod, candidate) (0 pad)
+
+    Returns packed [B, C, K+1] bool: [..., 0] = pod fits with every victim
+    removed (fits0); [..., 1 + k] = victim k was reprieved (stays).  The
+    reprieve scan over K is a Python loop of device ops, no host read; the
+    victims' sum adds k = 0, 1, ... in order, as XLA reduces that axis."""
+    rows = cand_rows.long().clamp(min=0)
+    sok = torch.gather(static_ok, 1, rows) & cand_valid          # [B, C]
+    idx = cand_idx.long()
+    vic_req = tab_req[idx]                                       # [B, C, K, R]
+    vic_valid = tab_valid[idx] & cand_valid[:, :, None]          # [B, C, K]
+    n_vic = vic_req.shape[2]
+    masked = vic_req * vic_valid[..., None].to(vic_req.dtype)
+    rm_req = torch.zeros_like(masked[:, :, 0])
+    for k in range(n_vic):
+        rm_req = rm_req + masked[:, :, k]                        # [B, C, R]
+    free_base = (cluster.allocatable - cluster.requested)[rows]  # [B, C, R]
+    breq = wave_req[:, None, :].expand(free_base.shape)
+    free = free_base - nom_add + rm_req
+    fits0 = K.fit_rows(breq, free) & sok
+    out = [fits0]
+    for k in range(n_vic):
+        exists = vic_valid[:, :, k] & fits0
+        try_free = free - vic_req[:, :, k] * exists[..., None].to(free.dtype)
+        fit = K.fit_rows(breq, try_free) & sok & exists
+        free = torch.where(fit[..., None], try_free, free)
+        out.append(fit)
+    return torch.stack(out, dim=2)
+
+
+def nominated_fit_mask(cluster, batch, nom):
+    """The nominated-pods overlay pass (reference: addNominatedPods +
+    two-pass filtering, core/generic_scheduler.go:530,594-612): for each
+    pod, nominated pods of EQUAL-OR-GREATER priority — excluding the pod
+    ITSELF when it is the nominator — count as running on their nominated
+    nodes, and the pod must fit with that usage added.  The overlay-free
+    pass is the main filter program, so ANDing this mask in reproduces the
+    two-pass rule for the resource dimension.  The work is [B, M, R]
+    (M = nominated pods), never [B, N, R].  Returns [B, N] bool."""
+    B = batch.priority.shape[0]
+    N = cluster.allocatable.shape[0]
+    M = nom.node.shape[0]
+    dev = batch.req.device
+    ok_entry = nom.valid & (nom.node >= 0)
+    # w[b, j]: entry j reserves capacity against pod b
+    w = ((nom.prio[None, :] >= batch.priority[:, None]) & ok_entry[None, :]
+         & (nom.self_row[None, :]
+            != torch.arange(B, dtype=nom.self_row.dtype, device=dev)[:, None]))
+    # slot m's overlay sums entry j's request over the valid entries on
+    # m's node (same_node[m, j]) that reserve against pod b (w[b, j]), in
+    # ascending j as XLA's contraction adds them.  The entries of one node
+    # are few: take the r-th member of every slot's node group for
+    # r = 0, 1, ..., so no [B, M, M] coefficient tensor is built (one
+    # read of the entries' node rows, to group them)
+    node = nom.node.cpu().numpy()
+    members: dict = {}
+    for j in np.flatnonzero(ok_entry.cpu().numpy()):
+        members.setdefault(int(node[j]), []).append(int(j))
+    depth = max((len(v) for v in members.values()), default=0)
+    member = np.full((depth, M), -1, np.int64)
+    for m in range(M):
+        group = members.get(int(node[m]), ())
+        member[:len(group), m] = group
+    member = torch.from_numpy(member).to(dev)
+    overlay = torch.zeros((B, M, nom.req.shape[1]), dtype=torch.float32,
+                          device=dev)
+    for r in range(depth):
+        j = member[r]
+        js = j.clamp(min=0)
+        take = w[:, js] & (j >= 0)[None, :]                         # [B, M]
+        overlay = overlay + take.to(torch.float32)[..., None] * nom.req[js]
+    rows = nom.node.long().clamp(0, N - 1)
+    free = cluster.allocatable[rows] - cluster.requested[rows]       # [M, R]
+    ok = K.fit_rows(batch.req[:, None, :].expand(overlay.shape),
+                    free[None, :, :] - overlay)                      # [B, M]
+    vals = torch.where(ok_entry[None, :], ok, torch.ones_like(ok))
+    # .at[:, rows].min: several entries may share a node row
+    mask = torch.ones((B, N), dtype=torch.uint8, device=dev)
+    mask.scatter_reduce_(1, rows[None, :].expand(B, M), vals.to(torch.uint8),
+                         "amin", include_self=True)
+    return mask.bool()
+
+
+def nominated_topology_mask(cluster, nom_batch, nom_rows, nom_prio, batch,
+                            cfg: ProgramConfig):
+    """Topology dimension of addNominatedPods (generic_scheduler.go:530):
+    nominated pods become EXISTING pods placed on their nominated nodes —
+    labels, namespaces and required anti-affinity terms included — and the
+    batch re-runs its InterPodAffinity + PodTopologySpread filters against
+    that extended cluster.  Rows where no nominated pod of >= priority
+    qualifies pass untouched; rows where only a subset qualifies see the
+    full overlay (the reference's documented over-blocking deviation).
+    Returns [B, N] bool."""
+    from .batch import densify_for
+    from .gang import _extend_cluster   # lazy: gang imports this module
+    batch = densify_for(cluster, batch)
+    nom_batch = densify_for(cluster, nom_batch)
+    ext = _extend_cluster(cluster, nom_batch)
+    placed = nom_batch.valid & (nom_rows >= 0)
+    ext = ext._replace(
+        pod_node=torch.cat([cluster.pod_node, nom_rows.to(torch.int32)]),
+        pod_valid=torch.cat([cluster.pod_valid, placed]))
+    affinity_ok = K.node_affinity_filter(ext, batch)
+    ok = torch.ones((batch.valid.shape[0], cluster.allocatable.shape[0]),
+                    dtype=torch.bool, device=batch.req.device)
+    if "PodTopologySpread" in cfg.filters:
+        ok = ok & K.spread_filter(ext, batch, affinity_ok,
+                                  active_keys=cfg.active_keys)
+    if "InterPodAffinity" in cfg.filters:
+        ipa_ok, _ = K.interpod_filter(ext, batch,
+                                      active_keys=cfg.active_keys)
+        ok = ok & ipa_ok
+    affected = (placed[None, :]
+                & (nom_prio[None, :] >= batch.priority[:, None])).any(dim=1)
+    return torch.where(affected[:, None], ok, torch.ones_like(ok))

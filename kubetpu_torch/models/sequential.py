@@ -28,10 +28,9 @@ Exactness, beyond ops/kernels.py's rules:
   channels), so ``index_add_``'s atomics on the card give the same sums as
   the reference's ordered scatter, duplicate ids included;
 * the soft-spread weight log(size + 2) is ops/kernels.spread_log_weight,
-  taken in float64 and rounded once to float32 (correctly rounded, the
-  same bits on the CPU and the card; XLA:CPU's f32 log differs from it on
-  a few sizes, listed by tests/test_torch_sequential.py), and its
-  products are summed over the constraints left to right, as the
+  XLA:CPU's f32 log (utils/xla_math, the same bits on the CPU and the
+  card), tabulated once per scan for the sizes 0..N a step can meet, and
+  its products are summed over the constraints left to right, as the
   reference's reduction does;
 * selectHost draws from a [B, N] plane made before the loop
   (utils/prng.select_plane): argmax(where(ties, gumbel_row, -2**62)) is
@@ -153,7 +152,7 @@ def schedule_sequential(cluster, batch, cfg: ProgramConfig, rng,
     for name in UNPORTED_PLUGINS:
         if name in filters or name in score_w:
             raise NotImplementedError(
-                "plugin %s is not ported (ROADMAP queue 1 item 3: "
+                "plugin %s is not ported (ROADMAP queue 1 item 4: "
                 "framework extension points)" % name)
     batch = densify_for(cluster, batch)
     dev = batch.req.device
@@ -219,6 +218,7 @@ def schedule_sequential(cluster, batch, cfg: ProgramConfig, rng,
             & scons.topo_known
         sps_scope = scons.valid & scons.topo_known                # [B, Cs]
         sps_any = scons.valid.any(dim=1)
+        sps_log = K.spread_log_table(N, dev)     # the weight of each size
 
     use_ipf = "InterPodAffinity" in filters
     if use_ipf:
@@ -481,7 +481,7 @@ def schedule_sequential(cluster, batch, cfg: ProgramConfig, rng,
             topo_size = _f(reg).sum(dim=1)
             n_scored = _f(scored).sum()
             size = torch.where(is_host, n_scored, topo_size)
-            weight = K.spread_log_weight(size)
+            weight = K.spread_log_weight(size, sps_log)
             pair_c = K.pair_gather(torch.where(reg, c["sps_cnt"][rows], 0.0),
                                    npair)
             cval = torch.where(is_host[:, None], c["sps_node"][rows], pair_c)

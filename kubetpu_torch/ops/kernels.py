@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..state.tensors import CH_CPU, CH_MEM, CH_PODS, N_FIXED_CHANNELS
+from ..utils.xla_math import xla_log_f32
 from .selectors import match_selectors
 
 MAX_NODE_SCORE = 100.0  # reference: framework/v1alpha1/interface.go:85
@@ -338,15 +339,26 @@ def spread_filter(cluster, batch, affinity_ok, match_ns=None,
     return torch.where(gate, ok, torch.ones_like(ok))
 
 
-def spread_log_weight(size: torch.Tensor) -> torch.Tensor:
+def spread_log_table(n: int, device) -> torch.Tensor:
+    """spread_log_weight of every size 0..n: a size counts nodes or the
+    distinct pairs of nodes, so n = the cluster's node rows bounds it."""
+    return xla_log_f32(torch.arange(n + 1, dtype=torch.float32,
+                                    device=device) + 2.0)
+
+
+def spread_log_weight(size: torch.Tensor, table=None) -> torch.Tensor:
     """log(size + 2) of the soft-spread score (scoring.go:286): the f32
-    sum size + 2, its log in float64, rounded once to float32 (the same
-    bits on the CPU and the card)."""
-    return torch.log((size + 2.0).double()).float()
+    sum size + 2 and XLA:CPU's f32 log of it (utils/xla_math), the
+    reference's bits on the CPU and the card.  ``size`` is integer-valued;
+    with ``table`` (spread_log_table) the weight is a gather of the same
+    bits, not the log's ~250 kernels on every call."""
+    if table is None:
+        return xla_log_f32(size + 2.0)
+    return table[size.long().clamp(0, table.shape[0] - 1)]
 
 
 def spread_soft_score(cluster, batch, feasible, affinity_ok,
-                      hostname_topokey: int, match_ns=None,
+                      hostname_topokey: int, match_ns=None, log_table=None,
                       active_keys=None) -> torch.Tensor:
     """PodTopologySpread soft constraints, normalized (reference:
     podtopologyspread/scoring.go PreScore/Score/NormalizeScore).  The
@@ -397,7 +409,7 @@ def spread_soft_score(cluster, batch, feasible, affinity_ok,
     topo_size = torch.round(inv.sum(dim=1)).reshape(B, C)
     n_scored = _f(scored).sum(dim=1)
     size = torch.where(is_host, n_scored[:, None], topo_size)
-    weight = spread_log_weight(size)
+    weight = spread_log_weight(size, log_table)
 
     pair_cnt = torch.where(registered, cnt_pair,
                            torch.zeros_like(cnt_pair)).reshape(B, C, N)

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..api import types as api
 from ..framework.types import QueuedPodInfo, pod_with_affinity, wallclock
@@ -94,6 +94,19 @@ class PodNominator:
             node = self._nominated_pod_to_node.get(old.uid, "")
             self._delete(old)
             self._add(new, node)
+
+    def nominated_pods_for_node(self, node_name: str) -> List[api.Pod]:
+        with self._lock:
+            return list(self._nominated.get(node_name, []))
+
+    def all_nominated(self) -> List[Tuple[api.Pod, str]]:
+        """Every (pod, nominated node) pair.  The reference iterates
+        NominatedPodsForNode per candidate node inside addNominatedPods
+        (generic_scheduler.go:530); the batched overlay wants them all at
+        once."""
+        with self._lock:
+            return [(p, nn) for nn, pods in self._nominated.items()
+                    for p in pods]
 
 
 class SchedulingQueue(PodNominator):

@@ -9,23 +9,28 @@ pops a BATCH of pods and places it with one device program:
   schedule_pending -> pop a batch (PrioritySort order) -> cache snapshot
   -> fresh tensorize (SnapshotBuilder + PodBatchBuilder) -> the mode's
   program with PRNGKey(cycle counter) -> ONE readback of ``packed`` ->
-  assume + bind through the store; failed pods return to the queue after
-  every placement of the cycle has committed.
+  assume + bind through the store; failed pods go through the PostFilter
+  (DefaultPreemption: one batched preemption wave per cycle, preemption.py)
+  and return to the queue after every placement of the cycle has
+  committed.
 
 Modes: "sequential" (the default) replays scheduleOne over the batch in
 pod order (models/sequential.py) with the adaptive-sampling start index
 kept across cycles; "gang" runs the conflict-free auction
 (models/gang.py).  Both run the default plugin family and restrict the
 same-pair key loops to the topology keys of the batch's terms
-(ProgramConfig.active_topo_keys).  A gang batch whose pods carry pod
-(anti-)affinity, spread constraints or a controller spread selector runs
+(ProgramConfig.active_topo_keys).  In both, pods nominated by preemption
+reserve their nominated nodes for pods of lower or equal priority (the
+nominated-pods overlay, ANDed into ``host_ok``).  A gang batch whose
+pods carry pod (anti-)affinity, spread constraints or a controller
+spread selector runs
 the auction with intra-batch topology, and so the lax round whatever the
 configured backend; each cycle's route is recorded in ``gang_backends``.
 Pods with volumes are refused in both modes (NotImplementedError).
 Deferred, each a
 ROADMAP item: the framework extension points (PreFilter/Reserve/Permit/
-PreBind/PostBind plugins, host filters and scores), volumes, preemption
-and the nominated-pods overlay, extenders, cycle chaining, delta
+PreBind/PostBind plugins, host filters and scores), volumes, the decision
+audit, extenders, cycle chaining, delta
 tensorization, the pipelined drain, and the JAX runtime's journal/chaos/
 devstats/AOT utilities.  The JAX scheduler's placements do not depend on
 chaining or the delta path (its tests prove both placement-identical to
@@ -35,18 +40,28 @@ fresh builds), so a fresh build per cycle gives the same placements.
 from __future__ import annotations
 
 import copy
+import logging
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+import torch
+
 from .api import types as api
 from .apis.config import KubeSchedulerConfiguration, KubeSchedulerProfile
 from .client.store import ClusterStore
-from .framework.types import PodInfo, QueuedPodInfo, pod_with_affinity
+from .framework.interface import CycleState
+from .framework.runtime import Framework
+from .framework.types import (PodInfo, QueuedPodInfo, pod_with_affinity,
+                              pod_with_required_anti_affinity)
 from .models import programs
-from .models.batch import PodBatchBuilder, batch_to_device
+from .models.batch import (PodBatchBuilder, batch_to_device, build_nominated,
+                           nominated_to_device)
 from .models.gang import run_auction
 from .models.sequential import schedule_sequential
+from .plugins.intree import DefaultPreemption, new_in_tree_registry
+from .preemption import CycleContext, Preemptor
 from .schedqueue.queue import SchedulingQueue
 from .state.cache import SchedulerCache, Snapshot
 from .state.tensors import SnapshotBuilder
@@ -78,7 +93,10 @@ class Scheduler:
         if not self.config.profiles:
             self.config.profiles = [KubeSchedulerProfile()]
         self.config.validate()
-        self.profiles = {p.scheduler_name: p for p in self.config.profiles}
+        registry = new_in_tree_registry()
+        self.profiles: Dict[str, Framework] = {
+            p.scheduler_name: Framework(registry, p, client=store)
+            for p in self.config.profiles}
         self.cache = SchedulerCache()
         self.queue = SchedulingQueue(
             pod_initial_backoff=self.config.pod_initial_backoff_seconds,
@@ -98,12 +116,29 @@ class Scheduler:
         # lax, why (utils/pallas_backend.unsupported_reason)
         self.gang_backends: List[Tuple[str, Optional[str]]] = []
         # host wall seconds per cycle stage, summed over cycles: snapshot,
-        # tensorize (numpy build), upload (copy to the device), auction
-        # (the mode's program through the packed readback), commit
-        # (assume + bind, then the failures)
+        # tensorize (numpy build, and the nominated overlay), upload (copy
+        # to the device), auction (the mode's program through the packed
+        # readback), commit (assume + bind), preempt (the preemption wave
+        # and the failed pods' PostFilter and requeue)
         self.stage_s: Dict[str, float] = dict.fromkeys(
-            ("snapshot", "tensorize", "upload", "auction", "commit"), 0.0)
+            ("snapshot", "tensorize", "upload", "auction", "commit",
+             "preempt"), 0.0)
+        # per cycle: the preemption waves, wave rounds, evictions and
+        # device->host reads (preemption.CycleContext.stats)
+        self.preempt_stats: List[Dict[str, int]] = []
+        # preemption waves that raised; their pods were served one by one
+        # through the PostFilter, as the JAX scheduler serves them
+        self.preempt_wave_failures = 0
         self._add_all_event_handlers()
+        # reference: scheduler.go:548 — preemption runs unless disabled;
+        # DefaultPreemption serves it through the PostFilter point, with
+        # the Preemptor late-bound because it needs the scheduler
+        self.preemptor = (None if self.config.disable_preemption
+                          else Preemptor(self))
+        for fwk in self.profiles.values():
+            for p in fwk.post_filter_plugins:
+                if isinstance(p, DefaultPreemption):
+                    p.preemptor = self.preemptor
 
     # ------------------------------------------------------------------ events
 
@@ -127,7 +162,8 @@ class Scheduler:
                     except ValueError:
                         self._add_pod_to_cache(new)
                     self.queue.assigned_pod_updated(new)
-                elif self._responsible(new):
+                elif (self._responsible(new)
+                      and not self._skip_pod_update(old, new)):
                     self.queue.update(old, new)
             elif event == "delete":
                 if pod.spec.node_name:
@@ -165,6 +201,15 @@ class Scheduler:
     def _responsible(self, pod: api.Pod) -> bool:
         return pod.spec.scheduler_name in self.profiles
 
+    @staticmethod
+    def _skip_pod_update(old: api.Pod, new: api.Pod) -> bool:
+        """reference: eventhandlers.go:311 skipPodUpdate — only
+        resourceVersion/status-ish changes (a failed pod's condition and
+        nomination) leave the queue alone."""
+        return (old.spec == new.spec
+                and old.metadata.labels == new.metadata.labels
+                and old.metadata.annotations == new.metadata.annotations)
+
     # ------------------------------------------------------------------ cycle
 
     def _next_rng(self):
@@ -174,14 +219,19 @@ class Scheduler:
     def schedule_pending(self, max_batch: Optional[int] = None,
                          timeout: float = 0.0) -> List[ScheduleOutcome]:
         """Run ONE batched scheduling cycle: pop up to batch_size pods and
-        schedule them.  Returns their outcomes ([] when the queue is
-        empty)."""
+        schedule them, one device program per profile.  Returns their
+        outcomes ([] when the queue is empty)."""
         qpods = self.queue.pop_batch(max_batch or self.config.batch_size,
                                      timeout=timeout)
-        qpods = [qp for qp in qpods if not self._skip_pod_schedule(qp.pod)]
-        if not qpods:
-            return []
-        return self._schedule_group(qpods)
+        by_profile: Dict[str, List[QueuedPodInfo]] = {}
+        for qp in qpods:
+            if not self._skip_pod_schedule(qp.pod):
+                by_profile.setdefault(qp.pod.spec.scheduler_name,
+                                      []).append(qp)
+        outcomes: List[ScheduleOutcome] = []
+        for name, group in by_profile.items():
+            outcomes.extend(self._schedule_group(self.profiles[name], group))
+        return outcomes
 
     def _skip_pod_schedule(self, pod: api.Pod) -> bool:
         """reference: scheduler.go:691 skipPodSchedule."""
@@ -236,24 +286,29 @@ class Scheduler:
         self.stage_s[name] += t1 - t0
         return t1
 
-    def _schedule_group(self, qpods: List[QueuedPodInfo]
+    def _schedule_group(self, fwk: Framework, qpods: List[QueuedPodInfo]
                         ) -> List[ScheduleOutcome]:
         t = time.perf_counter()
         self.cache.update_snapshot(self.snapshot)
         node_infos = self.snapshot.node_info_list
         n_nodes = len(node_infos)
         if n_nodes == 0:
-            return [self._fail(qp, "0/0 nodes are available",
+            return [self._fail(fwk, qp, "0/0 nodes are available",
                                preemption_may_help=False) for qp in qpods]
         spread_sels = [self.store.default_spread_selector(qp.pod)
                        for qp in qpods]
         self._check_supported(qpods)
         pinfos = [PodInfo(qp.pod) for qp in qpods]
+        # nominated pods join the tensor world too (labels and terms for
+        # the topology overlay): their strings are interned before the
+        # snapshot arrays are sized, as the JAX scheduler interns them
+        nominated = self.queue.all_nominated()
         t = self._stage("snapshot", t)
 
         # fresh tensorize (host numpy), then one copy to the device
-        builder = SnapshotBuilder()
-        builder.intern_pending(pinfos)
+        builder = SnapshotBuilder(
+            hard_pod_affinity_weight=fwk.hard_pod_affinity_weight)
+        builder.intern_pending(pinfos + [PodInfo(p) for p, _ in nominated])
         host = builder.build(node_infos)
         hbatch = PodBatchBuilder(builder.table).build(
             pinfos, spread_selectors=spread_sels)
@@ -262,13 +317,26 @@ class Scheduler:
         batch = batch_to_device(hbatch, self.device)
         t = self._stage("upload", t)
         table = builder.table
+        batch_topo_keys = self._batch_topo_keys(table, pinfos)
+        # the nominated-pods two-pass overlay (addNominatedPods,
+        # generic_scheduler.go:530,594-612), a device mask ANDed into
+        # host_ok; None when no nominated pod is relevant
+        host_ok = self._nominated_overlay_mask(fwk, builder, cluster, batch,
+                                               qpods, node_infos, nominated,
+                                               batch_topo_keys)
+        t = self._stage("tensorize", t)
         cfg = programs.ProgramConfig(
-            filters=programs.DEFAULT_FILTER_PLUGINS,
-            scores=programs.DEFAULT_SCORE_PLUGINS,
+            filters=fwk.tensor_filters, scores=fwk.tensor_scores,
             hostname_topokey=max(table.topokey.get(api.LABEL_HOSTNAME), 0),
+            plugin_args=fwk.tensor_plugin_args(table),
             percentage_of_nodes_to_score=(
                 self.config.percentage_of_nodes_to_score),
-            active_topo_keys=self._batch_topo_keys(table, pinfos))
+            active_topo_keys=batch_topo_keys)
+        cycle_ctx = CycleContext(
+            builder=builder, cluster=cluster, cfg=cfg, node_infos=node_infos,
+            batch=batch, row_of={qp.pod.uid: i for i, qp in enumerate(qpods)},
+            host_batch=hbatch)
+        cycle_ctx.pod_rows = host.arrays["_pod_rows"]
 
         B = batch.valid.shape[0]
         if self.config.mode == "gang":
@@ -276,16 +344,21 @@ class Scheduler:
             self.gang_backends.append(self._gang_backend(cfg, needs_topo,
                                                          hbatch))
             res = run_auction(cluster, batch, cfg, self._next_rng(),
+                              host_ok=host_ok,
                               intra_batch_topology=needs_topo,
                               kernel_backend=self.gang_backends[-1][0])
             packed = res.packed.cpu().numpy()     # the cycle's one readback
             self.gang_rounds.append(int(packed[3 * B]))
             self.gang_syncs.append(res.syncs)
+            # the auction's verdict rows, shared lazily: preemption reads
+            # them only if nothing committed since
+            cycle_ctx.set_lazy_verdicts(res.feasible0, res.unresolvable)
         else:
             start = self._next_start_node_index % n_nodes
-            res = schedule_sequential(cluster, batch, cfg, self._next_rng(),
-                                      hard_pod_affinity_weight=1.0,
-                                      start_index=start)
+            res = schedule_sequential(
+                cluster, batch, cfg, self._next_rng(),
+                hard_pod_affinity_weight=float(fwk.hard_pod_affinity_weight),
+                host_ok=host_ok, start_index=start)
             packed = res.packed.cpu().numpy()     # the cycle's one readback
             self._next_start_node_index = int(packed[3 * B])
         t = self._stage("auction", t)
@@ -301,18 +374,105 @@ class Scheduler:
                 outcomes.append(None)
                 failed.append(i)
                 continue
-            outcomes.append(self._commit(qp, pinfos[i],
-                                         node_infos[chosen[i]].node_name,
-                                         n_feas[i]))
+            outcome = self._commit(fwk, qp, pinfos[i],
+                                   node_infos[chosen[i]].node_name,
+                                   n_feas[i])
+            if outcome.node:
+                # preemption for pods failing later in this batch must see
+                # this placement (CycleContext.cluster_now)
+                cycle_ctx.note_commit(i, chosen[i])
+            outcomes.append(outcome)
+        t = self._stage("commit", t)
+        # the preemption WAVE: every preemption-eligible failure of the
+        # cycle is served by one batched what-if, after every commit has
+        # landed; the per-pod PostFilter below reads its verdicts.  Only
+        # when DefaultPreemption is the first PostFilter plugin
+        wave_pods = [qpods[i].pod for i in failed if not unres[i]]
+        pf = fwk.post_filter_plugins
+        if (wave_pods and self.preemptor is not None and pf
+                and isinstance(pf[0], DefaultPreemption)):
+            try:
+                self.preemptor.preempt_wave(fwk, cycle_ctx, wave_pods)
+            except Exception:
+                # as the JAX scheduler: the wave's pods are then served one
+                # by one through the PostFilter; counted, so a run can
+                # fail on it
+                self.preempt_wave_failures += 1
+                logging.getLogger("kubetpu_torch").warning(
+                    "preemption wave failed; per-pod fallback",
+                    exc_info=True)
         # failures requeue after every commit has landed, as the JAX
         # scheduler defers them: the queue's move-request cycle then
-        # reflects this cycle's binds
+        # reflects this cycle's binds and evictions
         for i in failed:
             outcomes[i] = self._fail(
-                qpods[i], f"0/{n_nodes} nodes are available",
-                preemption_may_help=not unres[i])
-        self._stage("commit", t)
+                fwk, qpods[i], f"0/{n_nodes} nodes are available",
+                preemption_may_help=not unres[i], cycle=cycle_ctx)
+        self.preempt_stats.append(dict(cycle_ctx.stats))
+        self._stage("preempt", t)
         return outcomes
+
+    def _nominated_overlay_mask(self, fwk, builder, cluster, batch, qpods,
+                                node_infos, nominated, batch_topo_keys=()):
+        """reference: kubetpu/scheduler.py:1940-2005 — [B, N] bool device
+        mask, False where a pod would not fit once equal-or-greater-
+        priority NOMINATED pods count as running on their nominated nodes
+        (addNominatedPods, core/generic_scheduler.go:530; the overlay-free
+        second pass is the main program).  Both dimensions of AddPod:
+        resource capacity (nominated_fit_mask) and topology terms
+        (nominated_topology_mask).  A nominated pod in the batch reserves
+        capacity against every OTHER row, never its own; batch members are
+        left out of the topology overlay (the JAX package's documented
+        deviation).  None when no nominated pod is on a snapshot node."""
+        uid_to_row = {qp.pod.uid: i for i, qp in enumerate(qpods)}
+        node_row = {ni.node_name: j for j, ni in enumerate(node_infos)}
+        entries = []
+        for pod, nn in nominated:
+            row = node_row.get(nn)
+            if row is None:
+                continue
+            entries.append((PodInfo(pod), row, uid_to_row.get(pod.uid, -1)))
+        if not entries:
+            return None
+        nom = nominated_to_device(build_nominated(entries, builder.table),
+                                  self.device)
+        mask = programs.nominated_fit_mask(cluster, batch, nom)
+
+        # topology overlay: only when the profile runs topology filters and
+        # some term could actually interact
+        topo_filters = {"InterPodAffinity", "PodTopologySpread"}
+        topo_entries = [(pi, row) for pi, row, sr in entries if sr < 0]
+        if topo_entries and (topo_filters & set(fwk.tensor_filters)):
+            interacts = (
+                any(pod_with_affinity(qp.pod)
+                    or qp.pod.spec.topology_spread_constraints
+                    for qp in qpods)
+                or any(pod_with_required_anti_affinity(pi.pod)
+                       for pi, _ in topo_entries))
+            if interacts:
+                nom_pb = PodBatchBuilder(builder.table).build(
+                    [pi for pi, _ in topo_entries])
+                M = nom_pb.valid.shape[0]
+                rows = np.full((M,), -1, np.int32)
+                prio = np.zeros((M,), np.int32)
+                for i, (pi, row) in enumerate(topo_entries):
+                    rows[i] = row
+                    prio[i] = pi.pod.priority()
+                active = tuple(sorted(
+                    set(batch_topo_keys)
+                    | set(self._batch_topo_keys(
+                        builder.table, [pi for pi, _ in topo_entries]))))
+                topo_mask = programs.nominated_topology_mask(
+                    cluster, batch_to_device(nom_pb, self.device),
+                    torch.from_numpy(rows).to(self.device),
+                    torch.from_numpy(prio).to(self.device), batch,
+                    programs.ProgramConfig(
+                        filters=fwk.tensor_filters, scores=(),
+                        hostname_topokey=max(builder.table.topokey.get(
+                            api.LABEL_HOSTNAME), 0),
+                        active_topo_keys=active))
+                mask = mask & topo_mask
+        return mask
 
     def _gang_backend(self, cfg, needs_topo: bool, hbatch
                       ) -> Tuple[str, Optional[str]]:
@@ -326,9 +486,10 @@ class Scheduler:
 
     # ------------------------------------------------------------------ commit
 
-    def _commit(self, qp: QueuedPodInfo, pinfo: PodInfo, node_name: str,
-                n_feasible: int) -> ScheduleOutcome:
-        """assume (scheduler.go:435) then bind (scheduler.go:457)."""
+    def _commit(self, fwk: Framework, qp: QueuedPodInfo, pinfo: PodInfo,
+                node_name: str, n_feasible: int) -> ScheduleOutcome:
+        """assume (scheduler.go:435) then bind through the profile's bind
+        plugins (scheduler.go:457, DefaultBinder)."""
         pod = qp.pod
         assumed = copy.copy(pod)
         assumed.spec = copy.copy(pod.spec)
@@ -336,26 +497,49 @@ class Scheduler:
         try:
             self.cache.assume_pod(assumed, pinfo.with_pod(assumed))
         except ValueError as e:
-            return self._fail(qp, str(e), preemption_may_help=False)
-        try:
-            self.store.bind(pod, node_name)
-        except Exception as e:  # the store rejects gone / already-bound pods
+            return self._fail(fwk, qp, str(e), preemption_may_help=False)
+        st = fwk.run_bind_plugins(CycleState(), pod, node_name)
+        if not st.is_success():
             try:
                 self.cache.forget_pod(assumed)
             except ValueError:
                 pass
-            return self._fail(qp, "binding rejected: %s" % e,
+            return self._fail(fwk, qp, st.message(),
                               preemption_may_help=False)
         self.cache.finish_binding(assumed)
         return ScheduleOutcome(pod=pod, node=node_name,
                                n_feasible=n_feasible)
 
-    def _fail(self, qp: QueuedPodInfo, message: str,
-              preemption_may_help: bool = True) -> ScheduleOutcome:
-        """reference: scheduler.go:391 recordSchedulingFailure (no
-        preemption: ROADMAP)."""
+    def _fail(self, fwk: Framework, qp: QueuedPodInfo, message: str,
+              preemption_may_help: bool = True,
+              cycle: Optional[CycleContext] = None) -> ScheduleOutcome:
+        """reference: scheduler.go:391 recordSchedulingFailure + :542-563 —
+        preemption runs behind the PostFilter extension point
+        (framework.go:516; DefaultPreemption)."""
         pod = qp.pod
+        nominated = ""
+        if preemption_may_help and fwk.post_filter_plugins:
+            state = CycleState()
+            if cycle is not None:
+                state.write(DefaultPreemption.CYCLE_CONTEXT_KEY, cycle)
+            result, st = fwk.run_post_filter_plugins(state, pod)
+            if st.is_success() and result is not None:
+                nominated = result.nominated_node_name
+        self._record_failure(qp, message, nominated)
+        return ScheduleOutcome(pod=pod, node="", err=message,
+                               preemption_may_help=preemption_may_help)
+
+    def _record_failure(self, qp: QueuedPodInfo, message: str,
+                        nominated_node: str = "") -> None:
+        """reference: kubetpu/scheduler.py:2281-2310."""
+        pod = qp.pod
+        if nominated_node:
+            # requeueing re-registers the pod with the nominator from
+            # pod.status (queue._add fallback); carry the fresh nomination
+            # so it survives (scheduler.go:352)
+            pod.status.nominated_node_name = nominated_node
         try:
+            # the cycle captured at pop (scheduler.go:515,559)
             self.queue.add_unschedulable_if_not_present(qp,
                                                         qp.scheduling_cycle)
         except ValueError:
@@ -365,11 +549,10 @@ class Scheduler:
                 pod, api.PodCondition(type=api.POD_SCHEDULED,
                                       status="False",
                                       reason=api.REASON_UNSCHEDULABLE,
-                                      message=message))
+                                      message=message),
+                nominated_node_name=nominated_node)
         except Exception:
             pass
-        return ScheduleOutcome(pod=pod, node="", err=message,
-                               preemption_may_help=preemption_may_help)
 
     def close(self) -> None:
         self.queue.close()

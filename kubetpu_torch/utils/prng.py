@@ -14,13 +14,15 @@ package draws with ``jax_threefry_partitionable=True``:
   xors the two output words;
 * ``uniform(key, shape, lo, 1)`` puts the top 23 bits into the mantissa
   of a float in [1, 2), subtracts 1, scales into [lo, 1) and clamps at lo;
-* ``gumbel`` is the "low" mode, ``-log(-log(uniform(tiny, 1)))``.
+* ``gumbel`` is the "low" mode, ``-log(-log(uniform(tiny, 1)))``, with
+  XLA:CPU's f32 log (utils/xla_math.xla_log_f32).
 
 Words live in int64 tensors masked to 32 bits, so every shift, add and
 rotate is exact on both the CPU and the card.  Keys are int64 tensors of
-shape ``[..., 2]``; a batch of keys draws a batch of rows.  The ``log``
-may differ from XLA's by an ulp (tests/test_torch_prng.py measures how
-often); the integer bits and the uniforms are identical.
+shape ``[..., 2]``; a batch of keys draws a batch of rows.  Every draw
+equals jax.random's bit for bit on the CPU and the card
+(tests/test_torch_prng.py): torch's own ``log`` rounds differently from
+XLA's in about a quarter of the gumbels, so the log is XLA's polynomial.
 
 ``select_plane`` draws a batch's selectHost rows at once.  The JAX
 package's sequential replay draws ``jax.random.categorical(fold_in(rng,
@@ -36,6 +38,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from .xla_math import xla_log_f32
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -107,7 +111,7 @@ def uniform(keys: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
 def gumbel(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """jax.random.gumbel(key, shape, float32) in its default "low" mode."""
     u = uniform(keys, shape, _TINY, 1.0)
-    return -torch.log(-torch.log(u))
+    return -xla_log_f32(-xla_log_f32(u))
 
 
 def select_plane(rng: torch.Tensor, B: int, N: int) -> torch.Tensor:

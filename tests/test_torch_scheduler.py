@@ -195,6 +195,23 @@ out = s.schedule_pending()
 assert len(out) == 4 and all(o.node for o in out), out
 assert len({o.node for o in out if o.pod.metadata.labels["app"] == "app-0"}) == 2
 assert s.gang_backends == [("lax", "intra-batch-topology")], s.gang_backends
+# the failure path: a full node, a higher-priority pod preempts its victim
+# (the PostFilter wave), then binds under the nominated-pods overlay
+store = ClusterStore()
+store.add(hollow.make_node("n1", cpu_milli=1000))
+victim = hollow.make_pod("victim", cpu_milli=900)
+victim.spec.node_name = "n1"
+store.add(victim)
+s = Scheduler(store, KubeSchedulerConfiguration(batch_size=8), device="cpu")
+store.add(hollow.make_pod("high", cpu_milli=500, priority=100))
+out = s.schedule_pending()
+assert out[0].err and store.get_pod("default", "victim") is None
+assert store.get_pod("default", "high").status.nominated_node_name == "n1"
+s.queue.move_all_to_active_or_backoff_queue("test")
+s.queue._clock = lambda: 1e12
+s.queue.flush_backoff_completed()
+out = s.schedule_pending()
+assert out[0].node == "n1", out
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "kubetpu" or m.startswith("kubetpu.")]
 assert not bad, bad

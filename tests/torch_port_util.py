@@ -9,6 +9,7 @@ identical state.
 from __future__ import annotations
 
 import random
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -269,3 +270,208 @@ def assert_same(a, b, ctx=""):
     else:
         assert np.array_equal(an, bn), f"{ctx}: values differ"
 
+
+
+# ---------------------------------------------------------------------------
+# preemption: one scenario driven through both packages' Schedulers
+
+
+class Package(NamedTuple):
+    """One package's API, store, hollow and scheduler modules."""
+    api: object
+    store: object
+    hollow: object
+    config: object
+    sched: object
+
+
+def packages():
+    import kubetpu.apis.config as jconf
+    import kubetpu.client.store as jstore
+    import kubetpu.harness.hollow as jhollow
+    import kubetpu.scheduler as jsched
+    import kubetpu_torch.apis.config as tconf
+    import kubetpu_torch.client.store as tstore
+    import kubetpu_torch.harness.hollow as thollow
+    import kubetpu_torch.scheduler as tsched
+    return (Package(japi, jstore, jhollow, jconf, jsched),
+            Package(tapi, tstore, thollow, tconf, tsched))
+
+
+class FakeClock:
+    """The queue's clock, advanced by the driver: backoff and the
+    unschedulable leftover flush then behave the same in both packages."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+
+def make_scheduler(pkg, store, mode="sequential", backend="pallas",
+                   batch=8, disable_preemption=False):
+    """A package's Scheduler on ``store`` with the queue on a FakeClock:
+    the JAX one synchronous (async_binding=False), the port's on the
+    CPU."""
+    kw = dict(profiles=[pkg.config.KubeSchedulerProfile()], batch_size=batch,
+              mode=mode, kernel_backend=backend,
+              disable_preemption=disable_preemption)
+    if pkg.api is japi:
+        s = pkg.sched.Scheduler(
+            store, config=pkg.config.KubeSchedulerConfiguration(
+                prewarm=False, **kw), async_binding=False)
+    else:
+        s = pkg.sched.Scheduler(
+            store, config=pkg.config.KubeSchedulerConfiguration(**kw),
+            device="cpu")
+    s.queue._clock = FakeClock()
+    return s
+
+
+def spy_deletes(store):
+    """Instrument store.delete: the deleted pod names in call order."""
+    deleted = []
+    orig = store.delete
+
+    def spy(obj, *a, **kw):
+        if getattr(obj, "kind", "") == "Pod":
+            deleted.append(obj.metadata.name)
+        return orig(obj, *a, **kw)
+    store.delete = spy
+    return deleted
+
+
+def cycle_view(sched, store, outcomes, deleted):
+    """What one cycle left behind, comparable across packages: its
+    outcomes, the pods deleted in it (in order), every pod's node,
+    nomination and PodScheduled condition, and the queue's contents."""
+    pods = sorted(
+        (p.metadata.name, p.spec.node_name, p.status.nominated_node_name,
+         tuple((c.type, c.status, c.reason, c.message)
+               for c in p.status.conditions))
+        for p in store.list("Pod"))
+    q = sched.queue
+    return dict(
+        outcomes=[(o.pod.metadata.name, o.node, o.err) for o in outcomes],
+        deleted=list(deleted), pods=pods,
+        active=[qp.pod.metadata.name for qp in q.active_q.list()],
+        backoff=[qp.pod.metadata.name for qp in q.backoff_q.list()],
+        unschedulable=[qp.pod.metadata.name
+                       for qp in q.unschedulable_q.values()],
+        nominated=[(p.metadata.name, nn) for p, nn in q.all_nominated()])
+
+
+def drive(pkg, scenario, max_cycles=12, **sched_kw):
+    """Run ``scenario`` (a generator function of (A, hollow, store,
+    sched): it sets the world up and yields to run one scheduling cycle)
+    and then cycles until the queue is empty or ``max_cycles``.  Before
+    every cycle the fake clock advances past every backoff and the
+    unschedulable leftover timeout, and both flushes run.  Returns the
+    per-cycle views and the scheduler.
+
+    A JAX drive runs the auction through a fresh jit of the same function:
+    this jax's dispatch can fail with "Execution supplied N buffers but
+    compiled program expected N+1" when the jit object carries entries of
+    earlier calls with other static arguments (kubetpu/models/gang.py:
+    349-355 documents the bug), and the JAX scheduler would then recover
+    the cycle and diverge; jax.clear_caches() does not prevent it.  Its
+    per-pod reprieve runs through jax_whatif_reprieve_mapped.  Both are
+    restored afterwards."""
+    restore = []
+    if pkg.api is japi:
+        import kubetpu.models.gang as jgang
+        import kubetpu.preemption as jpre
+        restore = [(jgang, "_schedule_gang", jgang._schedule_gang),
+                   (jpre, "_whatif_reprieve", jpre._whatif_reprieve)]
+        jgang._schedule_gang = jax.jit(
+            jgang._schedule_gang.__wrapped__,
+            static_argnames=("cfg", "max_rounds", "intra_batch_topology",
+                             "residual_window", "kernel_backend"))
+        jpre._whatif_reprieve = jax_whatif_reprieve_mapped
+    store = pkg.store.ClusterStore()
+    sched = make_scheduler(pkg, store, **sched_kw)
+    deleted = spy_deletes(store)
+    views = []
+
+    def cycle():
+        sched.queue._clock.t += 100.0
+        sched.queue.flush_backoff_completed()
+        sched.queue.flush_unschedulable_leftover()
+        del deleted[:]
+        out = sched.schedule_pending(timeout=0.0)
+        views.append(cycle_view(sched, store, out, deleted))
+        return out
+
+    try:
+        for _ in scenario(pkg.api, pkg.hollow, store, sched):
+            cycle()
+        while len(sched.queue) and len(views) < max_cycles:
+            cycle()
+    finally:
+        sched.close()
+        for mod, name, fn in restore:
+            setattr(mod, name, fn)
+    return views, sched
+
+
+def jax_whatif_reprieve_mapped(cluster, batch1, cfg, cand_rows, rm_valid,
+                               rm_req, rm_nz, vic_row, vic_req, vic_nz):
+    """kubetpu/preemption.py:_whatif_reprieve with its ``jax.vmap`` over
+    the candidate clusters replaced by ``jax.lax.map`` — the same
+    function, one candidate at a time.  The vmapped original cannot run
+    on XLA:CPU (jax 0.9.0): batching the filters' bf16 same-pair
+    contractions makes a bf16 x bf16 = f32 batched dot, which the CPU
+    runtime does not implement (UNIMPLEMENTED ... DotThunk::Execute).
+    The JAX package's own tests never reach this path on the CPU (their
+    preemptors carry no terms); the differential tests hold the port
+    against this copy instead."""
+    return _jax_reprieve_mapped(cluster, batch1, cfg, cand_rows, rm_valid,
+                                rm_req, rm_nz, vic_row, vic_req, vic_nz)
+
+
+def _jax_reprieve_body(cluster, batch1, cfg, cand_rows, rm_valid, rm_req,
+                       rm_nz, vic_row, vic_req, vic_nz):
+    from kubetpu.models.batch import densify_for
+    batch1 = densify_for(cluster, batch1)
+    C = cand_rows.shape[0]
+    K = vic_row.shape[1]
+    base_req = cluster.requested
+    base_nz = cluster.nonzero_requested
+
+    def one(args):
+        pod_valid, dreq, dnz, row = args
+        cl = cluster._replace(
+            pod_valid=pod_valid,
+            requested=base_req.at[row].add(-dreq),
+            nonzero_requested=base_nz.at[row].add(-dnz))
+        feas, _, _ = jprog.run_filters(cl, batch1, cfg)
+        return feas[0]  # [N]
+
+    def verdicts(pod_valid, dreq, dnz):
+        feas = jax.lax.map(one, (pod_valid, dreq, dnz, cand_rows))  # [C, N]
+        return jnp.take_along_axis(feas, cand_rows[:, None], 1)[:, 0]
+
+    fits0 = verdicts(rm_valid, rm_req, rm_nz)
+
+    def step(carry, k):
+        pod_valid, dreq, dnz, ok = carry
+        row = vic_row[:, k]
+        exists = (row >= 0) & ok
+        e = exists.astype(jnp.float32)
+        try_valid = pod_valid.at[jnp.arange(C), jnp.clip(row, 0)].max(exists)
+        try_dreq = dreq - vic_req[:, k] * e[:, None]
+        try_dnz = dnz - vic_nz[:, k] * e[:, None]
+        fit = verdicts(try_valid, try_dreq, try_dnz) & exists
+        keep = fit[:, None]
+        pod_valid = jnp.where(keep, try_valid, pod_valid)
+        dreq = jnp.where(keep, try_dreq, dreq)
+        dnz = jnp.where(keep, try_dnz, dnz)
+        return (pod_valid, dreq, dnz, ok), fit
+
+    (_, _, _, _), reprieved = jax.lax.scan(
+        step, (rm_valid, rm_req, rm_nz, fits0), jnp.arange(K))
+    return fits0, reprieved
+
+
+_jax_reprieve_mapped = jax.jit(_jax_reprieve_body, static_argnames=("cfg",))
