@@ -38,8 +38,11 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              ragged N) and its exact-division recompute (operands outside
              the fast division's range); checks the fast division against
              __fdiv_rn on 2**28 operand pairs; prints its time, the plain
-             version's time, the bound and the share of the bound, and
-             the SM clock and power draw under load;
+             version's time, the bound and the share of the bound, the
+             generic combine's time at the same W x N (the
+             ClusterAutoscaler profile's scores, between two timings of
+             the default family), and the SM clock and power draw under
+             load;
   slice      SchedulingBasic5000Nodes (scheduler_perf): 5,000 nodes, 5,000
              initial pods (one per node), 1,000 term-free pending pods,
              batch_size 1,000, mode gang, kernel_backend pallas, drained
@@ -103,6 +106,36 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              gang mode under "pallas", batch 1,000: two cycles, each
              windowed (B = 1,024 > 512), lax round.  Every pod placed,
              zone skew at most 2, no capacity violated; ms per round;
+  autoscaler Preemption5000Nodes' init phase (the fill's world: 5,000
+             nodes, 20,000 900m fillers, batch 1,000, gang) under
+             upstream's ClusterAutoscalerProvider profile
+             (NodeResourcesLeastAllocated disabled, MostAllocated enabled
+             at weight 1), drained under "pallas" and "lax": every filler
+             placed, identical placements, no capacity violated; K1 runs
+             its generic combine (the descriptor walk) and never the
+             compiled-in default family; its first 16 launches recorded
+             and held against the plain version;
+  binpack    SchedulingBasic5000Nodes under a bin-packing profile (the
+             default set plus RequestedToCapacityRatio with the plugin's
+             default arguments and NodeResourceLimits): the sequential
+             replay on the card (every scan under "error") and on the CPU,
+             same placements and start index; launches and device ms per
+             scan step over a profiled window of 128 steps; the same world
+             in gang mode under "pallas", routed to the lax round as
+             "score:RequestedToCapacityRatio" (route checked);
+  points     kubetpu_torch/harness/plugin_worlds.py's world (48 nodes x
+             200 pods, seed 7) under its profile (the NodeLabel filter,
+             MostAllocated, ServiceAffinity, a recording plugin at every
+             extension point with a host filter, a host score, Permit
+             pairs and an injected Reserve, Permit and PreBind failure;
+             term-bearing: also RequestedToCapacityRatio,
+             NodeResourceLimits and the NodeLabel score, pod terms and a
+             Service), term-free and term-bearing, gang under "pallas" and
+             sequential, binding on the binder pool, card against CPU: the
+             same placements, the same per-pod extension-point calls, the
+             same Unreserve calls and forgotten assumes, the Permit pairs
+             bound; the term-free gang drains launch K1 with the host_ok
+             and bias planes, every launch held against the plain version;
   profile    the slice, backlog and fill (pallas) drains once more under
              torch.profiler: device busy time, the drain's device idle
              share, top kernels (separate runs, so the profiler's overhead
@@ -124,17 +157,19 @@ before the rounds and the one flags read per round (GangRounds), and
 each auction's flag reads must equal its rounds.
 
 The main path is the pallas drain of each of slice, backlog, fill,
-preempt, gang_anti and gang_spread, and each sequential drain: the kernel launch
+preempt, gang_anti, gang_spread and autoscaler, each sequential drain,
+binpack's card drains and points' card drains: the kernel launch
 count is zeroed just before each and read just after it, and reported
 per path.  The slice never launches the kernel (above), nor do the
 term-bearing gang drains (routed to the lax round, as the JAX package
 routes them) or the sequential replay (no propose step: the JAX
-package's scan reaches no Pallas kernel); in the backlog and fill
-drains every launch's inputs and outputs are recorded (the fill's first
-16, the preempt drain's first 16) and, after the drain, the outputs are
-held bitwise against the plain
-version on the same inputs, and the kernel is timed on the widest
-recorded launch's real inputs.
+package's scan reaches no Pallas kernel), nor does binpack (its scores
+route to lax); in the backlog, fill, autoscaler and term-free points
+drains every launch's inputs and outputs are recorded (the fill's and
+autoscaler's first 16, the preempt drain's first 16) and, after the
+drain, the outputs are held bitwise against the plain version on the
+same inputs, and the kernel is timed on the widest recorded launch's
+real inputs.
 
 The second-to-last lines print the card (nvidia-smi's name and power
 limit) and the kernels' JSON line; the last line is the contract's
@@ -153,9 +188,10 @@ import time
 
 ALL_PHASES = ("reference", "kernel", "slice", "backlog", "fill",
               "preempt", "seq_slice", "seq_anti", "seq_spread", "gang_anti",
-              "gang_spread", "profile")
+              "gang_spread", "autoscaler", "binpack", "points", "profile")
 MAIN_PATHS = ("slice", "backlog", "fill", "preempt", "seq_slice",
-              "seq_anti", "seq_spread", "gang_anti", "gang_spread")
+              "seq_anti", "seq_spread", "gang_anti", "gang_spread",
+              "autoscaler", "binpack", "points")
 FILL_NODES = 5000             # Preemption5000Nodes: 5,000 nodes,
 FILL_PODS = 4 * FILL_NODES    # 20,000 init pods (four 900m pods fill a node)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -221,27 +257,30 @@ def pending_pods(n, prefix, group_labels=10, cpu_milli=100, mem=250 << 20):
 
 
 def drain(store, pods, backend, batch_size, device, record=None,
-          record_limit=None):
+          record_limit=None, profile=None, families=None):
     """Drain ``pods`` through Scheduler.schedule_pending, in gang mode
     under ``backend``, or, with backend None, under the default
-    configuration (the sequential replay).  record: a list that receives
-    the first ``record_limit`` (default: all) propose launches as
-    (inputs, outputs), cloned, for the check against the plain version.
-    A gang drain on the card runs every auction under GangRounds (one
-    host read per round, nothing else); returns (scheduler, placements,
-    seconds, GangRounds summary or None)."""
+    configuration (the sequential replay); profile: the scheduler's one
+    KubeSchedulerProfile (default: the default plugin set).  record: a
+    list that receives the first ``record_limit`` (default: all) propose
+    launches as (inputs, outputs), cloned, for the check against the
+    plain version; families: a dict counting every launch by its layout
+    ("default" or "generic" combine).  A gang drain on the card runs
+    every auction under GangRounds (one host read per round, nothing
+    else); returns (scheduler, placements, seconds, GangRounds summary or
+    None)."""
     from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
                                            KubeSchedulerProfile)
     from kubetpu_torch.scheduler import Scheduler
-    cfg = KubeSchedulerConfiguration(profiles=[KubeSchedulerProfile()],
-                                     batch_size=batch_size)
+    cfg = KubeSchedulerConfiguration(
+        profiles=[profile or KubeSchedulerProfile()], batch_size=batch_size)
     if backend is not None:
         cfg.mode, cfg.kernel_backend = "gang", backend
     sched = Scheduler(store, config=cfg, device=device)
     for p in pods:
         store.add(p)
     placed = {}
-    restore = (_record_launches(record, record_limit)
+    restore = (_record_launches(record, record_limit, families)
                if record is not None else None)
     gang_card = backend is not None and device == "cuda"
     try:
@@ -337,10 +376,11 @@ class GangRounds:
                                   if self.rounds else None))
 
 
-def _record_launches(record, limit):
+def _record_launches(record, limit, families=None):
     """Wrap the CUDA wrapper so each launch's inputs and outputs are
-    cloned into ``record`` (clones are enqueued on the launch's stream);
-    returns the function that restores it."""
+    cloned into ``record`` (clones are enqueued on the launch's stream),
+    and each launch's combine counted in ``families``; returns the
+    function that restores it."""
     import torch
     from kubetpu_torch.ops import propose as PK
     orig = PK.propose_cuda
@@ -349,6 +389,10 @@ def _record_launches(record, limit):
         return x.clone() if torch.is_tensor(x) else x
 
     def recording(bundle, rows, live, req, nz, ports_used):
+        if families is not None:
+            key = ("default" if bundle["layout"].default_family
+                   else "generic")
+            families[key] = families.get(key, 0) + 1
         if limit is not None and len(record) >= limit:
             return orig(bundle, rows, live, req, nz, ports_used)
         ins = ({k: clone(v) for k, v in bundle.items()}, clone(rows),
@@ -536,14 +580,15 @@ def spread_world(n_nodes=5000, n_pods=2000):
     return store, [pod("measured", i) for i in range(n_pods)]
 
 
-def _seq_drain(what, store, pods, n_expected):
+def _seq_drain(what, store, pods, n_expected, profile=None):
     """One sequential drain on the card under SeqScans, K1's launches
     counted; every pod placed and no capacity violated."""
     from kubetpu_torch.ops import propose as PK
     from kubetpu_torch.scheduler import capacity_violations
     PK.propose.launches = 0          # this path starts: zero the count
     with SeqScans() as scans:
-        sched, placed, seconds, _ = drain(store, pods, None, 1000, "cuda")
+        sched, placed, seconds, _ = drain(store, pods, None, 1000, "cuda",
+                                          profile=profile)
     launches = PK.propose.launches
     n_placed = sum(1 for v in placed.values() if v)
     if n_placed != n_expected:
@@ -900,6 +945,16 @@ def phase_kernel() -> dict:
     # (the windowed path's shape)
     args = random_bundle(21, 1024, 8192, "cuda")
     ms, launch = kernel_ms(args)
+    # the generic combine at the same W x N, the ClusterAutoscaler
+    # profile's scores (the descriptor walk, not the compiled-in default
+    # family), timed between two timings of the default family
+    args_g = random_bundle(21, 1024, 8192, "cuda",
+                           scores=profile_scores(autoscaler_profile()))
+    if args_g[0]["layout"].default_family:
+        raise AssertionError("autoscaler layout took the default family")
+    ms_generic = kernel_ms(args_g)[0]
+    ms_default_again = kernel_ms(args)[0]
+    bound_generic, _ = bound_of(*args_g)
     wrapper_ms = time_ms(lambda: PK.propose_cuda(*args), 20)
     plain_ms = time_ms(lambda: PK.propose_plain(*args), 3)
     bound_ms, bound_by = bound_of(*args)
@@ -938,6 +993,8 @@ def phase_kernel() -> dict:
     return dict(max_abs_err=max_err, ms=ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 share_of_bound=bound_ms / ms,
+                ms_generic=ms_generic, bound_ms_generic=bound_generic,
+                ms_default_again=ms_default_again,
                 ms_w512=ms_w, bound_ms_w512=bound_w, plain_ms_w512=plain_w,
                 share_of_bound_w512=bound_w / ms_w,
                 ms_dps_zero=ms_dps0, ms_n20480_unstaged=ms_big,
@@ -948,7 +1005,8 @@ def phase_kernel() -> dict:
                 under_load=clocks)
 
 
-def _gang_drain(what, store, pods, n_expected, batch_size=1000):
+def _gang_drain(what, store, pods, n_expected, batch_size=1000,
+                profile=None):
     """One gang drain on the card under "pallas" (the serving
     configuration), K1's launches counted, every auction under
     GangRounds; every pod placed and no capacity violated."""
@@ -956,7 +1014,8 @@ def _gang_drain(what, store, pods, n_expected, batch_size=1000):
     from kubetpu_torch.scheduler import capacity_violations
     PK.propose.launches = 0          # this path starts: zero the count
     sched, placed, seconds, rounds = drain(store, pods, "pallas",
-                                           batch_size, "cuda")
+                                           batch_size, "cuda",
+                                           profile=profile)
     launches = PK.propose.launches
     n_placed = sum(1 for v in placed.values() if v)
     if n_placed != n_expected:
@@ -1074,20 +1133,24 @@ def phase_seq_spread() -> dict:
     return out
 
 
-def _pallas_vs_lax(what, make_world, batch_size, record_limit=None):
+def _pallas_vs_lax(what, make_world, batch_size, record_limit=None,
+                   profile=None):
     """Drain one world under "pallas" (counting and recording the
-    kernel's launches) and a fresh copy under "lax"; the placements must
-    be identical.  Returns per-backend numbers and the store of each."""
+    kernel's launches, and counting them by combine) and a fresh copy
+    under "lax"; the placements must be identical.  Returns per-backend
+    numbers and the store of each."""
     from kubetpu_torch.ops import propose as PK
     from kubetpu_torch.scheduler import capacity_violations
     out, placements, stores = {}, {}, {}
     for backend in ("pallas", "lax"):
         store, pods = make_world()
         record = [] if backend == "pallas" else None
+        families = {}
         PK.propose.launches = 0      # this path starts: zero the count
         sched, placed, seconds, rounds = drain(store, pods, backend,
                                                batch_size, "cuda", record,
-                                               record_limit)
+                                               record_limit, profile,
+                                               families)
         launches = PK.propose.launches
         if capacity_violations(store):
             raise AssertionError("%s: capacity violated (%s)"
@@ -1099,7 +1162,7 @@ def _pallas_vs_lax(what, make_world, batch_size, record_limit=None):
                             launches=launches, drain_s=seconds,
                             stage_s=sched.stage_s,
                             pods_per_s=n_placed / seconds,
-                            sync_check=rounds)
+                            sync_check=rounds, launches_by_combine=families)
         if record is not None:
             if launches <= 0:
                 raise AssertionError("%s: the propose kernel never launched"
@@ -1225,14 +1288,15 @@ def _preempt_drain(store, pods, backend, device, batch_size=None,
     from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
                                            KubeSchedulerProfile)
     from kubetpu_torch.scheduler import Scheduler
-    cfg = KubeSchedulerConfiguration(profiles=[KubeSchedulerProfile()],
-                                     pod_initial_backoff_seconds=0.0,
-                                     pod_max_backoff_seconds=0.0)
+    cfg = KubeSchedulerConfiguration(profiles=[KubeSchedulerProfile()])
     if batch_size:
         cfg.batch_size = batch_size
     if backend is not None:
         cfg.mode, cfg.kernel_backend = "gang", backend
     sched = Scheduler(store, config=cfg, device=device)
+    # no backoff: set on the queue, since a configuration must ask for
+    # more than 0 s
+    sched.queue._initial_backoff = sched.queue._max_backoff = 0.0
     deleted = []
     orig_delete = store.delete
 
@@ -1412,6 +1476,207 @@ def _preemption_references() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# custom profiles: the configurable scorers and the extension points
+
+
+def autoscaler_profile():
+    """Upstream's ClusterAutoscalerProvider as a profile: LeastAllocated
+    disabled, MostAllocated enabled at weight 1."""
+    from kubetpu_torch.apis import config as C
+    return C.KubeSchedulerProfile(plugins=C.Plugins(score=C.PluginSet(
+        enabled=[C.Plugin("NodeResourcesMostAllocated", 1)],
+        disabled=[C.Plugin("NodeResourcesLeastAllocated")])))
+
+
+def binpack_profile():
+    """The default set plus RequestedToCapacityRatio with the plugin's
+    default arguments (shape {0: 0, 100: 10}, cpu and memory at weight 1)
+    and NodeResourceLimits."""
+    from kubetpu_torch.apis import config as C
+    return C.KubeSchedulerProfile(plugins=C.Plugins(score=C.PluginSet(
+        enabled=[C.Plugin("RequestedToCapacityRatio", 1),
+                 C.Plugin("NodeResourceLimits", 1)])))
+
+
+def profile_scores(profile):
+    """The tensor score plugins and weights a profile's Framework runs."""
+    from kubetpu_torch.framework.runtime import Framework
+    from kubetpu_torch.plugins.intree import new_in_tree_registry
+    return Framework(new_in_tree_registry(), profile).tensor_scores
+
+
+def phase_autoscaler() -> dict:
+    """Preemption5000Nodes' init phase under the ClusterAutoscaler
+    profile, gang, under "pallas" and "lax": the same placements, every
+    filler placed, K1 launched through the generic combine only, every
+    recorded launch equal to the plain version, no capacity violated."""
+    out, stores = _pallas_vs_lax("autoscaler", fill_world, 1000,
+                                 record_limit=16,
+                                 profile=autoscaler_profile())
+    pallas = out["pallas"]
+    if pallas["launches_by_combine"] != {"generic": pallas["launches"]}:
+        raise AssertionError("autoscaler: K1 launches by combine %s"
+                             % pallas["launches_by_combine"])
+    for backend, store in stores.items():
+        if out[backend]["placed"] != FILL_PODS:
+            raise AssertionError("autoscaler: %d/%d pods placed (%s)"
+                                 % (out[backend]["placed"], FILL_PODS,
+                                    backend))
+    out["scores"] = [list(x) for x in profile_scores(autoscaler_profile())]
+    return out
+
+
+def phase_binpack() -> dict:
+    """SchedulingBasic5000Nodes under the bin-packing profile: the
+    sequential replay on the card (every scan under "error") and on the
+    CPU, the same placements and start index; the replay's launches and
+    device ms per step over a profiled window; and the same world in gang
+    mode under "pallas", routed to the lax round for its
+    RequestedToCapacityRatio score."""
+    sched, placed, out = _seq_drain("binpack", hollow_store(5000, 1),
+                                    pending_pods(1000, "measured"), 1000,
+                                    profile=binpack_profile())
+    csched, cplaced, cseconds, _ = drain(
+        hollow_store(5000, 1), pending_pods(1000, "measured"), None, 1000,
+        "cpu", profile=binpack_profile())
+    if cplaced != placed:
+        diff = [k for k in placed if placed[k] != cplaced.get(k)]
+        raise AssertionError("binpack: %d placements differ card vs CPU"
+                             % len(diff))
+    if csched._next_start_node_index != sched._next_start_node_index:
+        raise AssertionError("binpack: start index differs card vs CPU")
+    out.update(cpu_drain_s=cseconds, cpu_stage_s=csched.stage_s,
+               matches_cpu=True,
+               window=_profiled_scan_window(
+                   hollow_store(5000, 1), pending_pods(1000, "measured"),
+                   sched_profile=binpack_profile()))
+    _, gang = _gang_drain("binpack gang", hollow_store(5000, 1),
+                          pending_pods(1000, "measured"), 1000,
+                          profile=binpack_profile())
+    want = ("lax", "score:RequestedToCapacityRatio")
+    if any(tuple(r) != want for r in gang["routes"]):
+        raise AssertionError("binpack gang: routes %s" % gang["routes"])
+    out["gang"] = gang
+    out["launches"] += gang["launches"]
+    out["scores"] = [list(x) for x in profile_scores(binpack_profile())]
+    return out
+
+
+POINTS_FAIL_AT = {"p6": "Reserve", "p9": "Permit", "p13": "PreBind"}
+
+
+def points_drain(device, mode, terms, record=None):
+    """kubetpu_torch/harness/plugin_worlds.py's world (48 nodes x 200
+    pods) under its profile, with the recording plugin at every point and
+    an injected Reserve, Permit and PreBind failure, drained in batches of
+    64 on ``device`` (gang under "pallas"; on the card every scan or
+    auction under the sync checks) with binding on the binder pool and
+    the queue's clock stopped (a failed pod stays out).  Returns
+    (placements, per-pod calls, forgotten assumes, routes)."""
+    from kubetpu_torch.api import types as A
+    from kubetpu_torch.apis import config as C
+    from kubetpu_torch.client.store import ClusterStore
+    from kubetpu_torch.framework import interface as fw
+    from kubetpu_torch.harness import plugin_worlds as PW
+    from kubetpu_torch.plugins.intree import new_in_tree_registry
+    from kubetpu_torch.scheduler import Scheduler
+    calls = []
+    registry = dict(new_in_tree_registry())
+    registry[PW.POINTS] = PW.points_plugin(fw, 7, calls, POINTS_FAIL_AT)
+    cfg = C.KubeSchedulerConfiguration(
+        profiles=[PW.profile(C, scorers=terms)], batch_size=64, mode=mode,
+        kernel_backend="pallas")
+    store = ClusterStore()
+    sched = Scheduler(store, config=cfg, registry=registry, device=device,
+                      async_binding=True)
+    t0 = sched.queue._clock()
+    sched.queue._clock = lambda: t0
+    forgotten = []
+    forget = sched.cache.forget_pod
+
+    def spy(pod):
+        forgotten.append(pod.metadata.name)
+        return forget(pod)
+    sched.cache.forget_pod = spy
+    nodes, existing, pending, services = PW.world(A, 7, 48, 200, terms)
+    PW.populate(store, nodes, existing, services)
+    for p in pending:
+        store.add(p)
+    check = (contextlib.nullcontext() if device == "cpu"
+             else GangRounds() if mode == "gang" else SeqScans())
+    restore = (_record_launches(record, None)
+               if record is not None else None)
+    try:
+        with check:
+            for _ in range(20):
+                out = sched.schedule_pending()
+                sched.wait_for_inflight_binds(timeout=120.0)
+                if not out:
+                    break
+    finally:
+        if restore is not None:
+            restore()
+    sched.close()
+    placed = {p.metadata.name: p.spec.node_name for p in store.list("Pod")}
+    return placed, PW.per_pod(calls), sorted(forgotten), sched.gang_backends
+
+
+def phase_points() -> dict:
+    """The plugin world, term-free and term-bearing, in both modes, card
+    against CPU: the same placements, the same per-pod sequence of
+    extension-point calls, the same Unreserve calls and forgotten
+    assumes at the injected failures, the Permit pairs bound; K1 launched
+    on the term-free gang drains with the host_ok and bias planes, every
+    launch equal to the plain version."""
+    from kubetpu_torch.harness import plugin_worlds as PW
+    from kubetpu_torch.ops import propose as PK
+    out = {"launches": 0}
+    for terms in (False, True):
+        for mode in ("gang", "sequential"):
+            what = "points %s %s" % (mode, "terms" if terms else "term-free")
+            record = [] if mode == "gang" and not terms else None
+            PK.propose.launches = 0      # this path starts: zero the count
+            t = time.perf_counter()
+            card = points_drain("cuda", mode, terms, record)
+            card_s = time.perf_counter() - t
+            launches = PK.propose.launches
+            t = time.perf_counter()
+            cpu = points_drain("cpu", mode, terms)
+            cpu_s = time.perf_counter() - t
+            for i, name in enumerate(("placements", "calls", "forgotten",
+                                      "routes")):
+                if card[i] != cpu[i]:
+                    raise AssertionError("%s: %s differ card vs CPU"
+                                         % (what, name))
+            placed, calls, forgotten, routes = card
+            if set(forgotten) != {"p9", "p13"}:
+                raise AssertionError("%s: forgotten %s" % (what, forgotten))
+            if not all(placed["p%d" % i] for i in range(2 * PW.PAIRS)):
+                raise AssertionError("%s: a Permit pair did not bind"
+                                     % what)
+            unreserved = sorted(p for p, seq in calls.items()
+                                if any(pt == "Unreserve" for pt, _ in seq))
+            if unreserved != ["p13", "p6", "p9"]:
+                raise AssertionError("%s: unreserved %s" % (what, unreserved))
+            res = dict(placed=sum(1 for v in placed.values() if v),
+                       card_s=card_s, cpu_s=cpu_s, launches=launches,
+                       calls=sum(len(v) for v in calls.values()),
+                       routes=sorted({r for r, _ in routes}))
+            if record is not None:
+                if launches <= 0:
+                    raise AssertionError("%s: K1 never launched" % what)
+                if not all("bias" in ins[0]["layout"].planes
+                           and not bool(ins[0]["mask"].all())
+                           for ins, _ in record):
+                    raise AssertionError("%s: a launch lacks the host "
+                                         "planes" % what)
+                res["recorded"] = check_recorded(record, what)
+            out["launches"] += launches
+            out[what] = res
+    return out
+
+
 def _dev_us(e):
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0.0))
@@ -1452,7 +1717,8 @@ def _profiled_drain(store, pods, backend, batch_size):
                 placed=sum(1 for v in placed.values() if v))
 
 
-def _profiled_scan_window(store, pods, first=256, steps=128):
+def _profiled_scan_window(store, pods, first=256, steps=128,
+                          sched_profile=None):
     """The seq_slice drain with torch.profiler on over a steady window of
     its scan (steps first .. first+steps-1; the whole scan's ~500k
     launches would take the profiler minutes to parse): device busy time
@@ -1482,7 +1748,8 @@ def _profiled_scan_window(store, pods, first=256, steps=128):
         return [torch.stack(col) for col in zip(*outs)]
     S._scan = scan
     try:
-        _, placed, _, _ = drain(store, pods, None, 1000, "cuda")
+        _, placed, _, _ = drain(store, pods, None, 1000, "cuda",
+                                profile=sched_profile)
     finally:
         S._scan = orig_scan
     rows = _device_rows(prof)
@@ -1592,7 +1859,7 @@ def main() -> int:
     if {"kernel", *MAIN_PATHS} <= set(phases):
         # the pallas drain of each main path, counted on its own
         by_path = {ph: (results[ph]["pallas"]["launches"]
-                        if ph in ("backlog", "fill")
+                        if ph in ("backlog", "fill", "autoscaler")
                         else results[ph]["launches"])
                    for ph in MAIN_PATHS}
         launches = sum(by_path.values())
@@ -1601,7 +1868,9 @@ def main() -> int:
                                  "launched")
         k = results["kernel"]
         recorded = [results[ph]["pallas"]["recorded"]
-                    for ph in ("backlog", "fill")]
+                    for ph in ("backlog", "fill", "autoscaler")]
+        recorded += [r["recorded"] for r in results["points"].values()
+                     if isinstance(r, dict) and "recorded" in r]
         if "recorded" in results["preempt"]:
             recorded.append(results["preempt"]["recorded"])
         log({"kernels": [{
@@ -1616,7 +1885,10 @@ def main() -> int:
             "library_ms": None, "matches_plain": True,
             "share_of_bound": k["share_of_bound"],
             "ms_w512": k["ms_w512"], "bound_ms_w512": k["bound_ms_w512"],
-            "fill_real_launch": recorded[1]["real_launch"]}]})
+            "ms_generic": k["ms_generic"],
+            "bound_ms_generic": k["bound_ms_generic"],
+            "fill_real_launch": recorded[1]["real_launch"],
+            "autoscaler_real_launch": recorded[2]["real_launch"]}]})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -1,27 +1,89 @@
-"""Scheduler component configuration, limited to what the port reads.
+"""Scheduler component configuration objects.
 
 reference: pkg/scheduler/apis/config/types.go — KubeSchedulerConfiguration
-:55, KubeSchedulerProfile :115, DefaultPercentageOfNodesToScore :251.
-The JAX package's configuration carries many more fields (plugins,
-extenders, chaining, pipelining, deadlines); the port reads only those
-below.
+:55, KubeSchedulerProfile :115, Plugins :176, PluginSet :217, Plugin :230,
+DefaultPercentageOfNodesToScore :251; the counterpart of
+kubetpu/apis/config.py.  YAML decoding, defaulting and validation live in
+apis/load.py.  The JAX package's serving-runtime knobs (chaining,
+deadlines, bind retries, prewarm, meshes) have no counterpart here: the
+port tensorizes fresh every cycle, which gives the same placements.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import Any, Dict, List, Optional
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"
 DEFAULT_PERCENTAGE_OF_NODES_TO_SCORE = 0  # 0 => adaptive (types.go:251)
 MODES = ("sequential", "gang")
 KERNEL_BACKENDS = ("lax", "pallas")
 
+EXTENSION_POINTS = (
+    "queue_sort", "pre_filter", "filter", "post_filter", "pre_score",
+    "score", "reserve", "permit", "pre_bind", "bind", "post_bind",
+    "unreserve",
+)
+
+
+@dataclass
+class Plugin:
+    """reference: types.go:230 (a name and a score weight)."""
+    name: str
+    weight: int = 0
+
+
+@dataclass
+class PluginSet:
+    """reference: types.go:217."""
+    enabled: List[Plugin] = field(default_factory=list)
+    disabled: List[Plugin] = field(default_factory=list)
+
+
+@dataclass
+class Plugins:
+    """One PluginSet per extension point (reference: types.go:176)."""
+    queue_sort: PluginSet = field(default_factory=PluginSet)
+    pre_filter: PluginSet = field(default_factory=PluginSet)
+    filter: PluginSet = field(default_factory=PluginSet)
+    post_filter: PluginSet = field(default_factory=PluginSet)
+    pre_score: PluginSet = field(default_factory=PluginSet)
+    score: PluginSet = field(default_factory=PluginSet)
+    reserve: PluginSet = field(default_factory=PluginSet)
+    permit: PluginSet = field(default_factory=PluginSet)
+    pre_bind: PluginSet = field(default_factory=PluginSet)
+    bind: PluginSet = field(default_factory=PluginSet)
+    post_bind: PluginSet = field(default_factory=PluginSet)
+    unreserve: PluginSet = field(default_factory=PluginSet)
+
+    def apply(self, custom: Optional["Plugins"]) -> "Plugins":
+        """A profile's custom sets merged over these defaults (reference:
+        types.go:195 Plugins.Apply / mergePluginSets): per point, the
+        defaults minus the disabled ones ("*" disables all), then the
+        custom enabled ones."""
+        if custom is None:
+            return self
+        out = Plugins()
+        for ep in EXTENSION_POINTS:
+            default: PluginSet = getattr(self, ep)
+            override: PluginSet = getattr(custom, ep)
+            disabled = {p.name for p in override.disabled}
+            star = "*" in disabled
+            enabled = [p for p in default.enabled
+                       if not star and p.name not in disabled]
+            enabled += list(override.enabled)
+            setattr(out, ep, PluginSet(enabled=enabled))
+        return out
+
 
 @dataclass
 class KubeSchedulerProfile:
-    """reference: types.go:115 — the default plugin set only."""
+    """reference: types.go:115.  plugins: custom sets merged over the
+    default set (None: the default set); plugin_config: per-plugin
+    arguments."""
     scheduler_name: str = DEFAULT_SCHEDULER_NAME
+    plugins: Optional[Plugins] = None
+    plugin_config: Dict[str, Any] = field(default_factory=dict)
 
 
 @dataclass
@@ -34,6 +96,12 @@ class KubeSchedulerConfiguration:
     percentage_of_nodes_to_score: int = DEFAULT_PERCENTAGE_OF_NODES_TO_SCORE
     pod_initial_backoff_seconds: float = 1.0     # types.go:97
     pod_max_backoff_seconds: float = 10.0        # types.go:103
+    # reference: types.go:85 DisablePreemption — off, a pod that fits
+    # nowhere is requeued without the PostFilter (no evictions)
+    disable_preemption: bool = False
+    # reference: types.go:72 Extenders — decoded and validated; a
+    # Scheduler refuses them (ROADMAP queue 1 item 8)
+    extenders: List[Any] = field(default_factory=list)
     batch_size: int = 256        # pods per device batch (the B axis)
     # "sequential": the serial replay of scheduleOne over the batch
     # (models/sequential.py); "gang": the conflict-free auction
@@ -44,18 +112,3 @@ class KubeSchedulerConfiguration:
     # (ops/propose.py; the name matches the JAX package's option) for the
     # batches it serves (utils/pallas_backend.py); others run "lax"
     kernel_backend: str = "lax"
-    # reference: types.go:85 DisablePreemption — off, a pod that fits
-    # nowhere is requeued without the PostFilter (no evictions)
-    disable_preemption: bool = False
-
-    def validate(self) -> None:
-        if self.mode not in MODES:
-            raise ValueError("mode must be one of %s" % (MODES,))
-        if self.kernel_backend not in KERNEL_BACKENDS:
-            raise ValueError("kernel_backend must be one of %s"
-                             % (KERNEL_BACKENDS,))
-        if self.batch_size < 1:
-            raise ValueError("batch_size must be >= 1")
-        if not 0 <= self.percentage_of_nodes_to_score <= 100:
-            raise ValueError("percentage_of_nodes_to_score must lie in "
-                             "[0, 100]")

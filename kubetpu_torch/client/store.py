@@ -114,6 +114,9 @@ class ClusterStore:
     def get_pod(self, namespace: str, name: str) -> Optional[api.Pod]:
         return self.get("Pod", f"{namespace}/{name}")
 
+    def get_node(self, name: str) -> Optional[api.Node]:
+        return self.get("Node", name)
+
     # -- binding subresource ------------------------------------------------
 
     def bind(self, pod: api.Pod, node_name: str) -> None:

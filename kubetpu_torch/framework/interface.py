@@ -1,23 +1,28 @@
-"""Scheduler Framework plugin contract, limited to what the port runs.
+"""Scheduler Framework plugin contract.
 
 reference: pkg/scheduler/framework/v1alpha1/interface.go — Status codes :77,
-the extension points' plugin interfaces :228-396, PostFilterResult :522.
-The counterpart of kubetpu/framework/interface.py.  Tensorized plugins
-declare the kernel names the device programs run (models/programs.py);
-the port's profiles carry only the default plugin set, so the extension
-points that run host code are Bind (DefaultBinder) and PostFilter
-(DefaultPreemption).  PreFilter/Reserve/Permit/PreBind/PostBind plugins,
-waiting pods and host filter and score plugins are ROADMAP queue 1
-(framework extension points).
+MaxNodeScore :85, the extension points' plugin interfaces :228-396
+(QueueSort, PreFilter with its AddPod/RemovePod extensions, Filter,
+PostFilter, PreScore, Score with NormalizeScore, Reserve, Unreserve,
+Permit, PreBind, Bind, PostBind), PostFilterResult :522, and the waiting
+pods of waiting_pods_map.go.  The counterpart of
+kubetpu/framework/interface.py.  Tensorized plugins declare the kernel
+names the device programs run (models/programs.py); host plugins
+implement the methods, and the framework runner (framework/runtime.py)
+calls them.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from enum import IntEnum
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..api import types as api
 
+MAX_NODE_SCORE = 100  # reference: interface.go:85
+MIN_NODE_SCORE = 0
 
 class Code(IntEnum):
     """reference: interface.go:77-103."""
@@ -51,6 +56,10 @@ class Status:
     def unschedulable(cls, *reasons: str) -> "Status":
         return cls(Code.UNSCHEDULABLE, list(reasons))
 
+    @classmethod
+    def unresolvable(cls, *reasons: str) -> "Status":
+        return cls(Code.UNSCHEDULABLE_AND_UNRESOLVABLE, list(reasons))
+
     def is_success(self) -> bool:
         return self.code == Code.SUCCESS
 
@@ -65,10 +74,33 @@ class Status:
         return f"Status({self.code.name}, {self.reasons})"
 
 
+class FitError(Exception):
+    """A scheduling failure with per-node reasons (reference:
+    core/generic_scheduler.go:68 FitError)."""
+
+    def __init__(self, pod: api.Pod, num_all_nodes: int,
+                 filtered_nodes_statuses: Dict[str, Status]):
+        self.pod = pod
+        self.num_all_nodes = num_all_nodes
+        self.filtered_nodes_statuses = filtered_nodes_statuses
+        super().__init__(self.error_message())
+
+    def error_message(self) -> str:
+        # reference: generic_scheduler.go:82 (ErrorMessageFormat)
+        counts: Dict[str, int] = {}
+        for st in self.filtered_nodes_statuses.values():
+            for r in st.reasons:
+                counts[r] = counts.get(r, 0) + 1
+        reasons = ", ".join(f"{n} {r}" for r, n in sorted(counts.items()))
+        return (f"0/{self.num_all_nodes} nodes are available: {reasons}."
+                if reasons else
+                f"0/{self.num_all_nodes} nodes are available.")
+
+
 class CycleState:
-    """Per-scheduling-cycle key-value store (reference:
-    framework/v1alpha1/cycle_state.go:40).  One cycle's state is read and
-    written by the scheduling thread only."""
+    """Per-pod scheduling-cycle key-value store (reference:
+    framework/v1alpha1/cycle_state.go:40).  A pod's state is used by the
+    scheduling thread and then by its bind cycle, never by both at once."""
 
     def __init__(self):
         self._data: Dict[str, object] = {}
@@ -78,6 +110,9 @@ class CycleState:
 
     def write(self, key: str, value: object) -> None:
         self._data[key] = value
+
+    def delete(self, key: str) -> None:
+        self._data.pop(key, None)
 
 
 # ---------------------------------------------------------------------------
@@ -97,8 +132,27 @@ class QueueSortPlugin(Plugin):
         raise NotImplementedError
 
 
+class PreFilterPlugin(Plugin):
+    def pre_filter(self, state: CycleState, pod: api.Pod) -> Status:
+        raise NotImplementedError
+
+    def pre_filter_extensions(self):
+        """self if AddPod/RemovePod are implemented, else None (reference:
+        interface.go:252 PreFilterExtensions)."""
+        return None
+
+    def add_pod(self, state: CycleState, pod_to_schedule: api.Pod,
+                pod_to_add: api.Pod, node_info) -> Status:
+        return Status.success()
+
+    def remove_pod(self, state: CycleState, pod_to_schedule: api.Pod,
+                   pod_to_remove: api.Pod, node_info) -> Status:
+        return Status.success()
+
+
 class FilterPlugin(Plugin):
-    pass
+    def filter(self, state: CycleState, pod: api.Pod, node_info) -> Status:
+        raise NotImplementedError
 
 
 class PostFilterResult:
@@ -121,8 +175,52 @@ class PostFilterPlugin(Plugin):
         raise NotImplementedError
 
 
+class PreScorePlugin(Plugin):
+    def pre_score(self, state: CycleState, pod: api.Pod,
+                  nodes: List[api.Node]) -> Status:
+        raise NotImplementedError
+
+
 class ScorePlugin(Plugin):
-    pass
+    def score(self, state: CycleState, pod: api.Pod,
+              node_name: str) -> Tuple[int, Status]:
+        raise NotImplementedError
+
+    def score_extensions(self):
+        """self (or another object) if normalize_score is implemented,
+        else None."""
+        return None
+
+    def normalize_score(self, state: CycleState, pod: api.Pod,
+                        scores: List[Tuple[str, int]]
+                        ) -> Tuple[List[Tuple[str, int]], Status]:
+        return scores, Status.success()
+
+
+class ReservePlugin(Plugin):
+    def reserve(self, state: CycleState, pod: api.Pod,
+                node_name: str) -> Status:
+        raise NotImplementedError
+
+
+class UnreservePlugin(Plugin):
+    def unreserve(self, state: CycleState, pod: api.Pod,
+                  node_name: str) -> None:
+        raise NotImplementedError
+
+
+class PermitPlugin(Plugin):
+    def permit(self, state: CycleState, pod: api.Pod,
+               node_name: str) -> Tuple[Status, float]:
+        """(status, timeout seconds); a WAIT status parks the pod
+        (reference: interface.go:330)."""
+        raise NotImplementedError
+
+
+class PreBindPlugin(Plugin):
+    def pre_bind(self, state: CycleState, pod: api.Pod,
+                 node_name: str) -> Status:
+        raise NotImplementedError
 
 
 class BindPlugin(Plugin):
@@ -132,9 +230,91 @@ class BindPlugin(Plugin):
         raise NotImplementedError
 
 
+class PostBindPlugin(Plugin):
+    def post_bind(self, state: CycleState, pod: api.Pod,
+                  node_name: str) -> None:
+        raise NotImplementedError
+
+
 class TensorPlugin(Plugin):
     """A plugin whose Filter/Score semantics are device kernels: the
     framework collects the names into the programs' ProgramConfig instead
     of calling per-node Python methods."""
     FILTER_KERNEL: Optional[str] = None   # name in programs.run_filters
     SCORE_KERNEL: Optional[str] = None    # name in programs.run_scores
+
+
+# ---------------------------------------------------------------------------
+# waiting pods (Permit -> Wait)
+
+
+class WaitingPod:
+    """reference: framework/v1alpha1/waiting_pods_map.go:52 waitingPod."""
+
+    def __init__(self, pod: api.Pod, plugin_timeouts: Dict[str, float]):
+        self.pod = pod
+        self._pending = dict(plugin_timeouts)   # guarded by _cond
+        self._cond = threading.Condition()
+        self._status: Optional[Status] = None
+        self._deadline = time.time() + (max(plugin_timeouts.values())
+                                        if plugin_timeouts else 0.0)
+
+    def get_pending_plugins(self) -> List[str]:
+        with self._cond:
+            return list(self._pending)
+
+    def allow(self, plugin_name: str) -> None:
+        # reference: waiting_pods_map.go:106 — allowed once every plugin
+        # that asked to wait has allowed
+        with self._cond:
+            self._pending.pop(plugin_name, None)
+            if not self._pending and self._status is None:
+                self._status = Status.success()
+                self._cond.notify_all()
+
+    def reject(self, msg: str) -> None:
+        with self._cond:
+            if self._status is None:
+                self._status = Status.unschedulable(
+                    f"pod {self.pod.metadata.name} rejected while waiting "
+                    f"on permit: {msg}")
+                self._cond.notify_all()
+
+    def wait(self, timeout: Optional[float] = None) -> Status:
+        deadline = self._deadline if timeout is None else \
+            time.time() + timeout
+        with self._cond:
+            while self._status is None:
+                remaining = deadline - time.time()
+                if remaining <= 0:
+                    self._status = Status.unschedulable(
+                        "pod rejected due to timeout after waiting on "
+                        "permit")
+                    break
+                self._cond.wait(timeout=remaining)
+            return self._status
+
+
+class WaitingPodsMap:
+    """reference: waiting_pods_map.go:29."""
+
+    def __init__(self):
+        self._pods: Dict[str, WaitingPod] = {}   # guarded by _lock
+        self._lock = threading.RLock()
+
+    def add(self, wp: WaitingPod) -> None:
+        with self._lock:
+            self._pods[wp.pod.uid] = wp
+
+    def remove(self, uid: str) -> None:
+        with self._lock:
+            self._pods.pop(uid, None)
+
+    def get(self, uid: str) -> Optional[WaitingPod]:
+        with self._lock:
+            return self._pods.get(uid)
+
+    def iterate(self, fn: Callable[[WaitingPod], None]) -> None:
+        with self._lock:
+            for wp in list(self._pods.values()):
+                fn(wp)

@@ -1,37 +1,83 @@
-"""The default enabled-plugin matrix.
+"""Algorithm providers: the default enabled-plugin matrix.
 
-reference: pkg/scheduler/algorithmprovider/registry.go:77-160
-getDefaultConfig, the counterpart of kubetpu/framework/provider.py.  The
-port refuses pods with volumes (ROADMAP queue 1, volumes), so the volume
-family (VolumeBinding, VolumeRestrictions, VolumeZone and the volume
-limits) is not in its set, and neither are the Reserve/Unreserve/PreBind/
-PostBind points, which only VolumeBinding fills.  The tensorized
-plugins' PreFilter and PreScore halves are part of their kernels, so
-those points, which run nothing else by default, are not listed either.
+reference: pkg/scheduler/algorithmprovider/registry.go — getDefaultConfig
+:77-160 (plugin sets and weights), NewRegistry :60 (DefaultProvider, and
+ClusterAutoscalerProvider, which swaps LeastAllocated for MostAllocated);
+the counterpart of kubetpu/framework/provider.py.  The port refuses pods
+with volumes (ROADMAP queue 1 item 6), so the volume family (VolumeBinding
+at PreFilter, Filter, Reserve, Unreserve, PreBind and PostBind, and the
+volume filters of VOLUME_PLUGINS) is not in its default set, and a profile
+that names one of them is refused when its Framework is built.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from ..apis.config import Plugin, PluginSet, Plugins
 
-# extension point -> enabled plugins, as (name, weight) (weights only for
-# Score)
-Plugins = Dict[str, List[Tuple[str, int]]]
+DEFAULT_PROVIDER = "DefaultProvider"
+CLUSTER_AUTOSCALER_PROVIDER = "ClusterAutoscalerProvider"
+
+# the volume family of the JAX package's default set and registry
+VOLUME_PLUGINS = frozenset({
+    "VolumeBinding", "VolumeRestrictions", "VolumeZone", "NodeVolumeLimits",
+    "EBSLimits", "GCEPDLimits", "AzureDiskLimits", "CinderLimits"})
 
 
 def default_plugins() -> Plugins:
-    """reference: algorithmprovider/registry.go:77-160, without volumes."""
-    return {
-        "queue_sort": [("PrioritySort", 0)],
-        "filter": [("NodeUnschedulable", 0), ("NodeResourcesFit", 0),
-                   ("NodeName", 0), ("NodePorts", 0), ("NodeAffinity", 0),
-                   ("TaintToleration", 0), ("PodTopologySpread", 0),
-                   ("InterPodAffinity", 0)],
-        "post_filter": [("DefaultPreemption", 0)],
-        "score": [("NodeResourcesBalancedAllocation", 1),
-                  ("ImageLocality", 1), ("InterPodAffinity", 1),
-                  ("NodeResourcesLeastAllocated", 1), ("NodeAffinity", 1),
-                  ("NodePreferAvoidPods", 10000), ("PodTopologySpread", 2),
-                  ("DefaultPodTopologySpread", 1), ("TaintToleration", 1)],
-        "bind": [("DefaultBinder", 0)],
-    }
+    """reference: algorithmprovider/registry.go:77-160, without the
+    volume family."""
+    return Plugins(
+        queue_sort=PluginSet(enabled=[Plugin("PrioritySort")]),
+        pre_filter=PluginSet(enabled=[
+            Plugin("NodeResourcesFit"),
+            Plugin("NodePorts"),
+            Plugin("PodTopologySpread"),
+            Plugin("InterPodAffinity"),
+        ]),
+        filter=PluginSet(enabled=[
+            Plugin("NodeUnschedulable"),
+            Plugin("NodeResourcesFit"),
+            Plugin("NodeName"),
+            Plugin("NodePorts"),
+            Plugin("NodeAffinity"),
+            Plugin("TaintToleration"),
+            Plugin("PodTopologySpread"),
+            Plugin("InterPodAffinity"),
+        ]),
+        post_filter=PluginSet(enabled=[Plugin("DefaultPreemption")]),
+        pre_score=PluginSet(enabled=[
+            Plugin("InterPodAffinity"),
+            Plugin("DefaultPodTopologySpread"),
+            Plugin("PodTopologySpread"),
+            Plugin("TaintToleration"),
+        ]),
+        score=PluginSet(enabled=[
+            Plugin("NodeResourcesBalancedAllocation", weight=1),
+            Plugin("ImageLocality", weight=1),
+            Plugin("InterPodAffinity", weight=1),
+            Plugin("NodeResourcesLeastAllocated", weight=1),
+            Plugin("NodeAffinity", weight=1),
+            Plugin("NodePreferAvoidPods", weight=10000),
+            Plugin("PodTopologySpread", weight=2),
+            Plugin("DefaultPodTopologySpread", weight=1),
+            Plugin("TaintToleration", weight=1),
+        ]),
+        bind=PluginSet(enabled=[Plugin("DefaultBinder")]),
+    )
+
+
+def cluster_autoscaler_plugins() -> Plugins:
+    """reference: algorithmprovider/registry.go:49 (ClusterAutoscalerProvider):
+    MostAllocated replaces LeastAllocated."""
+    p = default_plugins()
+    p.score.enabled = [
+        Plugin("NodeResourcesMostAllocated", weight=1)
+        if pl.name == "NodeResourcesLeastAllocated" else pl
+        for pl in p.score.enabled]
+    return p
+
+
+PROVIDERS = {
+    DEFAULT_PROVIDER: default_plugins,
+    CLUSTER_AUTOSCALER_PROVIDER: cluster_autoscaler_plugins,
+}

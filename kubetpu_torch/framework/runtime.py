@@ -1,15 +1,20 @@
-"""Framework runner: one profile's plugin set.
+"""Framework runner: one profile's plugin pipeline.
 
 reference: pkg/scheduler/framework/v1alpha1/framework.go (NewFramework
-:205, RunPostFilterPlugins :514, RunBindPlugins :708); the counterpart of
-kubetpu/framework/runtime.py.  The enabled plugins split into tensorized
+:205, RunPreFilterPlugins :369, RunFilterPlugins :477, RunPostFilterPlugins
+:514, RunPreScorePlugins :543, RunScorePlugins :579, RunReservePlugins
+:660, RunPreBindPlugins :678, RunBindPlugins :708, WaitOnPermit :775,
+RunPermitPlugins :818); the counterpart of kubetpu/framework/runtime.py.
+
+A profile's custom plugin sets are merged over the default set
+(framework/provider.py), and each plugin takes its arguments from the
+profile's plugin_config.  The enabled plugins split into *tensorized*
 plugins, whose kernel names make the profile's ProgramConfig
-(``tensor_filters``, ``tensor_scores``, ``tensor_plugin_args``), and the
-host plugins of the points the port runs: Bind and PostFilter.  A profile
-takes the default plugin set only (framework/provider.py); custom plugin
-sets, host filter and score plugins and the PreFilter/Reserve/Permit/
-PreBind/PostBind points are ROADMAP queue 1 (framework extension points).
-No Permit plugin exists, so no pod ever waits on one.
+(``tensor_filters``, ``tensor_scores``, ``tensor_plugin_args``) and run
+for the whole batch on the device, and *host* plugins, Python methods
+that the extension points below run, each only where its ``relevant(pod)``
+holds.  The JAX runtime's per-point duration metrics are ROADMAP queue 1
+item 11.
 """
 
 from __future__ import annotations
@@ -17,21 +22,33 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 from ..api import types as api
-from ..apis.config import KubeSchedulerProfile
+from ..apis.config import KubeSchedulerProfile, Plugins
 from . import interface as fw
-from .interface import Code, CycleState, Status, TensorPlugin
-from .provider import default_plugins
+from .interface import (Code, CycleState, Status, TensorPlugin, WaitingPod,
+                        WaitingPodsMap)
+from .provider import VOLUME_PLUGINS, default_plugins
+
+MAX_PERMIT_TIMEOUT = 600.0  # reference: interface.go maxTimeout 15 min, capped
 
 
 class Framework:
-    """One framework per profile (reference: framework.go:96)."""
+    """One framework per profile (reference: framework.go:96 framework)."""
 
     def __init__(self, registry, profile: Optional[KubeSchedulerProfile] = None,
-                 client=None):
+                 base_plugins: Optional[Plugins] = None, client=None):
         self.client = client
         self.profile_name = (profile.scheduler_name if profile
                              else KubeSchedulerProfile().scheduler_name)
-        plugins = default_plugins()
+        plugins = (base_plugins or default_plugins()).apply(
+            profile.plugins if profile else None)
+        volumes = sorted({p.name for ep in vars(plugins).values()
+                          for p in ep.enabled if p.name in VOLUME_PLUGINS})
+        if volumes:
+            raise NotImplementedError(
+                "profile %s enables the volume plugins %s (ROADMAP queue 1 "
+                "item 6: volumes)" % (self.profile_name, volumes))
+        args = dict(profile.plugin_config) if profile else {}
+
         self._instances: Dict[str, fw.Plugin] = {}
 
         def instantiate(name: str) -> fw.Plugin:
@@ -39,28 +56,37 @@ class Framework:
                 factory = registry.get(name)
                 if factory is None:
                     raise ValueError(f"plugin {name} not in registry")
-                self._instances[name] = factory(None, self)
+                self._instances[name] = factory(args.get(name), self)
             return self._instances[name]
 
-        def point(name, iface) -> List[fw.Plugin]:
+        def point(ps, iface) -> List[fw.Plugin]:
             out = []
-            for pname, _ in plugins[name]:
-                inst = instantiate(pname)
+            for p in ps.enabled:
+                inst = instantiate(p.name)
                 if not isinstance(inst, iface):
-                    raise ValueError(f"plugin {pname} does not implement "
-                                     f"{iface.__name__}")
+                    raise ValueError(
+                        f"plugin {p.name} does not implement {iface.__name__}")
                 out.append(inst)
             return out
 
-        self.queue_sort_plugins = point("queue_sort", fw.QueueSortPlugin)
-        self.filter_plugins = point("filter", fw.FilterPlugin)
-        self.post_filter_plugins = point("post_filter", fw.PostFilterPlugin)
-        self.score_plugins = point("score", fw.ScorePlugin)
-        self.score_weights = {n: w or 1 for n, w in plugins["score"]}
-        self.bind_plugins = point("bind", fw.BindPlugin)
+        self.queue_sort_plugins = point(plugins.queue_sort, fw.QueueSortPlugin)
+        self.pre_filter_plugins = point(plugins.pre_filter, fw.PreFilterPlugin)
+        self.filter_plugins = point(plugins.filter, fw.FilterPlugin)
+        self.post_filter_plugins = point(plugins.post_filter,
+                                         fw.PostFilterPlugin)
+        self.pre_score_plugins = point(plugins.pre_score, fw.PreScorePlugin)
+        self.score_plugins = point(plugins.score, fw.ScorePlugin)
+        self.score_weights = {p.name: p.weight or 1
+                              for p in plugins.score.enabled}
+        self.reserve_plugins = point(plugins.reserve, fw.ReservePlugin)
+        self.permit_plugins = point(plugins.permit, fw.PermitPlugin)
+        self.pre_bind_plugins = point(plugins.pre_bind, fw.PreBindPlugin)
+        self.bind_plugins = point(plugins.bind, fw.BindPlugin)
+        self.post_bind_plugins = point(plugins.post_bind, fw.PostBindPlugin)
+        self.unreserve_plugins = point(plugins.unreserve, fw.UnreservePlugin)
+        self.waiting_pods = WaitingPodsMap()
 
-        # -- tensor partition: every filter and score plugin of the
-        # default set is tensorized
+        # -- tensor/host partition ------------------------------------------
         self.tensor_filters: Tuple[str, ...] = tuple(
             p.FILTER_KERNEL for p in self.filter_plugins
             if isinstance(p, TensorPlugin) and p.FILTER_KERNEL)
@@ -68,16 +94,181 @@ class Framework:
             (p.SCORE_KERNEL, self.score_weights[p.name()])
             for p in self.score_plugins
             if isinstance(p, TensorPlugin) and p.SCORE_KERNEL)
+        self.host_filter_plugins = [
+            p for p in self.filter_plugins
+            if not (isinstance(p, TensorPlugin) and p.FILTER_KERNEL)]
+        self.host_score_plugins = [
+            p for p in self.score_plugins
+            if not (isinstance(p, TensorPlugin) and p.SCORE_KERNEL)]
+        self.host_pre_filter_plugins = [
+            p for p in self.pre_filter_plugins
+            if not isinstance(p, TensorPlugin)]
+        self.host_pre_score_plugins = [
+            p for p in self.pre_score_plugins
+            if not isinstance(p, TensorPlugin)]
         ipa = self._instances.get("InterPodAffinity")
         self.hard_pod_affinity_weight = getattr(
             ipa, "hard_pod_affinity_weight", 1)
 
     def tensor_plugin_args(self, table) -> Tuple[Tuple[str, Tuple], ...]:
-        """Per-plugin static kernel args resolved against the intern
-        table; none of the default set takes any."""
-        return ()
+        """Resolve per-plugin static kernel args against the intern table
+        (e.g. NodeLabel key ids, RequestedToCapacityRatio shape)."""
+        out = []
+        for name, inst in self._instances.items():
+            ka = getattr(inst, "kernel_args", None)
+            if ka is not None and isinstance(inst, TensorPlugin):
+                out.append((name, ka(table)))
+        return tuple(out)
 
-    # -- extension points ---------------------------------------------------
+    def queue_sort_key(self, qp) -> tuple:
+        return self.queue_sort_plugins[0].sort_key(qp)
+
+    @staticmethod
+    def _relevant(plugin, pod) -> bool:
+        rel = getattr(plugin, "relevant", None)
+        return rel(pod) if rel is not None else True
+
+    # -- extension points (host plugins only; see module docstring) ---------
+
+    def run_pre_filter_plugins(self, state: CycleState, pod: api.Pod) -> Status:
+        # reference: framework.go:369
+        for p in self.host_pre_filter_plugins:
+            if not self._relevant(p, pod):
+                continue
+            st = p.pre_filter(state, pod)
+            if not st.is_success():
+                if st.is_unschedulable():
+                    return st
+                return Status.error(
+                    f'error while running "{p.name()}" prefilter plugin for '
+                    f'pod "{pod.metadata.name}": {st.message()}')
+        return Status.success()
+
+    def run_filter_plugins(self, state: CycleState, pod: api.Pod,
+                           node_info) -> Status:
+        """Host filters for one node (reference: framework.go:477); the
+        tensor filters already produced the dense feasibility mask."""
+        for p in self.host_filter_plugins:
+            if not self._relevant(p, pod):
+                continue
+            st = p.filter(state, pod, node_info)
+            if not st.is_success():
+                if not st.is_unschedulable():
+                    return Status.error(st.message() or p.name())
+                if not st.reasons:
+                    st.reasons = [f"filter plugin {p.name()} failed"]
+                return st
+        return Status.success()
+
+    def has_relevant_host_filters(self, pod: api.Pod) -> bool:
+        return any(self._relevant(p, pod) for p in self.host_filter_plugins)
+
+    def run_pre_score_plugins(self, state: CycleState, pod: api.Pod,
+                              nodes: List[api.Node]) -> Status:
+        for p in self.host_pre_score_plugins:
+            if not self._relevant(p, pod):
+                continue
+            st = p.pre_score(state, pod, nodes)
+            if not st.is_success():
+                return Status.error(
+                    f'error while running "{p.name()}" prescore plugin: '
+                    f'{st.message()}')
+        return Status.success()
+
+    def run_host_score_plugins(self, state: CycleState, pod: api.Pod,
+                               node_names: List[str]) -> Dict[str, List[int]]:
+        """Host scores per node (reference: framework.go:579 RunScorePlugins
+        with NormalizeScore :613 and weights :633).  Returns weighted
+        per-plugin score lists aligned with node_names."""
+        out: Dict[str, List[int]] = {}
+        for p in self.host_score_plugins:
+            if not self._relevant(p, pod):
+                continue
+            scores = []
+            for name in node_names:
+                s, st = p.score(state, pod, name)
+                if not st.is_success():
+                    raise RuntimeError(
+                        f"score plugin {p.name()}: {st.message()}")
+                scores.append((name, s))
+            ext = p.score_extensions()
+            if ext is not None:
+                scores, st = ext.normalize_score(state, pod, scores)
+                if not st.is_success():
+                    raise RuntimeError(
+                        f"normalize {p.name()}: {st.message()}")
+            w = self.score_weights.get(p.name(), 1)
+            out[p.name()] = [s * w for _, s in scores]
+        return out
+
+    def run_reserve_plugins(self, state: CycleState, pod: api.Pod,
+                            node_name: str) -> Status:
+        # reference: framework.go:660
+        for p in self.reserve_plugins:
+            if not self._relevant(p, pod):
+                continue
+            st = p.reserve(state, pod, node_name)
+            if not st.is_success():
+                return Status.error(
+                    f'error while running "{p.name()}" reserve plugin: '
+                    f'{st.message()}')
+        return Status.success()
+
+    def run_unreserve_plugins(self, state: CycleState, pod: api.Pod,
+                              node_name: str) -> None:
+        for p in self.unreserve_plugins:
+            if self._relevant(p, pod):
+                p.unreserve(state, pod, node_name)
+
+    def run_permit_plugins(self, state: CycleState, pod: api.Pod,
+                           node_name: str) -> Status:
+        """reference: framework.go:818 — collects Wait verdicts into a
+        WaitingPod with per-plugin timeouts."""
+        plugin_timeouts: Dict[str, float] = {}
+        status_code = Code.SUCCESS
+        for p in self.permit_plugins:
+            if not self._relevant(p, pod):
+                continue
+            st, timeout = p.permit(state, pod, node_name)
+            if st.is_success():
+                continue
+            if st.is_unschedulable():
+                return st
+            if st.code == Code.WAIT:
+                plugin_timeouts[p.name()] = min(timeout, MAX_PERMIT_TIMEOUT)
+                status_code = Code.WAIT
+            else:
+                return Status.error(
+                    f'error while running "{p.name()}" permit plugin: '
+                    f'{st.message()}')
+        if status_code == Code.WAIT:
+            wp = WaitingPod(pod, plugin_timeouts)
+            self.waiting_pods.add(wp)
+            return Status(Code.WAIT)
+        return Status.success()
+
+    def wait_on_permit(self, pod: api.Pod) -> Status:
+        # reference: framework.go:775 WaitOnPermit
+        wp = self.waiting_pods.get(pod.uid)
+        if wp is None:
+            return Status.success()
+        try:
+            return wp.wait()
+        finally:
+            self.waiting_pods.remove(pod.uid)
+
+    def run_pre_bind_plugins(self, state: CycleState, pod: api.Pod,
+                             node_name: str) -> Status:
+        # reference: framework.go:678
+        for p in self.pre_bind_plugins:
+            if not self._relevant(p, pod):
+                continue
+            st = p.pre_bind(state, pod, node_name)
+            if not st.is_success():
+                return Status.error(
+                    f'error while running "{p.name()}" prebind plugin: '
+                    f'{st.message()}')
+        return Status.success()
 
     def run_post_filter_plugins(self, state: CycleState, pod: api.Pod,
                                 filtered_node_status=None):
@@ -98,8 +289,9 @@ class Framework:
 
     def run_bind_plugins(self, state: CycleState, pod: api.Pod,
                          node_name: str) -> Status:
-        """reference: framework.go:708 — SKIP falls through to the next
-        binder."""
+        # reference: framework.go:708 — SKIP falls through to the next binder
+        if not self.bind_plugins:
+            return Status.error("no bind plugin configured")
         for p in self.bind_plugins:
             st = p.bind(state, pod, node_name)
             if st.code == Code.SKIP:
@@ -109,6 +301,21 @@ class Framework:
             f"all bind plugins skipped binding pod "
             f"{pod.namespace}/{pod.metadata.name}"])
 
+    def run_post_bind_plugins(self, state: CycleState, pod: api.Pod,
+                              node_name: str) -> None:
+        for p in self.post_bind_plugins:
+            if self._relevant(p, pod):
+                p.post_bind(state, pod, node_name)
+
+    # -- FrameworkHandle surface (reference: interface.go:493) --------------
+
+    def get_waiting_pod(self, uid: str):
+        return self.waiting_pods.get(uid)
+
+    def reject_waiting_pod(self, uid: str) -> None:
+        wp = self.waiting_pods.get(uid)
+        if wp is not None:
+            wp.reject("removed")
+
     def iterate_over_waiting_pods(self, fn) -> None:
-        """FrameworkHandle (interface.go:493): no Permit plugin runs, so no
-        pod is waiting and ``fn`` is never called."""
+        self.waiting_pods.iterate(fn)

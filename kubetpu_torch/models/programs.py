@@ -1,10 +1,13 @@
 """Composed filter and score passes for one scheduler profile.
 
-The counterpart of kubetpu/models/programs.py for the gang auction: the
-device-side replacement for the reference's per-pod Filter -> Score ->
-NormalizeScore -> weight pipeline (reference: core/generic_scheduler.go:146
-Schedule, prioritizeNodes :622; weights framework/v1alpha1/framework.go:
-579-656), over a whole batch of B pods against N nodes at once.
+The counterpart of kubetpu/models/programs.py: the device-side
+replacement for the reference's per-pod Filter -> Score -> NormalizeScore
+-> weight -> selectHost pipeline (reference: core/generic_scheduler.go:146
+Schedule, prioritizeNodes :622, selectHost :217; weights
+framework/v1alpha1/framework.go:579-656), over a whole batch of B pods
+against N nodes at once.  ``schedule_batch`` is the one-shot program (every
+pod against the same snapshot) that kube-scheduler's literal unit-test
+tables run through; the gang auction and the replay build on the passes.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels as K
+from ..utils import prng
 
 # Default plugin weights (reference: algorithmprovider/registry.go:119-134).
 DEFAULT_SCORE_PLUGINS: Tuple[Tuple[str, int], ...] = (
@@ -45,7 +49,13 @@ DEFAULT_FILTER_PLUGINS: Tuple[str, ...] = (
 # core/generic_scheduler.go:1041).
 UNRESOLVABLE_FILTERS = frozenset({
     "NodeUnschedulable", "NodeName", "NodeAffinity", "TaintToleration",
+    "NodeLabel",  # nodelabel/node_label.go:106 ErrReasonPresenceViolated
 })
+
+# RequestedToCapacityRatio's arguments when a profile names none: the
+# plugin's default shape on the MaxNodeScore scale, cpu and memory
+DEFAULT_RTCR_ARGS = (((0, 0), (100, 100)), ((0, 0, 1), (1, 0, 1)))
+NO_NODE_LABEL_ARGS = ((), (), ())
 
 
 class ProgramConfig(NamedTuple):
@@ -53,8 +63,8 @@ class ProgramConfig(NamedTuple):
     filters: Tuple[str, ...] = DEFAULT_FILTER_PLUGINS
     scores: Tuple[Tuple[str, int], ...] = DEFAULT_SCORE_PLUGINS
     hostname_topokey: int = 0  # topokey vocab id of kubernetes.io/hostname
-    # per-plugin static kernel args ((plugin, args-tuple), ...); none of the
-    # default family reads any
+    # per-plugin static kernel args ((plugin, args-tuple), ...):
+    # RequestedToCapacityRatio's shape and resources, NodeLabel's key ids
     plugin_args: Tuple[Tuple[str, Tuple], ...] = ()
     # adaptive node sampling of the sequential replay (reference:
     # percentageOfNodesToScore, generic_scheduler.go:54-59; 0 = adaptive,
@@ -73,6 +83,13 @@ class ProgramConfig(NamedTuple):
             if n == name:
                 return a
         return default
+
+
+class FilterScoreResult(NamedTuple):
+    feasible: torch.Tensor        # [B, N] bool
+    unresolvable: torch.Tensor    # [B, N] bool (failed beyond preemption)
+    scores: torch.Tensor          # [B, N] f32 weighted total (0 infeasible)
+    plugin_scores: Dict[str, torch.Tensor]  # per-plugin weighted [B, N]
 
 
 def _filter_mask(name: str, cluster, batch, cfg: ProgramConfig, affinity_ok):
@@ -95,9 +112,10 @@ def _filter_mask(name: str, cluster, batch, cfg: ProgramConfig, affinity_ok):
                                active_keys=cfg.active_keys), None
     if name == "InterPodAffinity":
         return K.interpod_filter(cluster, batch, active_keys=cfg.active_keys)
-    raise NotImplementedError(
-        "filter kernel %s is not ported (ROADMAP: framework extension "
-        "points)" % name)
+    if name == "NodeLabel":
+        present, absent, _ = cfg.arg("NodeLabel", NO_NODE_LABEL_ARGS)
+        return K.node_label_filter(cluster, batch, present, absent), None
+    raise ValueError("unknown filter kernel %s" % name)
 
 
 def run_filters(cluster, batch, cfg: ProgramConfig, host_ok=None,
@@ -191,14 +209,64 @@ def run_scores(cluster, batch, cfg: ProgramConfig, feasible, affinity_ok,
             if raw is None:
                 raw = K.taint_toleration_score(cluster, batch)
             s = K.default_normalize(raw, feasible, reverse=True)
+        elif name == "RequestedToCapacityRatio":
+            shape, resources = cfg.arg("RequestedToCapacityRatio",
+                                       DEFAULT_RTCR_ARGS)
+            s = K.requested_to_capacity_ratio_score(cluster, batch, shape,
+                                                    resources)
+        elif name == "NodeResourceLimits":
+            s = K.resource_limits_score(cluster, batch)
+        elif name == "NodeLabel":
+            _, _, prefs = cfg.arg("NodeLabel", NO_NODE_LABEL_ARGS)
+            s = K.node_label_score(cluster, batch, prefs)
         else:
-            raise NotImplementedError(
-                "score kernel %s is not ported (ROADMAP: framework "
-                "extension points)" % name)
+            raise ValueError("unknown score kernel %s" % name)
         s = torch.where(feasible, s, torch.zeros_like(s)) * float(weight)
         per_plugin[name] = s
         total = total + s
     return total, per_plugin
+
+
+def filter_and_score(cluster, batch, cfg: ProgramConfig,
+                     host_ok=None) -> FilterScoreResult:
+    """Every filter and score of the profile for the whole batch against
+    one snapshot."""
+    from .batch import densify_for
+    batch = densify_for(cluster, batch)
+    feasible, unresolvable, affinity_ok = run_filters(cluster, batch, cfg,
+                                                      host_ok)
+    scores, per_plugin = run_scores(cluster, batch, cfg, feasible,
+                                    affinity_ok)
+    return FilterScoreResult(feasible=feasible, unresolvable=unresolvable,
+                             scores=scores, plugin_scores=per_plugin)
+
+
+def select_host(scores, feasible, rng):
+    """Masked argmax with a uniform tie-break among the best nodes
+    (reference: generic_scheduler.go:217 selectHost).  Pod i draws
+    jax.random.categorical(split(rng, B)[i], logits) with logits 0 on the
+    ties and -2**62 elsewhere, which is argmax(gumbel + logits) with the
+    first index on equal values.  Returns [B] int32, -1 where no node is
+    feasible."""
+    B, N = scores.shape
+    neg = torch.full_like(scores, -2.0 ** 62)
+    masked = torch.where(feasible, scores, neg)
+    best = masked.max(dim=1, keepdim=True).values
+    ties = (masked == best) & feasible
+    logits = torch.where(ties, torch.zeros_like(scores), neg)
+    gumbel = prng.gumbel(prng.split(rng.to(scores.device), B), (N,))
+    choice = torch.argmax(gumbel + logits, dim=1).to(torch.int32)
+    return torch.where(feasible.any(dim=1), choice,
+                       torch.full_like(choice, -1))
+
+
+def schedule_batch(cluster, batch, cfg: ProgramConfig, rng, host_ok=None):
+    """One-shot independent scheduling of a batch: every pod filtered,
+    scored and placed against the same snapshot (no intra-batch
+    interaction).  rng: an int64 [2] key (utils/prng.PRNGKey).  Returns
+    (FilterScoreResult, chosen [B] int32)."""
+    res = filter_and_score(cluster, batch, cfg, host_ok)
+    return res, select_host(res.scores, res.feasible, rng)
 
 
 # ---------------------------------------------------------------------------

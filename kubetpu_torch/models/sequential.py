@@ -48,14 +48,12 @@ from ..ops.selectors import match_selectors
 from ..state.tensors import CH_CPU, CH_MEM, CH_PODS, N_FIXED_CHANNELS
 from ..utils import prng
 from .batch import densify_for
-from .programs import ProgramConfig, UNRESOLVABLE_FILTERS
+from .programs import (DEFAULT_RTCR_ARGS, NO_NODE_LABEL_ARGS,
+                       ProgramConfig, UNRESOLVABLE_FILTERS)
 
 _f = K._f
 NEG = float(-2 ** 62)
 BIG = float(2 ** 62)
-# plugins of the JAX package's replay whose kernels the port lacks
-UNPORTED_PLUGINS = ("NodeLabel", "RequestedToCapacityRatio",
-                    "NodeResourceLimits")
 
 
 class SeqResult(NamedTuple):
@@ -149,11 +147,6 @@ def schedule_sequential(cluster, batch, cfg: ProgramConfig, rng,
     hand in the JAX package's plane)."""
     filters = set(cfg.filters)
     score_w = dict(cfg.scores)
-    for name in UNPORTED_PLUGINS:
-        if name in filters or name in score_w:
-            raise NotImplementedError(
-                "plugin %s is not ported (ROADMAP queue 1 item 4: "
-                "framework extension points)" % name)
     batch = densify_for(cluster, batch)
     dev = batch.req.device
     B = batch.req.shape[0]
@@ -177,7 +170,10 @@ def schedule_sequential(cluster, batch, cfg: ProgramConfig, rng,
     static_filters = (("NodeUnschedulable", K.node_unschedulable_filter),
                       ("NodeName", K.node_name_filter),
                       ("NodeAffinity", lambda c, b: affinity_ok),
-                      ("TaintToleration", K.taint_filter))
+                      ("TaintToleration", K.taint_filter),
+                      ("NodeLabel", lambda c, b: K.node_label_filter(
+                          c, b, *cfg.arg("NodeLabel",
+                                         NO_NODE_LABEL_ARGS)[:2])))
     for name, fn in static_filters:
         if name in filters:
             ok = fn(cluster, batch)
@@ -290,6 +286,13 @@ def schedule_sequential(cluster, batch, cfg: ProgramConfig, rng,
                     if "NodeAffinity" in score_w else None)
     taint_raw = (K.taint_toleration_score(cluster, batch)
                  if "TaintToleration" in score_w else None)
+    limits_score = (K.resource_limits_score(cluster, batch)
+                    if "NodeResourceLimits" in score_w else None)
+    nodelabel_score = (K.node_label_score(
+        cluster, batch, cfg.arg("NodeLabel", NO_NODE_LABEL_ARGS)[2])
+        if "NodeLabel" in score_w else None)
+    rtcr_args = (cfg.arg("RequestedToCapacityRatio", DEFAULT_RTCR_ARGS)
+                 if "RequestedToCapacityRatio" in score_w else None)
 
     if gumbel is None:
         gumbel = prng.select_plane(rng.to(dev), B, N)
@@ -445,6 +448,22 @@ def schedule_sequential(cluster, batch, cfg: ProgramConfig, rng,
         if avoid_score is not None:
             total = total + (torch.where(feas, avoid_score[i], 0.0)
                              * score_w["NodePreferAvoidPods"])
+        if limits_score is not None:
+            total = total + (torch.where(feas, limits_score[i], 0.0)
+                             * score_w["NodeResourceLimits"])
+        if nodelabel_score is not None:
+            total = total + (torch.where(feas, nodelabel_score[i], 0.0)
+                             * score_w["NodeLabel"])
+        if rtcr_args is not None:
+            # scored against the step's carried usage
+            shape, resources = rtcr_args
+            parts = K.rtcr_parts(
+                resources, (req_cpu, alloc_cpu), (req_mem, alloc_mem),
+                lambda ch: (c["req"][:, ch] + batch.req[i, ch],
+                            alloc[:, ch]))
+            total = total + (torch.where(feas, K.rtcr_combine(parts, shape),
+                                         0.0)
+                             * score_w["RequestedToCapacityRatio"])
         if node_aff_raw is not None:
             total = total + (row_normalize(node_aff_raw[i], feas, False)
                              * score_w["NodeAffinity"])

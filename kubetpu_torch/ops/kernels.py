@@ -827,3 +827,152 @@ def default_normalize(raw, feasible, reverse: bool):
     zero_case = MAX_NODE_SCORE if reverse else 0.0
     out = torch.where(max_c > 0, scaled, torch.full_like(scaled, zero_case))
     return torch.where(feasible, out, torch.zeros_like(out))
+
+
+# ---------------------------------------------------------------------------
+# configurable scorers (driven by plugin args; kubetpu/ops/kernels.py:
+# 938-1055)
+
+
+def _itrunc(a, b):
+    """Go int64 division truncates toward zero (not floor); b > 0."""
+    q = _idiv(torch.abs(a), b)
+    return torch.where(a < 0, -q, q)
+
+
+def broken_linear(p, shape):
+    """Piecewise-linear shape function with Go's integer division
+    (reference: noderesources/requested_to_capacity_ratio.go:158
+    buildBrokenLinearFunction).  shape: a static tuple of (utilization,
+    score).  A falling segment has a negative delta, which truncates
+    toward zero; the delta's product is rounded before the division and
+    the add that follow it."""
+    out = torch.full_like(p, float(shape[-1][1]))
+    for i in range(len(shape) - 1, -1, -1):
+        u_i, s_i = float(shape[i][0]), float(shape[i][1])
+        if i == 0:
+            seg = torch.full_like(p, s_i)
+        else:
+            u_p, s_p = float(shape[i - 1][0]), float(shape[i - 1][1])
+            seg = s_p + _itrunc((s_i - s_p) * (p - u_p), u_i - u_p)
+        out = torch.where(p <= u_i, seg, out)
+    return out
+
+
+def broken_linear_scalar(p, shape):
+    """broken_linear at one utilization, in exact Python arithmetic (Go's
+    truncating division): the score of a zero or exceeded capacity,
+    rawScoringFunction(maxUtilization), a constant of the shape."""
+    for i, (u_i, s_i) in enumerate(shape):
+        if p <= u_i:
+            if i == 0:
+                return float(s_i)
+            u_p, s_p = shape[i - 1]
+            num = (s_i - s_p) * (p - u_p)
+            q = abs(num) // (u_i - u_p)
+            return float(s_p + (-q if num < 0 else q))
+    return float(shape[-1][1])
+
+
+def rtcr_combine(parts, shape):
+    """The weighted RequestedToCapacityRatio combine of the batch kernel
+    and the sequential replay (reference: requested_to_capacity_ratio.go:
+    124-147).  parts: (req, cap, weight) triples.  Zero or exceeded
+    capacity scores rawScoringFunction(maxUtilization); the final divide
+    is math.Round (half away from zero) in exact integer form."""
+    fallback = broken_linear_scalar(100, shape)
+    total = weight_sum = None
+    for req, cap, weight in parts:
+        # _safe_den: sub-unit capacities (memory in MiB) divide by their
+        # true value; cap <= 0 takes the fallback
+        util = 100.0 - _idiv((cap - req) * 100.0, _safe_den(cap))
+        s = torch.where((cap <= 0) | (req > cap), fallback,
+                        broken_linear(util, shape))
+        contrib = torch.where(s > 0, s * float(weight), 0.0)
+        w = torch.where(s > 0, float(weight), 0.0)
+        total = contrib if total is None else total + contrib
+        weight_sum = w if weight_sum is None else weight_sum + w
+    return torch.where(weight_sum > 0,
+                       _idiv(2.0 * total + weight_sum,
+                             torch.clamp(2.0 * weight_sum, min=1.0)),
+                       0.0)
+
+
+def rtcr_parts(resources, cpu, mem, scalar):
+    """RequestedToCapacityRatio's (req, cap, weight) triples, for the
+    batch kernel and the replay alike.  resources: ((kind, ch, weight),
+    ...), kind 0 = cpu and 1 = memory (the (req, cap) pairs ``cpu`` and
+    ``mem``, non-zero requests), 2 = the scalar channel ch, whose pair
+    ``scalar(ch)`` gives; ch < 0 names a resource the cluster does not
+    know, whose capacity is 0."""
+    parts = []
+    for kind, ch, weight in resources:
+        if kind == 0:
+            req, cap = cpu
+        elif kind == 1:
+            req, cap = mem
+        elif ch < 0:
+            req, cap = torch.zeros_like(cpu[0]), torch.zeros_like(cpu[1])
+        else:
+            req, cap = scalar(ch)
+        parts.append((req, cap, weight))
+    return parts
+
+
+def requested_to_capacity_ratio_score(cluster, batch, shape, resources):
+    """RequestedToCapacityRatio (reference: requested_to_capacity_ratio.go:
+    124-147), over the batch [B, N]."""
+    req_cpu, req_mem, alloc_cpu, alloc_mem = _alloc_req(cluster, batch)
+    return rtcr_combine(rtcr_parts(
+        resources, (req_cpu, alloc_cpu), (req_mem, alloc_mem),
+        lambda ch: (cluster.requested[None, :, ch]
+                    + batch.req[:, ch][:, None],
+                    cluster.allocatable[None, :, ch])), shape)
+
+
+def resource_limits_score(cluster, batch):
+    """NodeResourceLimits: 1 where the node satisfies the pod's cpu or
+    memory limit (reference: noderesources/resource_limits.go:104-123,
+    155)."""
+    lim_cpu = batch.limits[:, None, CH_CPU]
+    lim_mem = batch.limits[:, None, CH_MEM]
+    alloc_cpu = cluster.allocatable[None, :, CH_CPU]
+    alloc_mem = cluster.allocatable[None, :, CH_MEM]
+    cpu_ok = (lim_cpu > 0) & (alloc_cpu > 0) & (lim_cpu <= alloc_cpu)
+    mem_ok = (lim_mem > 0) & (alloc_mem > 0) & (lim_mem <= alloc_mem)
+    return (cpu_ok | mem_ok).float()
+
+
+def node_label_filter(cluster, batch, present_ids, absent_ids):
+    """NodeLabel filter: every configured present label present, every
+    absent one absent (reference: nodelabel/node_label.go:48-68).  ids
+    are key-vocab ids; -1 is a label no node carries."""
+    B = batch.req.shape[0]
+    N = cluster.keymask.shape[0]
+    ok = torch.ones((N,), dtype=torch.bool, device=cluster.keymask.device)
+    for kid in present_ids:
+        ok = ok & (cluster.keymask[:, kid] if kid >= 0
+                   else torch.zeros_like(ok))
+    for kid in absent_ids:
+        if kid >= 0:
+            ok = ok & ~cluster.keymask[:, kid]
+    return ok[None, :].expand(B, N)
+
+
+def node_label_score(cluster, batch, prefs):
+    """NodeLabel score: MaxNodeScore per satisfied preference, averaged
+    (reference: nodelabel/node_label.go:70-93).  prefs: ((key_id,
+    want_present), ...)."""
+    B = batch.req.shape[0]
+    N = cluster.keymask.shape[0]
+    dev = cluster.keymask.device
+    if not prefs:
+        return torch.zeros((B, N), dtype=torch.float32, device=dev)
+    score = torch.zeros((N,), dtype=torch.float32, device=dev)
+    for kid, want_present in prefs:
+        has = (cluster.keymask[:, kid] if kid >= 0
+               else torch.zeros((N,), dtype=torch.bool, device=dev))
+        hit = has if want_present else ~has
+        score = score + hit.float() * MAX_NODE_SCORE
+    score = _idiv(score, float(len(prefs)))
+    return score[None, :].expand(B, N)

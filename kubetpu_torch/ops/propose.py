@@ -172,8 +172,9 @@ def layout_for(cfg, has_bias: bool) -> Layout:
     unsupported = [n for n, _ in cfg.scores if n not in SUPPORTED_SCORES]
     if unsupported:
         raise NotImplementedError(
-            "propose: score plugins %s are not ported (ROADMAP: framework "
-            "extension points)" % unsupported)
+            "propose: the kernel does not serve the score plugins %s "
+            "(utils/pallas_backend routes such profiles to the lax round, "
+            "as the JAX package routes them)" % unsupported)
     if len(cfg.scores) > MAX_SCORES:
         raise ValueError("propose: more than %d score plugins" % MAX_SCORES)
     filters = set(cfg.filters)

@@ -513,8 +513,8 @@ class Preemptor:
                 if b is not None:
                     # lazy lexicographic resolution: only the WINNER's
                     # victim list materializes
-                    best, victims, had_claimed = fastw.resolve(pod, b,
-                                                               claimed)
+                    best, victims, had_claimed = fastw.resolve(
+                        fwk, pod, b, claimed)
                 else:
                     nv = slow_entries.get(pod.uid, {})
                     had_claimed = any(n in claimed for n in nv)
@@ -670,8 +670,17 @@ class Preemptor:
         out: Dict[str, List[int]] = {}
         for pod in pods:
             feasible, unresolvable = verd[pod.uid]
+            feasible = np.array(feasible[:n])
+            if fwk.has_relevant_host_filters(pod):
+                # the host filters' verdicts join the device's
+                # (kubetpu/preemption.py:685-691)
+                state = CycleState()
+                for j in np.flatnonzero(feasible).tolist():
+                    if not fwk.run_filter_plugins(state, pod,
+                                                  node_infos[j]).is_success():
+                        feasible[j] = False
             out[pod.uid] = np.flatnonzero(
-                ~feasible[:n] & ~unresolvable[:n]).tolist()
+                ~feasible & ~unresolvable[:n]).tolist()
         return out
 
     # -------------------------------------------------------- victim search
@@ -1012,9 +1021,26 @@ class Preemptor:
                      if not reprieved[k, c]]
             num_viol = sum(1 for k in range(min(n_violating, len(victims)))
                            if not reprieved[k, c])
-            out[cycle.node_infos[row].node_name] = Victims(
-                pods=final, num_pdb_violations=num_viol)
+            ni = cycle.node_infos[row]
+            if not self._host_filters_pass(fwk, pod, ni,
+                                           {p.uid for p in final}):
+                continue
+            out[ni.node_name] = Victims(pods=final,
+                                        num_pdb_violations=num_viol)
         return out
+
+    @staticmethod
+    def _host_filters_pass(fwk, pod: api.Pod, ni: NodeInfo,
+                           removed_uids: set) -> bool:
+        """The profile's host filters on the node with the victims
+        removed (kubetpu/preemption.py:1037)."""
+        if not fwk.has_relevant_host_filters(pod):
+            return True
+        sim_ni = ni.clone()
+        for pi in list(sim_ni.pods):
+            if pi.pod.uid in removed_uids:
+                sim_ni.remove_pod(pi.pod)
+        return fwk.run_filter_plugins(CycleState(), pod, sim_ni).is_success()
 
 
 class _FastWave:
@@ -1072,16 +1098,25 @@ class _FastWave:
             idx = idx[vals == vals.min()]
         return int(idx[0]) if idx.size else None
 
-    def resolve(self, pod, b: int, claimed: set):
+    def resolve(self, fwk, pod, b: int, claimed: set):
         """(node, victims, had_claimed) — had_claimed: some feasible entry
-        was lost to a same-round claim (the re-wave trigger)."""
+        was lost to a same-round claim (the re-wave trigger).  A winner
+        whose node the profile's host filters reject, victims removed,
+        gives way to the next."""
         names = self.names[b]
         had_claimed = bool(claimed) and any(
             n in claimed for n, f in zip(names, self.fits[b].tolist()) if f)
-        c = self._pick(b, set(claimed))
-        if c is None:
-            return None, None, had_claimed
-        return names[c], self._victims(pod, b, c), had_claimed
+        banned = set(claimed)
+        while True:
+            c = self._pick(b, banned)
+            if c is None:
+                return None, None, had_claimed
+            victims = self._victims(pod, b, c)
+            if Preemptor._host_filters_pass(
+                    fwk, pod, self.cycle.node_infos[self.cand_lists[b][c]],
+                    {p.uid for p in victims.pods}):
+                return names[c], victims, had_claimed
+            banned.add(names[c])
 
 
 class _WaveUnion:
@@ -1093,9 +1128,9 @@ class _WaveUnion:
         self.index = {uid: (w, b) for w in waves
                       for uid, b in w.index.items()}
 
-    def resolve(self, pod, key, claimed):
+    def resolve(self, fwk, pod, key, claimed):
         w, b = key
-        return w.resolve(pod, b, claimed)
+        return w.resolve(fwk, pod, b, claimed)
 
 
 # ---------------------------------------------------------------------------

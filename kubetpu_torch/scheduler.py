@@ -6,35 +6,48 @@ bind :457, recordSchedulingFailure :391) and eventhandlers.go
 (addAllEventHandlers :362).  Like the JAX package's scheduler, each cycle
 pops a BATCH of pods and places it with one device program:
 
-  schedule_pending -> pop a batch (PrioritySort order) -> cache snapshot
-  -> fresh tensorize (SnapshotBuilder + PodBatchBuilder) -> the mode's
-  program with PRNGKey(cycle counter) -> ONE readback of ``packed`` ->
-  assume + bind through the store; failed pods go through the PostFilter
-  (DefaultPreemption: one batched preemption wave per cycle, preemption.py)
-  and return to the queue after every placement of the cycle has
-  committed.
+  schedule_pending -> pop a batch (the queue-sort order) -> cache snapshot
+  -> host PreFilter per pod -> fresh tensorize (SnapshotBuilder +
+  PodBatchBuilder) -> host Filter verdicts into ``host_ok`` and host
+  PreScore/Score into ``score_bias`` -> the mode's program with
+  PRNGKey(cycle counter) -> ONE readback of ``packed`` -> per placement:
+  host-filter re-check, Reserve, assume, Permit, then the bind cycle
+  (WaitOnPermit, PreBind, Bind, PostBind); failed pods go through the
+  PostFilter (DefaultPreemption: one batched preemption wave per cycle,
+  preemption.py) and return to the queue after every placement of the
+  cycle has committed.
+
+Profiles are the configuration's: custom plugin sets over the default set
+with per-plugin arguments (framework/runtime.py).  Tensorized plugins run
+in the device program; host plugins run at their points, each only for
+the pods it finds relevant.  Host scores are normalised over every valid
+node before the dispatch (the JAX package's documented deviation from the
+reference's filtered set, which keeps the single readback).
 
 Modes: "sequential" (the default) replays scheduleOne over the batch in
 pod order (models/sequential.py) with the adaptive-sampling start index
 kept across cycles; "gang" runs the conflict-free auction
-(models/gang.py).  Both run the default plugin family and restrict the
-same-pair key loops to the topology keys of the batch's terms
-(ProgramConfig.active_topo_keys).  In both, pods nominated by preemption
-reserve their nominated nodes for pods of lower or equal priority (the
-nominated-pods overlay, ANDed into ``host_ok``).  A gang batch whose
-pods carry pod (anti-)affinity, spread constraints or a controller
-spread selector runs
-the auction with intra-batch topology, and so the lax round whatever the
-configured backend; each cycle's route is recorded in ``gang_backends``.
-Pods with volumes are refused in both modes (NotImplementedError).
-Deferred, each a
-ROADMAP item: the framework extension points (PreFilter/Reserve/Permit/
-PreBind/PostBind plugins, host filters and scores), volumes, the decision
-audit, extenders, cycle chaining, delta
-tensorization, the pipelined drain, and the JAX runtime's journal/chaos/
-devstats/AOT utilities.  The JAX scheduler's placements do not depend on
-chaining or the delta path (its tests prove both placement-identical to
-fresh builds), so a fresh build per cycle gives the same placements.
+(models/gang.py).  Both restrict the same-pair key loops to the topology
+keys of the batch's terms (ProgramConfig.active_topo_keys).  In both, pods
+nominated by preemption reserve their nominated nodes for pods of lower or
+equal priority (the nominated-pods overlay, ANDed into ``host_ok``).  A
+gang batch whose pods carry pod (anti-)affinity, spread constraints or a
+controller spread selector runs the auction with intra-batch topology, and
+so the lax round whatever the configured backend; each cycle's route is
+recorded in ``gang_backends``.
+
+Binding runs in the cycle by default (``async_binding=False``); the JAX
+package binds on a pool by default.  A Permit plugin that answers Wait
+needs ``async_binding=True``: the bind cycle then runs on a pool of binder
+threads (``wait_for_inflight_binds``).  Placements do not depend on this
+setting.  Refused, each a ROADMAP queue 1 item: pods with volumes and
+profiles with the volume plugins (item 6), extenders (item 8); deferred:
+the decision audit (item 8), cycle chaining and delta tensorization (item
+7), the pipelined serving loop, the bind retry ladder and ``run`` (item
+9), and the JAX runtime's journal/chaos/devstats/AOT utilities (item 11).
+The JAX scheduler's placements do not depend on chaining or the delta
+path (its tests prove both placement-identical to fresh builds), so a
+fresh build per cycle gives the same placements.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ from __future__ import annotations
 import copy
 import logging
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -50,8 +64,9 @@ import torch
 
 from .api import types as api
 from .apis.config import KubeSchedulerConfiguration, KubeSchedulerProfile
+from .apis.load import validate as validate_config
 from .client.store import ClusterStore
-from .framework.interface import CycleState
+from .framework.interface import Code, CycleState, Status
 from .framework.runtime import Framework
 from .framework.types import (PodInfo, QueuedPodInfo, pod_with_affinity,
                               pod_with_required_anti_affinity)
@@ -81,24 +96,35 @@ class ScheduleOutcome:
 
 class Scheduler:
     """reference: scheduler.go:69.  ``device`` defaults to CUDA; pass
-    device="cpu" to run the plain PyTorch path."""
+    device="cpu" to run the plain PyTorch path.  registry: the plugin
+    factories (default: plugins/intree.new_in_tree_registry(), to which a
+    caller adds its own).  async_binding: run each bind cycle on a binder
+    pool (see the module docstring)."""
 
     def __init__(self, store: ClusterStore,
                  config: Optional[KubeSchedulerConfiguration] = None,
-                 device: DeviceLike = None):
+                 registry=None, device: DeviceLike = None,
+                 async_binding: bool = False):
         self.device = resolve_device(device)
         self.store = store
         self.config = config or KubeSchedulerConfiguration(
             profiles=[KubeSchedulerProfile()])
         if not self.config.profiles:
             self.config.profiles = [KubeSchedulerProfile()]
-        self.config.validate()
-        registry = new_in_tree_registry()
+        registry = registry or new_in_tree_registry()
+        # plugin existence is checked against the registry the profiles
+        # are built from (reference: framework.go:205 NewFramework)
+        validate_config(self.config, registry_names=set(registry))
+        if self.config.extenders:
+            raise NotImplementedError(
+                "extenders are not ported (ROADMAP queue 1 item 8)")
         self.profiles: Dict[str, Framework] = {
             p.scheduler_name: Framework(registry, p, client=store)
             for p in self.config.profiles}
         self.cache = SchedulerCache()
+        any_fw = next(iter(self.profiles.values()))
         self.queue = SchedulingQueue(
+            sort_key=any_fw.queue_sort_key,
             pod_initial_backoff=self.config.pod_initial_backoff_seconds,
             pod_max_backoff=self.config.pod_max_backoff_seconds)
         self.snapshot = Snapshot()
@@ -106,6 +132,14 @@ class Scheduler:
         # rotating node-search start of the sequential replay (reference:
         # nextStartNodeIndex, generic_scheduler.go:451); kept across cycles
         self._next_start_node_index = 0
+        self._async_binding = async_binding
+        self._bind_pool = (ThreadPoolExecutor(max_workers=16,
+                                              thread_name_prefix="binder")
+                           if async_binding else None)
+        self._inflight_binds: List = []
+        # uids of the popped pods that have an outcome in the running
+        # schedule_pending: committed, or failed and requeued
+        self._settled: set = set()
         # per-cycle diagnostics (the benchmark surface); the gang lists
         # stay empty in sequential mode
         self.cycle_count = 0
@@ -115,11 +149,13 @@ class Scheduler:
         # ("pallas" or "lax") and, when a pallas request was routed to
         # lax, why (utils/pallas_backend.unsupported_reason)
         self.gang_backends: List[Tuple[str, Optional[str]]] = []
-        # host wall seconds per cycle stage, summed over cycles: snapshot,
-        # tensorize (numpy build, and the nominated overlay), upload (copy
-        # to the device), auction (the mode's program through the packed
-        # readback), commit (assume + bind), preempt (the preemption wave
-        # and the failed pods' PostFilter and requeue)
+        # host wall seconds per cycle stage, summed over cycles: snapshot
+        # (and the host PreFilter), tensorize (numpy build, host filters
+        # and scores, and the nominated overlay), upload (copy to the
+        # device), auction (the mode's program through the packed
+        # readback), commit (re-check, Reserve, assume, Permit, bind),
+        # preempt (the preemption wave and the failed pods' PostFilter
+        # and requeue)
         self.stage_s: Dict[str, float] = dict.fromkeys(
             ("snapshot", "tensorize", "upload", "auction", "commit",
              "preempt"), 0.0)
@@ -175,6 +211,9 @@ class Scheduler:
                         "PodDelete")
                 else:
                     self.queue.delete(pod)
+                    fwk = self.profiles.get(pod.spec.scheduler_name)
+                    if fwk is not None:
+                        fwk.reject_waiting_pod(pod.uid)
 
         def on_node(event: str, old, new) -> None:
             if event == "add":
@@ -189,8 +228,17 @@ class Scheduler:
                 except ValueError:
                     pass
 
+        def on_moveable(kind: str):
+            def handler(event: str, old, new) -> None:
+                self.queue.move_all_to_active_or_backoff_queue(
+                    f"{kind}{event.title()}")
+            return handler
+
         self.store.subscribe("Pod", on_pod)
         self.store.subscribe("Node", on_node)
+        for kind in ("PersistentVolume", "PersistentVolumeClaim",
+                     "StorageClass", "Service", "CSINode"):
+            self.store.subscribe(kind, on_moveable(kind))
 
     def _add_pod_to_cache(self, pod: api.Pod) -> None:
         try:
@@ -220,7 +268,10 @@ class Scheduler:
                          timeout: float = 0.0) -> List[ScheduleOutcome]:
         """Run ONE batched scheduling cycle: pop up to batch_size pods and
         schedule them, one device program per profile.  Returns their
-        outcomes ([] when the queue is empty)."""
+        outcomes ([] when the queue is empty).  If a group raises, every
+        popped pod without an outcome goes back to the queue before the
+        exception propagates (as the JAX scheduler's _recover_cycle,
+        kubetpu/scheduler.py:1225): nothing popped is lost."""
         qpods = self.queue.pop_batch(max_batch or self.config.batch_size,
                                      timeout=timeout)
         by_profile: Dict[str, List[QueuedPodInfo]] = {}
@@ -229,9 +280,31 @@ class Scheduler:
                 by_profile.setdefault(qp.pod.spec.scheduler_name,
                                       []).append(qp)
         outcomes: List[ScheduleOutcome] = []
-        for name, group in by_profile.items():
-            outcomes.extend(self._schedule_group(self.profiles[name], group))
+        self._settled = set()
+        try:
+            for name, group in by_profile.items():
+                outcomes.extend(self._schedule_group(self.profiles[name],
+                                                     group))
+        except BaseException:
+            self._requeue_unsettled(
+                [qp for group in by_profile.values() for qp in group])
+            raise
         return outcomes
+
+    def _requeue_unsettled(self, qpods: List[QueuedPodInfo]) -> None:
+        """reference: kubetpu/scheduler.py:1275-1284 — each pod with no
+        outcome back as unschedulable under the cycle captured at its pop,
+        then every unschedulable pod to the active or backoff queue, where
+        its own backoff paces the retry."""
+        for qp in qpods:
+            if qp.pod.uid in self._settled:
+                continue
+            try:
+                self.queue.add_unschedulable_if_not_present(
+                    qp, qp.scheduling_cycle)
+            except ValueError:
+                pass
+        self.queue.move_all_to_active_or_backoff_queue("CycleRecovery")
 
     def _skip_pod_schedule(self, pod: api.Pod) -> bool:
         """reference: scheduler.go:691 skipPodSchedule."""
@@ -246,8 +319,8 @@ class Scheduler:
             pod = qp.pod
             if pod.spec.volumes:
                 raise NotImplementedError(
-                    "pod %s/%s has volumes (ROADMAP: volumes)"
-                    % (pod.namespace, pod.metadata.name))
+                    "pod %s/%s has volumes (ROADMAP queue 1 item 6: "
+                    "volumes)" % (pod.namespace, pod.metadata.name))
 
     @staticmethod
     def _needs_topo(qpods: List[QueuedPodInfo], spread_sels) -> bool:
@@ -286,19 +359,97 @@ class Scheduler:
         self.stage_s[name] += t1 - t0
         return t1
 
+    def _host_filter_mask(self, fwk, live, states, relevant, node_infos,
+                          B: int, N: int) -> Optional[np.ndarray]:
+        """reference: kubetpu/scheduler.py:892-905 — the host filters'
+        verdicts per (pod, node) as a [B, N] mask; None when no pod has a
+        relevant host filter."""
+        host_ok = None
+        for i, qp in enumerate(live):
+            if not relevant[qp.pod.uid]:
+                continue
+            if host_ok is None:
+                host_ok = np.ones((B, N), bool)
+            state = states[qp.pod.uid]
+            for j, ni in enumerate(node_infos):
+                host_ok[i, j] = fwk.run_filter_plugins(
+                    state, qp.pod, ni).is_success()
+        return host_ok
+
+    def _host_score_bias(self, fwk, live, states, node_infos, B: int,
+                         N: int) -> Optional[np.ndarray]:
+        """reference: kubetpu/scheduler.py:927-962 — host PreScore and
+        Score (normalised and weighted) into a [B, N] f32 bias the device
+        program adds before selectHost.  Normalisation runs over every
+        valid node.  A pod whose PreScore or Score fails keeps its place
+        in the batch without host scores (the JAX package's documented
+        deviation: one failing plugin must not abort the batch).  None
+        when no host score applies."""
+        if not fwk.host_score_plugins:
+            return None
+        node_names = [ni.node_name for ni in node_infos]
+        nodes_raw = [ni.node for ni in node_infos]
+        bias = np.zeros((B, N), np.float32)
+        any_bias = False
+        log = logging.getLogger("kubetpu_torch")
+        for i, qp in enumerate(live):
+            if not any(fwk._relevant(p, qp.pod)
+                       for p in fwk.host_score_plugins):
+                continue
+            state = states[qp.pod.uid]
+            st = fwk.run_pre_score_plugins(state, qp.pod, nodes_raw)
+            if not st.is_success():
+                log.warning("prescore failed for %s: %s; host scores "
+                            "dropped", qp.pod.metadata.name, st.message())
+                continue
+            try:
+                plugin_scores = fwk.run_host_score_plugins(state, qp.pod,
+                                                           node_names)
+            except RuntimeError as e:
+                log.warning("host score failed for %s: %s; scores dropped",
+                            qp.pod.metadata.name, e)
+                continue
+            for vals in plugin_scores.values():
+                bias[i, :len(vals)] += vals
+                any_bias = True
+        return bias if any_bias else None
+
     def _schedule_group(self, fwk: Framework, qpods: List[QueuedPodInfo]
                         ) -> List[ScheduleOutcome]:
         t = time.perf_counter()
         self.cache.update_snapshot(self.snapshot)
         node_infos = self.snapshot.node_info_list
         n_nodes = len(node_infos)
-        if n_nodes == 0:
-            return [self._fail(fwk, qp, "0/0 nodes are available",
-                               preemption_may_help=False) for qp in qpods]
-        spread_sels = [self.store.default_spread_selector(qp.pod)
-                       for qp in qpods]
         self._check_supported(qpods)
-        pinfos = [PodInfo(qp.pod) for qp in qpods]
+        # host PreFilter per pod (reference: kubetpu/scheduler.py:680-699);
+        # a failure fails the pod, past preemption's help when the plugin
+        # says UnschedulableAndUnresolvable
+        states: Dict[str, CycleState] = {}
+        live: List[QueuedPodInfo] = []
+        outcomes: List[ScheduleOutcome] = []
+        for qp in qpods:
+            state = CycleState()
+            st = fwk.run_pre_filter_plugins(state, qp.pod)
+            if not st.is_success():
+                outcomes.append(self._fail(
+                    fwk, qp, st.message() or "prefilter failed",
+                    preemption_may_help=(
+                        st.code != Code.UNSCHEDULABLE_AND_UNRESOLVABLE),
+                    state=state))
+                continue
+            states[qp.pod.uid] = state
+            live.append(qp)
+        if not live:
+            self._stage("snapshot", t)
+            return outcomes
+        if n_nodes == 0:
+            return outcomes + [
+                self._fail(fwk, qp, "0/0 nodes are available",
+                           preemption_may_help=False,
+                           state=states[qp.pod.uid]) for qp in live]
+        spread_sels = [self.store.default_spread_selector(qp.pod)
+                       for qp in live]
+        pinfos = [PodInfo(qp.pod) for qp in live]
         # nominated pods join the tensor world too (labels and terms for
         # the topology overlay): their strings are interned before the
         # snapshot arrays are sized, as the JAX scheduler interns them
@@ -317,13 +468,28 @@ class Scheduler:
         batch = batch_to_device(hbatch, self.device)
         t = self._stage("upload", t)
         table = builder.table
+        B = batch.valid.shape[0]
+        N = cluster.allocatable.shape[0]
+        # one walk of the host filters' relevance per pod, shared by the
+        # host-filter loop and the commit-time re-check
+        # (kubetpu/scheduler.py:609-628 _host_relevance)
+        relevant = {qp.pod.uid: fwk.has_relevant_host_filters(qp.pod)
+                    for qp in live}
+        host_mask = self._host_filter_mask(fwk, live, states, relevant,
+                                           node_infos, B, N)
+        bias = self._host_score_bias(fwk, live, states, node_infos, B, N)
         batch_topo_keys = self._batch_topo_keys(table, pinfos)
         # the nominated-pods two-pass overlay (addNominatedPods,
         # generic_scheduler.go:530,594-612), a device mask ANDed into
         # host_ok; None when no nominated pod is relevant
         host_ok = self._nominated_overlay_mask(fwk, builder, cluster, batch,
-                                               qpods, node_infos, nominated,
+                                               live, node_infos, nominated,
                                                batch_topo_keys)
+        if host_mask is not None:
+            host_t = torch.from_numpy(host_mask).to(self.device)
+            host_ok = host_t if host_ok is None else host_t & host_ok
+        score_bias = (None if bias is None
+                      else torch.from_numpy(bias).to(self.device))
         t = self._stage("tensorize", t)
         cfg = programs.ProgramConfig(
             filters=fwk.tensor_filters, scores=fwk.tensor_scores,
@@ -334,17 +500,16 @@ class Scheduler:
             active_topo_keys=batch_topo_keys)
         cycle_ctx = CycleContext(
             builder=builder, cluster=cluster, cfg=cfg, node_infos=node_infos,
-            batch=batch, row_of={qp.pod.uid: i for i, qp in enumerate(qpods)},
+            batch=batch, row_of={qp.pod.uid: i for i, qp in enumerate(live)},
             host_batch=hbatch)
         cycle_ctx.pod_rows = host.arrays["_pod_rows"]
 
-        B = batch.valid.shape[0]
         if self.config.mode == "gang":
-            needs_topo = self._needs_topo(qpods, spread_sels)
+            needs_topo = self._needs_topo(live, spread_sels)
             self.gang_backends.append(self._gang_backend(cfg, needs_topo,
                                                          hbatch))
             res = run_auction(cluster, batch, cfg, self._next_rng(),
-                              host_ok=host_ok,
+                              host_ok=host_ok, score_bias=score_bias,
                               intra_batch_topology=needs_topo,
                               kernel_backend=self.gang_backends[-1][0])
             packed = res.packed.cpu().numpy()     # the cycle's one readback
@@ -358,25 +523,25 @@ class Scheduler:
             res = schedule_sequential(
                 cluster, batch, cfg, self._next_rng(),
                 hard_pod_affinity_weight=float(fwk.hard_pod_affinity_weight),
-                host_ok=host_ok, start_index=start)
+                host_ok=host_ok, start_index=start, score_bias=score_bias)
             packed = res.packed.cpu().numpy()     # the cycle's one readback
             self._next_start_node_index = int(packed[3 * B])
         t = self._stage("auction", t)
 
         self.cycle_count += 1
-        chosen = packed[:B][:len(qpods)].tolist()
-        n_feas = packed[B:2 * B][:len(qpods)].tolist()
-        unres = (packed[2 * B:3 * B][:len(qpods)] != 0).tolist()
-        outcomes: List[Optional[ScheduleOutcome]] = []
+        chosen = packed[:B][:len(live)].tolist()
+        n_feas = packed[B:2 * B][:len(live)].tolist()
+        unres = (packed[2 * B:3 * B][:len(live)] != 0).tolist()
         failed = []
-        for i, qp in enumerate(qpods):
+        first = len(outcomes)
+        for i, qp in enumerate(live):
             if chosen[i] < 0:
                 outcomes.append(None)
                 failed.append(i)
                 continue
-            outcome = self._commit(fwk, qp, pinfos[i],
+            outcome = self._commit(fwk, qp, states[qp.pod.uid], pinfos[i],
                                    node_infos[chosen[i]].node_name,
-                                   n_feas[i])
+                                   n_feas[i], relevant[qp.pod.uid])
             if outcome.node:
                 # preemption for pods failing later in this batch must see
                 # this placement (CycleContext.cluster_now)
@@ -387,7 +552,7 @@ class Scheduler:
         # cycle is served by one batched what-if, after every commit has
         # landed; the per-pod PostFilter below reads its verdicts.  Only
         # when DefaultPreemption is the first PostFilter plugin
-        wave_pods = [qpods[i].pod for i in failed if not unres[i]]
+        wave_pods = [live[i].pod for i in failed if not unres[i]]
         pf = fwk.post_filter_plugins
         if (wave_pods and self.preemptor is not None and pf
                 and isinstance(pf[0], DefaultPreemption)):
@@ -405,9 +570,10 @@ class Scheduler:
         # scheduler defers them: the queue's move-request cycle then
         # reflects this cycle's binds and evictions
         for i in failed:
-            outcomes[i] = self._fail(
-                fwk, qpods[i], f"0/{n_nodes} nodes are available",
-                preemption_may_help=not unres[i], cycle=cycle_ctx)
+            outcomes[first + i] = self._fail(
+                fwk, live[i], f"0/{n_nodes} nodes are available",
+                preemption_may_help=not unres[i], cycle=cycle_ctx,
+                state=states[live[i].pod.uid])
         self.preempt_stats.append(dict(cycle_ctx.stats))
         self._stage("preempt", t)
         return outcomes
@@ -486,46 +652,159 @@ class Scheduler:
 
     # ------------------------------------------------------------------ commit
 
-    def _commit(self, fwk: Framework, qp: QueuedPodInfo, pinfo: PodInfo,
-                node_name: str, n_feasible: int) -> ScheduleOutcome:
-        """assume (scheduler.go:435) then bind through the profile's bind
-        plugins (scheduler.go:457, DefaultBinder)."""
+    def _commit(self, fwk: Framework, qp: QueuedPodInfo, state: CycleState,
+                pinfo: PodInfo, node_name: str, n_feasible: int,
+                host_relevant: bool) -> ScheduleOutcome:
+        """reference: kubetpu/scheduler.py:2035-2092 — the host-filter
+        re-check against the live NodeInfo, Reserve (Unreserve on
+        failure), assume (scheduler.go:435), Permit, then the bind cycle,
+        in the cycle or on the binder pool.  A commit failure is not a
+        FitError, so it never triggers preemption (scheduler.go:542)."""
         pod = qp.pod
-        assumed = copy.copy(pod)
-        assumed.spec = copy.copy(pod.spec)
-        assumed.spec.node_name = node_name
+        if host_relevant:
+            # the pre-batch host_ok mask predates this batch's assumes;
+            # the serial reference filters every pod against them
+            ni = self.cache.node_info(node_name)
+            if ni is not None:
+                st = fwk.run_filter_plugins(state, pod, ni)
+                if not st.is_success():
+                    return self._fail(
+                        fwk, qp, st.message()
+                        or "commit-time filter re-check failed",
+                        preemption_may_help=False, state=state)
+        assumed = None
         try:
-            self.cache.assume_pod(assumed, pinfo.with_pod(assumed))
-        except ValueError as e:
-            return self._fail(fwk, qp, str(e), preemption_may_help=False)
-        st = fwk.run_bind_plugins(CycleState(), pod, node_name)
+            st = fwk.run_reserve_plugins(state, pod, node_name)
+            if st.is_success():
+                assumed = copy.copy(pod)
+                assumed.spec = copy.copy(pod.spec)
+                assumed.spec.node_name = node_name
+                try:
+                    self.cache.assume_pod(assumed, pinfo.with_pod(assumed))
+                except ValueError as e:
+                    assumed, st = None, Status.error(str(e))
+                else:
+                    st = fwk.run_permit_plugins(state, pod, node_name)
+                    if st.code == Code.WAIT:
+                        st = Status.success()
+        except BaseException:
+            # a plugin raised: no reservation or assume outlives the
+            # cycle, and schedule_pending's recovery requeues the pod
+            self._unassume(fwk, state, pod, assumed, node_name)
+            raise
         if not st.is_success():
-            try:
-                self.cache.forget_pod(assumed)
-            except ValueError:
-                pass
+            self._unassume(fwk, state, pod, assumed, node_name)
             return self._fail(fwk, qp, st.message(),
-                              preemption_may_help=False)
-        self.cache.finish_binding(assumed)
-        return ScheduleOutcome(pod=pod, node=node_name,
-                               n_feasible=n_feasible)
+                              preemption_may_help=False, state=state)
+        if self._bind_pool is not None:
+            self._inflight_binds.append(self._bind_pool.submit(
+                self._bind_cycle, fwk, qp, state, assumed, node_name))
+            # the pool owns the pod now: its failures requeue it
+            self._settled.add(pod.uid)
+            self._prune_binds()
+            err = None
+        else:
+            err = self._bind_cycle(fwk, qp, state, assumed, node_name,
+                                   settled=self._settled)
+        return ScheduleOutcome(pod=pod, node=node_name if err is None else "",
+                               err=err, n_feasible=n_feasible)
+
+    def _bind_cycle(self, fwk: Framework, qp: QueuedPodInfo,
+                    state: CycleState, assumed: api.Pod, node_name: str,
+                    settled: Optional[set] = None) -> Optional[str]:
+        """reference: kubetpu/scheduler.py:2150-2227 (scheduler.go:628-687):
+        WaitOnPermit, PreBind, Bind, PostBind; each failure forgets the
+        assumed pod, runs Unreserve and requeues the pod.  Returns the
+        failure's message, or None once bound.  settled: the cycle's set
+        of pods with an outcome, which the pod joins once bound or
+        requeued (None on the binder pool, which settled it at submit)."""
+        pod = qp.pod
+        failed = None
+        try:
+            for run, what in ((lambda: fwk.wait_on_permit(pod),
+                               "permit rejected"),
+                              (lambda: fwk.run_pre_bind_plugins(state, pod,
+                                                                node_name),
+                               "prebind failed"),
+                              (lambda: fwk.run_bind_plugins(state, pod,
+                                                            node_name),
+                               "bind failed")):
+                st = run()
+                if not st.is_success():
+                    failed = st.message()
+                    break
+            else:
+                self.cache.finish_binding(assumed)
+        except BaseException:
+            # a plugin raised before the bind: the assume goes, and the
+            # pod is requeued (here on the pool; by schedule_pending's
+            # recovery in the cycle)
+            self._unassume(fwk, state, pod, assumed, node_name)
+            if settled is None:
+                self._record_failure(qp, "bind cycle raised")
+            raise
+        if failed is not None:
+            self._unassume(fwk, state, pod, assumed, node_name)
+            self._record_failure(qp, failed)
+        if settled is not None:
+            settled.add(pod.uid)
+        if failed is not None:
+            return failed or what
+        fwk.run_post_bind_plugins(state, pod, node_name)
+        return None
+
+    def _unassume(self, fwk: Framework, state: CycleState, pod: api.Pod,
+                  assumed: Optional[api.Pod], node_name: str) -> None:
+        """Undo a commit: forget the assumed pod (if it was assumed), then
+        run every Unreserve."""
+        if assumed is not None:
+            self._forget(assumed)
+        fwk.run_unreserve_plugins(state, pod, node_name)
+
+    def _forget(self, assumed: api.Pod) -> None:
+        try:
+            self.cache.forget_pod(assumed)
+        except ValueError:
+            pass
+
+    def _prune_binds(self) -> None:
+        """Drop the ended bind cycles, reading each one's result: an
+        exception a plugin raised on a binder thread surfaces here."""
+        pending = []
+        for f in self._inflight_binds:
+            if f.done():
+                f.result()
+            else:
+                pending.append(f)
+        self._inflight_binds = pending
+
+    def wait_for_inflight_binds(self, timeout: float = 10.0) -> None:
+        """Block until every bind cycle on the binder pool has ended."""
+        deadline = time.time() + timeout
+        for fut in list(self._inflight_binds):
+            fut.result(timeout=max(0.0, deadline - time.time()))
+        self._prune_binds()
 
     def _fail(self, fwk: Framework, qp: QueuedPodInfo, message: str,
               preemption_may_help: bool = True,
-              cycle: Optional[CycleContext] = None) -> ScheduleOutcome:
+              cycle: Optional[CycleContext] = None,
+              state: Optional[CycleState] = None) -> ScheduleOutcome:
         """reference: scheduler.go:391 recordSchedulingFailure + :542-563 —
         preemption runs behind the PostFilter extension point
         (framework.go:516; DefaultPreemption)."""
         pod = qp.pod
         nominated = ""
         if preemption_may_help and fwk.post_filter_plugins:
-            state = CycleState()
+            state = state if state is not None else CycleState()
             if cycle is not None:
                 state.write(DefaultPreemption.CYCLE_CONTEXT_KEY, cycle)
             result, st = fwk.run_post_filter_plugins(state, pod)
             if st.is_success() and result is not None:
                 nominated = result.nominated_node_name
         self._record_failure(qp, message, nominated)
+        # settled only now: a PostFilter that raised leaves the pod to
+        # schedule_pending's recovery
+        self._settled.add(pod.uid)
         return ScheduleOutcome(pod=pod, node="", err=message,
                                preemption_may_help=preemption_may_help)
 
@@ -557,6 +836,8 @@ class Scheduler:
     def close(self) -> None:
         self.queue.close()
         self.cache.close()
+        if self._bind_pool is not None:
+            self._bind_pool.shutdown(wait=False)
 
 
 def capacity_violations(store: ClusterStore) -> List[str]:

@@ -115,6 +115,13 @@ class SchedulerCache:
             self.nodes[name] = item
         return item
 
+    def node_info(self, name: str) -> Optional[NodeInfo]:
+        """A clone of the live NodeInfo of a node, assumed pods included
+        (reference: cache.go GetNodeInfo)."""
+        with self._lock:
+            item = self.nodes.get(name)
+            return item.info.clone() if item is not None else None
+
     # -- pods ---------------------------------------------------------------
 
     def assume_pod(self, pod: api.Pod, pinfo=None) -> None:

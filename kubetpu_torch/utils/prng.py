@@ -8,7 +8,8 @@ package draws with ``jax_threefry_partitionable=True``:
 * a key is a pair of 32-bit words; ``PRNGKey(seed)`` is ``(seed >> 32,
   seed & 0xffffffff)``;
 * ``fold_in(key, d)`` hashes the counter pair ``(0, d)`` under ``key`` and
-  the two output words are the new key;
+  the two output words are the new key; ``split(key, n)``'s key i hashes
+  ``(i >> 32, i & 0xffffffff)``, so it is ``fold_in(key, i)``;
 * ``random_bits(key, shape)`` hashes, for element ``i`` of the row-major
   flattened shape, the counter pair ``(i >> 32, i & 0xffffffff)`` and
   xors the two output words;
@@ -81,6 +82,14 @@ def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     h0, h1 = threefry2x32(key[..., 0], key[..., 1],
                           torch.zeros_like(data), data)
     return torch.stack([h0, h1], dim=-1)
+
+
+def split(key: torch.Tensor, num: int) -> torch.Tensor:
+    """jax.random.split(key, num) under jax_threefry_partitionable=True:
+    key i hashes the counter pair (i >> 32, i & 0xffffffff), which for
+    num < 2**32 is fold_in(key, i).  Returns keys [num, 2]."""
+    return fold_in(key, torch.arange(num, dtype=torch.int64,
+                                     device=key.device))
 
 
 def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -240,3 +240,143 @@ def test_port_sources_have_no_reference_imports():
                 if pat.match(line):
                     hits.append(f"{path}:{i}: {line.strip()}")
     assert not hits, hits
+
+
+def _volume_batch(store_mod, hollow, A):
+    """4 nodes and 4 pods, the third with an emptyDir volume."""
+    store = store_mod.ClusterStore()
+    for n in hollow.make_nodes(4):
+        store.add(n)
+    pods = [hollow.make_pod(f"p{i}", cpu_milli=300 * (i + 1))
+            for i in range(4)]
+    pods[2].spec.volumes = [A.Volume(name="scratch", empty_dir=True)]
+    return store, pods
+
+
+def test_refused_volume_pod_loses_nothing():
+    """A pod with a volume is refused loudly (NotImplementedError naming
+    ROADMAP item 6), and the popped batch is not lost: all four pods are
+    back in the queue; once the volume pod is deleted, the next cycle
+    binds the other three where the JAX scheduler binds them."""
+    from tests.torch_port_util import FakeClock
+    store, pods = _volume_batch(tstore, thollow, tapi)
+    s = tsched.Scheduler(store, tconf.KubeSchedulerConfiguration(
+        profiles=[tconf.KubeSchedulerProfile()], batch_size=8),
+        device="cpu")
+    s.queue._clock = FakeClock()
+    for p in pods:
+        store.add(p)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        s.schedule_pending()
+    assert len(s.queue) == 4
+    assert all(not p.spec.node_name for p in store.list("Pod"))
+    store.delete(store.get_pod("default", "p2"))
+    s.queue._clock.t += 100.0
+    s.queue.flush_backoff_completed()
+    out = s.schedule_pending()
+    s.close()
+    got = {o.pod.metadata.name: o.node for o in out}
+
+    import kubetpu.api.types as japi
+    jstore_, jpods = _volume_batch(jstore, jhollow, japi)
+    js = jsched.Scheduler(jstore_, config=jconf.KubeSchedulerConfiguration(
+        profiles=[jconf.KubeSchedulerProfile()], batch_size=8,
+        prewarm=False), async_binding=False)
+    for p in jpods[:2] + jpods[3:]:
+        jstore_.add(p)
+    want = {o.pod.metadata.name: o.node for o in js.schedule_pending()}
+    js.close()
+    assert len(got) == 3 and all(got.values()), got
+    assert got == want
+    assert len(s.queue) == 0
+
+
+def _raising_plugin_scheduler(point, base, method):
+    """A scheduler whose profile runs one plugin at ``point`` that raises
+    while ``armed`` (and records every Unreserve), over 4 nodes and 4
+    pods whose first pod asks for more cpu than any node has when
+    ``point`` is post_filter (so that it fails the filter)."""
+    from kubetpu_torch.framework import interface as fw
+    from kubetpu_torch.plugins.intree import new_in_tree_registry
+    from tests.torch_port_util import FakeClock
+
+    class Raiser(base, fw.UnreservePlugin):
+        armed = True
+        unreserved = []
+
+        def name(self):
+            return "Raiser"
+
+        def unreserve(self, state, pod, node_name):
+            Raiser.unreserved.append(pod.metadata.name)
+
+    def boom(self, *args):
+        if self.armed:
+            raise RuntimeError(f"{point} plugin raised")
+        return ((fw.PostFilterResult(""), fw.Status.unschedulable("no"))
+                if point == "post_filter" else fw.Status.success())
+
+    setattr(Raiser, method, boom)
+    registry = dict(new_in_tree_registry())
+    registry["Raiser"] = lambda args, handle: Raiser()
+    on = tconf.PluginSet(enabled=[tconf.Plugin("Raiser")])
+    plugins = tconf.Plugins(unreserve=on, **{point: on})
+    if point == "post_filter":
+        plugins.post_filter.disabled = [tconf.Plugin("DefaultPreemption")]
+    store = tstore.ClusterStore()
+    for n in thollow.make_nodes(4):
+        store.add(n)
+    big = 10**6 if point == "post_filter" else 300
+    pods = [thollow.make_pod(f"p{i}", cpu_milli=big if i == 0 else 300)
+            for i in range(4)]
+    for p in pods:
+        store.add(p)
+    s = tsched.Scheduler(store, tconf.KubeSchedulerConfiguration(
+        profiles=[tconf.KubeSchedulerProfile(plugins=plugins)],
+        batch_size=8), registry=registry, device="cpu",
+        async_binding=False)
+    s.queue._clock = FakeClock()
+    return s, store, pods, Raiser
+
+
+@pytest.mark.parametrize("point,base,method", [
+    ("post_filter", "PostFilterPlugin", "post_filter"),
+    ("pre_bind", "PreBindPlugin", "pre_bind"),
+])
+def test_raising_plugin_loses_nothing(point, base, method):
+    """A PostFilter plugin that raises after its pod failed the filter,
+    or a PreBind plugin that raises in the cycle's own bind: every popped
+    pod is bound or back in the queue, no assume is left in the cache,
+    a raised PreBind runs Unreserve, and once the plugin stops raising
+    the next cycles settle all four pods."""
+    from kubetpu_torch.framework import interface as fw
+    s, store, pods, Raiser = _raising_plugin_scheduler(
+        point, getattr(fw, base), method)
+    with pytest.raises(RuntimeError, match="plugin raised"):
+        s.schedule_pending()
+    bound = {p.metadata.name for p in store.list("Pod") if p.spec.node_name}
+    # every popped pod is bound or back in the queue; the pod whose
+    # plugin raised and every pod after it are not bound
+    assert len(bound) + len(s.queue) == 4 and "p0" not in bound
+    if point == "pre_bind":
+        assert len(s.queue) == 4
+    assert not any(s.cache.is_assumed_pod(p) for p in pods
+                   if p.metadata.name not in bound)
+    assert Raiser.unreserved == (["p0"] if point == "pre_bind" else [])
+    Raiser.armed = False
+    placed = {}
+    for _ in range(3):
+        s.queue._clock.t += 100.0
+        s.queue.flush_backoff_completed()
+        for o in s.schedule_pending():
+            placed[o.pod.metadata.name] = o.node
+    s.close()
+    settled = set(placed) | bound
+    bound = {p.metadata.name for p in store.list("Pod") if p.spec.node_name}
+    assert settled == {"p0", "p1", "p2", "p3"}
+    if point == "post_filter":
+        # p0 fits nowhere and stays queued; the other three bind
+        assert bound == {"p1", "p2", "p3"} and len(s.queue) == 1
+        assert placed["p0"] == ""
+    else:
+        assert bound == {"p0", "p1", "p2", "p3"} and len(s.queue) == 0

@@ -200,13 +200,23 @@ def test_spread_log_weight_ulps():
     assert ulps.max() == 1
 
 
-@pytest.mark.parametrize("name", list(tseq.UNPORTED_PLUGINS))
+@pytest.mark.parametrize("name", ["NodeLabel", "RequestedToCapacityRatio",
+                                  "NodeResourceLimits"])
 def test_unported_plugin_raises(name):
+    """These three scorers were refused by the replay until the framework
+    extension points were ported; each now runs, with its default
+    arguments, and the replay equals the JAX package's on every SeqResult
+    field (tests/test_torch_profiles.py holds them with real
+    arguments)."""
     jcl, jb, cfg, _ = build_jax_seq(0, 8, 4)
     tcl, tb, _ = carry(jcl, jb)
-    pcfg = port_cfg(cfg)._replace(scores=port_cfg(cfg).scores + ((name, 1),))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tseq.schedule_sequential(tcl, tb, pcfg, torch.tensor([0, 1]))
+    cfg = cfg._replace(scores=cfg.scores + ((name, 1),))
+    rng = jax.random.PRNGKey(3)
+    want = jseq.schedule_sequential(jcl, jax.tree.map(jnp.asarray, jb), cfg,
+                                    rng)
+    got = tseq.schedule_sequential(tcl, tb, port_cfg(cfg), _key(rng))
+    for f in want._fields:
+        assert_same(getattr(want, f), getattr(got, f), f)
 
 
 # ---------------------------------------------------------------------------

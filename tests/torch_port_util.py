@@ -310,21 +310,24 @@ class FakeClock:
 
 
 def make_scheduler(pkg, store, mode="sequential", backend="pallas",
-                   batch=8, disable_preemption=False):
-    """A package's Scheduler on ``store`` with the queue on a FakeClock:
-    the JAX one synchronous (async_binding=False), the port's on the
-    CPU."""
-    kw = dict(profiles=[pkg.config.KubeSchedulerProfile()], batch_size=batch,
-              mode=mode, kernel_backend=backend,
+                   batch=8, disable_preemption=False, profile=None,
+                   registry=None, async_binding=False):
+    """A package's Scheduler on ``store`` with the queue on a FakeClock,
+    binding in the cycle unless async_binding; the port's on the CPU.
+    profile: a KubeSchedulerProfile of the package (default: the default
+    set); registry: its plugin factories (default: the in-tree ones)."""
+    kw = dict(profiles=[profile or pkg.config.KubeSchedulerProfile()],
+              batch_size=batch, mode=mode, kernel_backend=backend,
               disable_preemption=disable_preemption)
     if pkg.api is japi:
         s = pkg.sched.Scheduler(
             store, config=pkg.config.KubeSchedulerConfiguration(
-                prewarm=False, **kw), async_binding=False)
+                prewarm=False, **kw), registry=registry,
+            async_binding=async_binding)
     else:
         s = pkg.sched.Scheduler(
             store, config=pkg.config.KubeSchedulerConfiguration(**kw),
-            device="cpu")
+            registry=registry, device="cpu", async_binding=async_binding)
     s.queue._clock = FakeClock()
     return s
 
@@ -400,6 +403,7 @@ def drive(pkg, scenario, max_cycles=12, **sched_kw):
         sched.queue.flush_unschedulable_leftover()
         del deleted[:]
         out = sched.schedule_pending(timeout=0.0)
+        sched.wait_for_inflight_binds(timeout=120.0)
         views.append(cycle_view(sched, store, out, deleted))
         return out
 
@@ -475,3 +479,131 @@ def _jax_reprieve_body(cluster, batch1, cfg, cand_rows, rm_valid, rm_req,
 
 
 _jax_reprieve_mapped = jax.jit(_jax_reprieve_body, static_argnames=("cfg",))
+
+
+# ---------------------------------------------------------------------------
+# kube-scheduler's literal tables through the port (tests/harness.py twin)
+
+
+def to_port(obj):
+    """A kubetpu.api object (and the lists, tuples and dicts holding them)
+    as the port's API types, field by field."""
+    import dataclasses
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = getattr(tapi, type(obj).__name__)
+        return cls(**{f.name: to_port(getattr(obj, f.name))
+                      for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, list):
+        return [to_port(x) for x in obj]
+    if isinstance(obj, tuple):
+        return tuple(to_port(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: to_port(v) for k, v in obj.items()}
+    return obj
+
+
+def _port_world(nodes, existing, pending):
+    """(SnapshotBuilder, host arrays, PodInfos) of a world given in the
+    JAX package's API types, converted and tensorized by the port."""
+    infos = []
+    for n in nodes:
+        ni = TNodeInfo(to_port(n))
+        for p in (existing or {}).get(n.name, []):
+            tp = to_port(p)
+            tp.spec.node_name = n.name
+            ni.add_pod(tp)
+        infos.append(ni)
+    sb = TSnapshotBuilder()
+    pinfos = [TPodInfo(to_port(p)) for p in pending]
+    sb.intern_pending(pinfos)
+    return sb, sb.build(infos), pinfos
+
+
+class PortResult:
+    """tests/harness.Result of the port's schedule_batch (numpy fields)."""
+
+    def __init__(self, res, chosen, n_nodes, n_pods, node_names):
+        def cut(x):
+            return x.numpy()[:n_pods, :n_nodes]
+        self.feasible = cut(res.feasible)
+        self.unresolvable = cut(res.unresolvable)
+        self.scores = cut(res.scores)
+        self.plugin_scores = {k: cut(v)
+                              for k, v in res.plugin_scores.items()}
+        self.chosen = chosen.numpy()[:n_pods]
+        self.node_names = node_names
+
+
+def port_run_cluster(nodes, existing=None, pending=(),
+                     filters=jprog.DEFAULT_FILTER_PLUGINS,
+                     scores=jprog.DEFAULT_SCORE_PLUGINS,
+                     spread_selectors=None, plugin_args=(),
+                     plugin_args_fn=None, seed=0) -> PortResult:
+    """tests/harness.run_cluster through the port: the same arguments,
+    the world converted to the port's API types, tensorized by its
+    builders and run through its schedule_batch on the CPU."""
+    from kubetpu_torch.models.batch import batch_to_device
+    from kubetpu_torch.utils import prng
+    sb, host, pinfos = _port_world(nodes, existing, pending)
+    batch = TBatchBuilder(sb.table).build(
+        pinfos, spread_selectors=to_port(spread_selectors))
+    if plugin_args_fn is not None:
+        plugin_args = plugin_args_fn(sb.table)
+    cfg = tprog.ProgramConfig(
+        filters=tuple(filters), scores=tuple(scores),
+        hostname_topokey=sb.table.topokey.get(tapi.LABEL_HOSTNAME),
+        plugin_args=tuple(plugin_args))
+    res, chosen = tprog.schedule_batch(host.to_device("cpu"),
+                                       batch_to_device(batch, "cpu"), cfg,
+                                       prng.PRNGKey(seed))
+    return PortResult(res, chosen, len(nodes), len(pending),
+                      [n.name for n in nodes])
+
+
+# ---------------------------------------------------------------------------
+# scenario twins: one scenario, both packages
+
+
+def framework_packages():
+    """(JAX, port) namespaces of the modules a scenario with custom
+    profiles touches."""
+    from types import SimpleNamespace
+
+    def ns(name, root):
+        mods = {}
+        for attr, mod in (("conf", "apis.config"), ("load", "apis.load"),
+                          ("store", "client.store"),
+                          ("hollow", "harness.hollow"),
+                          ("fw", "framework.interface"),
+                          ("runtime", "framework.runtime"),
+                          ("intree", "plugins.intree"),
+                          ("features", "utils.features"),
+                          ("sched", "scheduler")):
+            mods[attr] = __import__(f"{root}.{mod}", fromlist=["_"])
+        return SimpleNamespace(name=name, api=__import__(
+            f"{root}.api.types", fromlist=["_"]), **mods)
+    return ns("jax", "kubetpu"), ns("port", "kubetpu_torch")
+
+
+def new_scheduler(P, store, registry=None, async_binding=False, **cfg_kw):
+    """A Scheduler of package namespace P (framework_packages) on
+    ``store``: the JAX one without prewarm, the port's on the CPU."""
+    if P.name == "jax":
+        return P.sched.Scheduler(
+            store, config=P.conf.KubeSchedulerConfiguration(prewarm=False,
+                                                            **cfg_kw),
+            registry=registry, async_binding=async_binding)
+    return P.sched.Scheduler(
+        store, config=P.conf.KubeSchedulerConfiguration(**cfg_kw),
+        registry=registry, device="cpu", async_binding=async_binding)
+
+
+def outcome_view(store, outcomes):
+    """What a scenario left behind, comparable across packages: the
+    outcomes, and every pod's node and PodScheduled condition."""
+    return dict(
+        outcomes=[(o.pod.metadata.name, o.node, o.err) for o in outcomes],
+        pods=sorted((p.metadata.name, p.spec.node_name,
+                     tuple((c.type, c.status, c.reason, c.message)
+                           for c in p.status.conditions))
+                    for p in store.list("Pod")))
