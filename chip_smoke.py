@@ -136,6 +136,31 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              same Unreserve calls and forgotten assumes, the Permit pairs
              bound; the term-free gang drains launch K1 with the host_ok
              and bias planes, every launch held against the plain version;
+  volumes    the volume family (kubetpu_torch/state/volumes.py): on eight
+             seeded worlds (harness/volume_worlds.py, 64 nodes x 128
+             pods) the card's [B, N] volume mask equals the CPU's bitwise
+             and the host plugins' verdicts on every (pod, node);
+             scheduler_perf's SchedulingSecrets, SchedulingInTreePVs,
+             SchedulingMigratedInTreePVs and SchedulingCSIPVs
+             (config/performance-config.yaml:27-70: 500 nodes, the 500
+             init pods bound one per node (a cut), 1,000 measured pods)
+             under the default configuration (sequential, batch 256), and
+             the PV and CSI ones also in gang mode under "pallas" (batch
+             1,000), card against CPU: the same placements, claims
+             (volume, selected-node stamp) and failure messages;
+             vol_backlog (the backlog's shape, every pod mounting one
+             bound, zone-pinned CSI volume under CSINode limits of 4-6),
+             gang under "pallas", card against CPU, K1 launched with the
+             volume mask in host_ok and its first 16 launches held
+             against the plain version; the four workloads at 5,000
+             nodes (:32-70, the same cut) on the card, sequential and
+             gang under "pallas" at batch 1,000: all 1,000 bound, no
+             capacity or attach limit violated, and the mask of 8 sampled
+             pods equal to the host plugins on all 5,000 nodes.  Drains
+             run on an advanced queue clock (volume_drain), so the card
+             and the CPU retry the same pods; each reports its stages,
+             the overlay's host s and the mask's device ms per cycle, ms
+             per scan step or per round, and K1's launches;
   profile    the slice, backlog and fill (pallas) drains once more under
              torch.profiler: device busy time, the drain's device idle
              share, top kernels (separate runs, so the profiler's overhead
@@ -158,18 +183,18 @@ each auction's flag reads must equal its rounds.
 
 The main path is the pallas drain of each of slice, backlog, fill,
 preempt, gang_anti, gang_spread and autoscaler, each sequential drain,
-binpack's card drains and points' card drains: the kernel launch
-count is zeroed just before each and read just after it, and reported
-per path.  The slice never launches the kernel (above), nor do the
+binpack's card drains, points' card drains and the card drains of
+volumes: the kernel launch count is zeroed just before each and read
+just after it, and reported per path.  The slice never launches the kernel (above), nor do the
 term-bearing gang drains (routed to the lax round, as the JAX package
 routes them) or the sequential replay (no propose step: the JAX
 package's scan reaches no Pallas kernel), nor does binpack (its scores
-route to lax); in the backlog, fill, autoscaler and term-free points
-drains every launch's inputs and outputs are recorded (the fill's and
-autoscaler's first 16, the preempt drain's first 16) and, after the
-drain, the outputs are held bitwise against the plain version on the
-same inputs, and the kernel is timed on the widest recorded launch's
-real inputs.
+route to lax); in the backlog, fill, autoscaler, term-free points and
+vol_backlog drains every launch's inputs and outputs are recorded (the
+fill's, autoscaler's, vol_backlog's and the preempt drain's first 16)
+and, after the drain, the outputs are held bitwise against the plain
+version on the same inputs, and the kernel is timed on the widest
+recorded launch's real inputs.
 
 The second-to-last lines print the card (nvidia-smi's name and power
 limit) and the kernels' JSON line; the last line is the contract's
@@ -188,10 +213,11 @@ import time
 
 ALL_PHASES = ("reference", "kernel", "slice", "backlog", "fill",
               "preempt", "seq_slice", "seq_anti", "seq_spread", "gang_anti",
-              "gang_spread", "autoscaler", "binpack", "points", "profile")
+              "gang_spread", "autoscaler", "binpack", "points", "volumes",
+              "profile")
 MAIN_PATHS = ("slice", "backlog", "fill", "preempt", "seq_slice",
               "seq_anti", "seq_spread", "gang_anti", "gang_spread",
-              "autoscaler", "binpack", "points")
+              "autoscaler", "binpack", "points", "volumes")
 FILL_NODES = 5000             # Preemption5000Nodes: 5,000 nodes,
 FILL_PODS = 4 * FILL_NODES    # 20,000 init pods (four 900m pods fill a node)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -440,11 +466,9 @@ def check_recorded(record, what) -> dict:
                                  share_of_bound=real_bound / real_ms))
 
 
-def tensorize(store, pods):
-    """Host (numpy) build of one cycle's cluster and batch."""
-    from kubetpu_torch.framework.types import NodeInfo, PodInfo
-    from kubetpu_torch.models.batch import PodBatchBuilder
-    from kubetpu_torch.state.tensors import SnapshotBuilder
+def node_infos_of(store) -> list:
+    """The store's NodeInfos, each with its bound pods."""
+    from kubetpu_torch.framework.types import NodeInfo
     infos = {}
     for n in store.list("Node"):
         ni = NodeInfo()
@@ -453,7 +477,15 @@ def tensorize(store, pods):
     for p in store.list("Pod"):
         if p.spec.node_name:
             infos[p.spec.node_name].add_pod(p)
-    node_infos = list(infos.values())
+    return list(infos.values())
+
+
+def tensorize(store, pods):
+    """Host (numpy) build of one cycle's cluster and batch."""
+    from kubetpu_torch.framework.types import PodInfo
+    from kubetpu_torch.models.batch import PodBatchBuilder
+    from kubetpu_torch.state.tensors import SnapshotBuilder
+    node_infos = node_infos_of(store)
     pinfos = [PodInfo(p) for p in pods]
     builder = SnapshotBuilder()
     builder.intern_pending(pinfos)
@@ -1677,6 +1709,353 @@ def phase_points() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# volumes
+
+# scheduler_perf's volume workloads (config/performance-config.yaml:27-70)
+# and the Workload flag each sets
+VOLUME_WORKLOADS = (("SchedulingSecrets", "secrets"),
+                    ("SchedulingInTreePVs", "pvs"),
+                    ("SchedulingMigratedInTreePVs", "migrated_pvs"),
+                    ("SchedulingCSIPVs", "csi_pvs"))
+GANG_VOLUME_WORKLOADS = ("SchedulingInTreePVs", "SchedulingCSIPVs")
+ATTACH_LIMIT = 39     # the CSINodes' ebs.csi.aws.com limit and EBS's default
+
+
+def volume_workload(name, flag, n_nodes):
+    """The workload's literal values (config/performance-config.yaml:
+    27-70): n_nodes nodes and as many init pods, 1,000 measured pods;
+    the 5,000-node variant's name and timeout."""
+    from kubetpu_torch.harness.perf import Workload
+    big = n_nodes == 5000
+    return Workload(name=name + ("5000Nodes" if big else ""),
+                    num_nodes=n_nodes, num_init_pods=n_nodes,
+                    num_pods_to_schedule=1000,
+                    timeout_s=900.0 if big else 300.0, **{flag: True})
+
+
+def volume_workload_world(w):
+    """The workload's store (harness/perf.workload_store), its init pods
+    bound one per node (the cut the other phases make: the benchmark
+    schedules them) and its measured pods, not yet added."""
+    from kubetpu_torch.harness.perf import _make_pod, workload_store
+    store = workload_store(w)
+    for i in range(w.num_init_pods):
+        p = _make_pod(w, i, "init", store)
+        p.spec.node_name = "node-%d" % (i % w.num_nodes)
+        store.add(p)
+    return store, [_make_pod(w, i, "measured", store)
+                   for i in range(w.num_pods_to_schedule)]
+
+
+def vol_backlog_world(n_nodes=1000, n_pods=4096):
+    """kubetpu_torch/harness/volume_worlds.backlog: the backlog's shape
+    with one bound CSI volume per pod, zone-pinned, under CSINode limits.
+    (Smaller sizes only for a CPU rehearsal.)"""
+    from kubetpu_torch.api import types as api
+    from kubetpu_torch.client.store import ClusterStore
+    from kubetpu_torch.harness import hollow
+    from kubetpu_torch.harness import volume_worlds as VW
+    w = VW.backlog(api, hollow, n_nodes=n_nodes, n_pods=n_pods)
+    store = ClusterStore()
+    VW.populate(store, w)
+    return store, w.pending
+
+
+class _QueueClock:
+    """The scheduling queue's clock, advanced by volume_drain."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+
+def volume_drain(store, pods, backend, batch_size, device, record=None,
+                 record_limit=None, max_cycles=16):
+    """Drain ``pods`` in gang mode under ``backend``, or under the default
+    configuration with backend None, on a queue clock that passes every
+    backoff and the unschedulable leftover timeout before each cycle, so
+    a drain on the card and one on the CPU retry the same pods in the
+    same cycles (on the wall clock the retries would follow each device's
+    speed).  Ends after a cycle that binds nothing.  On the card every
+    gang auction runs under GangRounds and every scan under SeqScans.
+    Reports the overlay's host seconds and the volume mask's device ms
+    (CUDA events) per cycle.  Returns (scheduler, stats)."""
+    from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
+                                           KubeSchedulerProfile)
+    from kubetpu_torch.scheduler import Scheduler
+    from kubetpu_torch.state import volumes as V
+    cfg = KubeSchedulerConfiguration(profiles=[KubeSchedulerProfile()],
+                                     batch_size=batch_size)
+    if backend is not None:
+        cfg.mode, cfg.kernel_backend = "gang", backend
+    sched = Scheduler(store, config=cfg, device=device)
+    clock = _QueueClock()
+    sched.queue._clock = clock
+    for p in pods:
+        store.add(p)
+    card = device == "cuda"
+    instr = ((GangRounds() if backend is not None else SeqScans()) if card
+             else contextlib.nullcontext())
+    build, overlay_s = V.build_volume_overlay, []
+
+    def timed_build(*args, **kw):
+        t = time.perf_counter()
+        out = build(*args, **kw)
+        overlay_s.append(time.perf_counter() - t)
+        return out
+    V.build_volume_overlay = timed_build
+    restore = (_record_launches(record, record_limit)
+               if record is not None else None)
+    try:
+        with DeviceTimed(V, "volume_mask") as mask, instr as ins:
+            t0 = time.perf_counter()
+            for _ in range(max_cycles):
+                clock.t += 1000.0
+                sched.queue.flush_backoff_completed()
+                sched.queue.flush_unschedulable_leftover()
+                if not any(o.node for o in sched.schedule_pending()):
+                    break
+            seconds = time.perf_counter() - t0
+    finally:
+        V.build_volume_overlay = build
+        if restore is not None:
+            restore()
+    sched.close()
+    if sched.preempt_wave_failures:
+        raise AssertionError("volume drain: %d preemption waves failed"
+                             % sched.preempt_wave_failures)
+    mask_ms = mask.ms()
+    stats = dict(cycles=sched.cycle_count, drain_s=seconds,
+                 stage_s=dict(sched.stage_s), overlay_host_s=overlay_s,
+                 mask_device_ms=mask_ms)
+    if backend is not None:
+        stats.update(rounds=sched.gang_rounds,
+                     routes=sorted(set(sched.gang_backends)))
+    if card:
+        stats["mask_share_of_auction"] = (
+            sum(mask_ms) / (sched.stage_s["auction"] * 1e3))
+        stats["sync_check" if backend is not None else "scan"] = \
+            ins.summary()
+    return sched, stats
+
+
+def volume_view(store) -> tuple:
+    """What a drain left: every pod's node and PodScheduled messages,
+    every claim's volume, phase and annotations (the selected-node stamp
+    of delayed provisioning)."""
+    pods = sorted((p.metadata.name, p.spec.node_name,
+                   tuple(c.message for c in p.status.conditions))
+                  for p in store.list("Pod"))
+    claims = sorted((c.metadata.name, c.volume_name, c.phase,
+                     tuple(sorted(c.metadata.annotations.items())))
+                    for c in store.list("PersistentVolumeClaim"))
+    return pods, claims
+
+
+def check_volume_drain(store, what, n_bound=None) -> int:
+    """n_bound pods bound (when given), no capacity violated, and no node
+    holding more distinct volumes of one driver (a CSI driver, or in-tree
+    EBS) than its limit: its CSINode's for the driver, else
+    ATTACH_LIMIT.  Returns the largest count."""
+    from kubetpu_torch.scheduler import capacity_violations
+    bound = [p for p in store.list("Pod") if p.spec.node_name]
+    if n_bound is not None and len(bound) != n_bound:
+        raise AssertionError("%s: %d/%d pods bound"
+                             % (what, len(bound), n_bound))
+    bad = capacity_violations(store)
+    if bad:
+        raise AssertionError("%s: capacity violated on %s" % (what, bad[:5]))
+    per = {}
+    for p in bound:
+        for v in p.spec.volumes:
+            pvc = (store.get_pvc(p.namespace, v.persistent_volume_claim)
+                   if v.persistent_volume_claim else None)
+            pv = store.get_pv(pvc.volume_name) if pvc is not None else None
+            if pv is None:
+                continue
+            drv = pv.csi_driver or ("aws-ebs" if pv.aws_elastic_block_store
+                                    else None)
+            if drv is not None:
+                per.setdefault((p.spec.node_name, drv), set()).add(
+                    pv.csi_volume_handle or pv.aws_elastic_block_store)
+    for (node, drv), vols in per.items():
+        csinode = store.get_csinode(node)
+        limit = (csinode.driver_allocatable.get(drv, ATTACH_LIMIT)
+                 if csinode is not None else ATTACH_LIMIT)
+        if len(vols) > limit:
+            raise AssertionError("%s: %s attaches %d %s volumes (limit %d)"
+                                 % (what, node, len(vols), drv, limit))
+    return max((len(x) for x in per.values()), default=0)
+
+
+def host_volume_verdicts(store, infos, pods):
+    """The port's volume plugins, every pod x every node."""
+    import numpy as np
+    from kubetpu_torch.framework.interface import CycleState
+    from kubetpu_torch.plugins import volumes as vplug
+    from kubetpu_torch.state import volumes as V
+    plugins = [getattr(vplug, n)(store)
+               for n in sorted(V.DEVICE_COVERED_PLUGINS)]
+    out = np.ones((len(pods), len(infos)), bool)
+    for i, pod in enumerate(pods):
+        for p in plugins:
+            if not p.relevant(pod):
+                continue
+            for j, ni in enumerate(infos):
+                if not p.filter(CycleState(), pod, ni).is_success():
+                    out[i, j] = False
+    return out
+
+
+def volume_masks(store, infos, pods):
+    """The volume mask of ``pods`` against ``infos`` on the card and on
+    the CPU (numpy), and the card's device ms (CUDA events around the
+    call, upload of the overlay included)."""
+    from kubetpu_torch.framework.types import PodInfo
+    from kubetpu_torch.state import volumes as V
+    from kubetpu_torch.state.tensors import SnapshotBuilder
+    builder = SnapshotBuilder()
+    builder.intern_pending([PodInfo(p) for p in pods])
+    host = builder.build(infos)
+    ov = V.build_volume_overlay(store, infos, pods, builder.table,
+                                set(V.DEVICE_COVERED_PLUGINS))
+    cluster = host.to_device("cuda")
+    with DeviceTimed(V, "volume_mask") as timed:
+        on_card = V.volume_mask(cluster, ov).cpu().numpy()
+    on_cpu = V.volume_mask(host.to_device("cpu"), ov).numpy()
+    return on_card, on_cpu, timed.ms()[0]
+
+
+def volume_mask_worlds() -> dict:
+    """Eight seeded volume worlds (harness/volume_worlds.world, 64 nodes x
+    128 pods): the card's mask equals the CPU's bitwise and the host
+    plugins' verdicts on every (pod, node)."""
+    from kubetpu_torch.api import types as api
+    from kubetpu_torch.client.store import ClusterStore
+    from kubetpu_torch.framework.types import NodeInfo
+    from kubetpu_torch.harness import volume_worlds as VW
+    seeds, n_nodes, n_pending = range(8), 64, 128
+    failing = 0
+    for seed in seeds:
+        w = VW.world(api, seed, n_nodes=n_nodes, n_pending=n_pending,
+                     n_pvs=n_nodes, max_existing=3)
+        store = ClusterStore()
+        VW.populate(store, w)
+        infos = VW.node_infos(NodeInfo, w)
+        on_card, on_cpu, _ = volume_masks(store, infos, w.pending)
+        if not (on_card == on_cpu).all():
+            raise AssertionError("volumes: seed %d: the card's mask differs "
+                                 "from the CPU's" % seed)
+        want = host_volume_verdicts(store, infos, w.pending)
+        if not (on_card[:len(w.pending), :n_nodes] == want).all():
+            raise AssertionError("volumes: seed %d: the mask differs from "
+                                 "the host plugins" % seed)
+        failing += int((~want).sum())
+    return dict(worlds=len(seeds), nodes=n_nodes, pods=n_pending,
+                failing_pairs=failing, matches_cpu=True,
+                matches_host_plugins=True)
+
+
+def _volume_card_vs_cpu(what, make_world, backend, batch_size, n_bound,
+                        record_limit=None):
+    """One world drained on the card (K1's launches counted from zero,
+    and recorded when record_limit is set) and on the CPU: the same
+    placements, claims and failure messages.  n_bound: the pods each
+    drain must leave bound (None: any number)."""
+    from kubetpu_torch.ops import propose as PK
+    views, res = {}, {}
+    record = [] if record_limit is not None else None
+    for device in ("cuda", "cpu"):
+        store, pods = make_world()
+        if device == "cuda":
+            PK.propose.launches = 0      # this path starts: zero the count
+        _, stats = volume_drain(store, pods, backend, batch_size, device,
+                                record if device == "cuda" else None,
+                                record_limit)
+        if device == "cuda":
+            stats["launches"] = PK.propose.launches
+        stats["max_attach"] = check_volume_drain(store, what, n_bound)
+        views[device] = volume_view(store)
+        res[device] = stats
+    if views["cuda"] != views["cpu"]:
+        diff = sum(1 for a, b in zip(views["cuda"][0], views["cpu"][0])
+                   if a != b)
+        raise AssertionError("%s: card and CPU differ (%d pods; claims "
+                             "equal: %s)" % (what, diff,
+                                             views["cuda"][1] ==
+                                             views["cpu"][1]))
+    out = dict(res["cuda"], cpu_drain_s=res["cpu"]["drain_s"],
+               cpu_stage_s=res["cpu"]["stage_s"], matches_cpu=True)
+    if record is not None:
+        if out["launches"] <= 0:
+            raise AssertionError("%s: the propose kernel never launched"
+                                 % what)
+        out["recorded"] = check_recorded(record, what)
+    return out
+
+
+def phase_volumes() -> dict:
+    """The volume family: seeded masks card = CPU = host plugins;
+    scheduler_perf's four volume workloads at 500 nodes, card = CPU
+    (sequential, and gang under "pallas" for the PV and CSI ones);
+    vol_backlog card = CPU with K1 launched through the volume mask;
+    the four workloads at 5,000 nodes on the card in both modes, each
+    with the mask of 8 sampled pods held to the host plugins on every
+    node."""
+    import copy
+    from kubetpu_torch.ops import propose as PK
+    out = {"launches": 0, "mask_worlds": volume_mask_worlds()}
+    for name, flag in VOLUME_WORKLOADS:
+        w = volume_workload(name, flag, 500)
+        for backend in ((None, "pallas") if name in GANG_VOLUME_WORKLOADS
+                        else (None,)):
+            what = "%s %s" % (w.name, backend or "sequential")
+            res = _volume_card_vs_cpu(
+                what, lambda: volume_workload_world(w), backend,
+                1000 if backend else 256, w.num_init_pods + 1000)
+            out["launches"] += res["launches"]
+            out[what] = res
+
+    res = _volume_card_vs_cpu("vol_backlog", vol_backlog_world, "pallas",
+                              4096, None, record_limit=16)
+    out["launches"] += res["launches"]
+    out["vol_backlog"] = res
+
+    for name, flag in VOLUME_WORKLOADS:
+        w = volume_workload(name, flag, 5000)
+        for backend in (None, "pallas"):
+            what = "%s %s" % (w.name, backend or "sequential")
+            store, pods = volume_workload_world(w)
+            PK.propose.launches = 0      # this path starts: zero the count
+            _, stats = volume_drain(store, pods, backend, 1000, "cuda")
+            stats["launches"] = PK.propose.launches
+            out["launches"] += stats["launches"]
+            stats["max_attach"] = check_volume_drain(
+                store, what, w.num_init_pods + 1000)
+            if backend is None:
+                # 8 sampled pods, as pending copies, against the drained
+                # cluster, every node
+                sample = [copy.deepcopy(p)
+                          for p in pods[::len(pods) // 8][:8]]
+                for p in sample:
+                    p.spec.node_name = ""
+                infos = node_infos_of(store)
+                on_card, on_cpu, ms = volume_masks(store, infos, sample)
+                want = host_volume_verdicts(store, infos, sample)
+                if not ((on_card == on_cpu).all() and
+                        (on_card[:8, :len(infos)] == want).all()):
+                    raise AssertionError("%s: the sampled mask differs"
+                                         % what)
+                stats["sampled_mask"] = dict(pods=8, nodes=len(infos),
+                                             feasible=int(want.sum()),
+                                             ms=ms)
+            out[what] = stats
+    return out
+
+
 def _dev_us(e):
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0.0))
@@ -1873,6 +2252,8 @@ def main() -> int:
                      if isinstance(r, dict) and "recorded" in r]
         if "recorded" in results["preempt"]:
             recorded.append(results["preempt"]["recorded"])
+        vol_backlog = results["volumes"]["vol_backlog"]["recorded"]
+        recorded.append(vol_backlog)
         log({"kernels": [{
             "name": "propose", "route": "cuda",
             "source": "kubetpu_torch/ops/csrc/propose.cu",
@@ -1888,7 +2269,8 @@ def main() -> int:
             "ms_generic": k["ms_generic"],
             "bound_ms_generic": k["bound_ms_generic"],
             "fill_real_launch": recorded[1]["real_launch"],
-            "autoscaler_real_launch": recorded[2]["real_launch"]}]})
+            "autoscaler_real_launch": recorded[2]["real_launch"],
+            "vol_backlog_real_launch": vol_backlog["real_launch"]}]})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

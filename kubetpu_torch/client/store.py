@@ -45,6 +45,8 @@ class ClusterStore:
         self._lock = threading.RLock()
         self._objs: Dict[str, Dict[str, object]] = {k: {} for k in KINDS}  # kubelint: guarded-by(_lock)
         self._subs: Dict[str, List[Handler]] = {k: [] for k in KINDS}  # kubelint: guarded-by(_lock)
+        # PV binding assume-cache (reference: scheduler_binder assume cache)
+        self._assumed_pv: Dict[str, str] = {}   # pv name -> pvc name  # kubelint: guarded-by(_lock)
 
     # -- generic ------------------------------------------------------------
 
@@ -117,6 +119,21 @@ class ClusterStore:
     def get_node(self, name: str) -> Optional[api.Node]:
         return self.get("Node", name)
 
+    def get_pvc(self, namespace: str, name: str) -> Optional[api.PersistentVolumeClaim]:
+        return self.get("PersistentVolumeClaim", f"{namespace}/{name}")
+
+    def get_pv(self, name: str) -> Optional[api.PersistentVolume]:
+        return self.get("PersistentVolume", name)
+
+    def list_pvs(self) -> List[api.PersistentVolume]:
+        return self.list("PersistentVolume")
+
+    def get_storage_class(self, name: str) -> Optional[api.StorageClass]:
+        return self.get("StorageClass", name)
+
+    def get_csinode(self, name: str) -> Optional[api.CSINode]:
+        return self.get("CSINode", name)
+
     # -- binding subresource ------------------------------------------------
 
     def bind(self, pod: api.Pod, node_name: str) -> None:
@@ -163,6 +180,52 @@ class ClusterStore:
             subs_snapshot = list(self._subs["Pod"])
         for h in subs_snapshot:
             h("update", old, current)
+
+    # -- PV binding (SchedulerVolumeBinder surface) -------------------------
+
+    def pv_is_bound(self, pv_name: str) -> bool:
+        with self._lock:
+            if pv_name in self._assumed_pv:
+                return True
+            for pvc in self._objs["PersistentVolumeClaim"].values():
+                if pvc.volume_name == pv_name:
+                    return True
+            return False
+
+    def assume_pv_binding(self, pv_name: str, pvc_name: str) -> None:
+        with self._lock:
+            self._assumed_pv[pv_name] = pvc_name
+
+    def forget_pv_binding(self, pv_name: str) -> None:
+        with self._lock:
+            self._assumed_pv.pop(pv_name, None)
+
+    def bind_pvc(self, namespace: str, pvc_name: str, pv_name: str,
+                 node_name: str) -> None:
+        """Write the binding through the 'API' (reference:
+        scheduler_binder.go BindPodVolumes -> PVC/PV updates).  Emits a
+        PVC update event so watchers see the binding."""
+        with self._lock:
+            pvc = self._objs["PersistentVolumeClaim"].get(f"{namespace}/{pvc_name}")
+            if pvc is None:
+                raise NotFound(f"pvc {namespace}/{pvc_name} not found")
+            old = copy.copy(pvc)
+            old.metadata = copy.copy(pvc.metadata)
+            if pv_name:
+                pvc.volume_name = pv_name
+                self._assumed_pv.pop(pv_name, None)
+                pvc.phase = "Bound"
+            else:
+                # delayed provisioning: stamp the selected node and leave the
+                # claim Pending for the (external) provisioner (reference:
+                # volume.kubernetes.io/selected-node annotation)
+                pvc.metadata.annotations = dict(pvc.metadata.annotations)
+                pvc.metadata.annotations[
+                    "volume.kubernetes.io/selected-node"] = node_name
+            pvc.metadata.resource_version += 1
+            subs_snapshot = list(self._subs["PersistentVolumeClaim"])
+        for h in subs_snapshot:
+            h("update", old, pvc)
 
     # -- spread selectors (DefaultPodTopologySpread) ------------------------
 

@@ -3,11 +3,9 @@
 reference: pkg/scheduler/algorithmprovider/registry.go — getDefaultConfig
 :77-160 (plugin sets and weights), NewRegistry :60 (DefaultProvider, and
 ClusterAutoscalerProvider, which swaps LeastAllocated for MostAllocated);
-the counterpart of kubetpu/framework/provider.py.  The port refuses pods
-with volumes (ROADMAP queue 1 item 6), so the volume family (VolumeBinding
-at PreFilter, Filter, Reserve, Unreserve, PreBind and PostBind, and the
-volume filters of VOLUME_PLUGINS) is not in its default set, and a profile
-that names one of them is refused when its Framework is built.
+the counterpart of kubetpu/framework/provider.py, the volume family
+(VolumeBinding at PreFilter, Filter, Reserve, Unreserve, PreBind and
+PostBind, and the volume filters) included.
 """
 
 from __future__ import annotations
@@ -17,15 +15,8 @@ from ..apis.config import Plugin, PluginSet, Plugins
 DEFAULT_PROVIDER = "DefaultProvider"
 CLUSTER_AUTOSCALER_PROVIDER = "ClusterAutoscalerProvider"
 
-# the volume family of the JAX package's default set and registry
-VOLUME_PLUGINS = frozenset({
-    "VolumeBinding", "VolumeRestrictions", "VolumeZone", "NodeVolumeLimits",
-    "EBSLimits", "GCEPDLimits", "AzureDiskLimits", "CinderLimits"})
-
-
 def default_plugins() -> Plugins:
-    """reference: algorithmprovider/registry.go:77-160, without the
-    volume family."""
+    """reference: algorithmprovider/registry.go:77-160."""
     return Plugins(
         queue_sort=PluginSet(enabled=[Plugin("PrioritySort")]),
         pre_filter=PluginSet(enabled=[
@@ -33,6 +24,7 @@ def default_plugins() -> Plugins:
             Plugin("NodePorts"),
             Plugin("PodTopologySpread"),
             Plugin("InterPodAffinity"),
+            Plugin("VolumeBinding"),
         ]),
         filter=PluginSet(enabled=[
             Plugin("NodeUnschedulable"),
@@ -40,7 +32,14 @@ def default_plugins() -> Plugins:
             Plugin("NodeName"),
             Plugin("NodePorts"),
             Plugin("NodeAffinity"),
+            Plugin("VolumeRestrictions"),
             Plugin("TaintToleration"),
+            Plugin("EBSLimits"),
+            Plugin("GCEPDLimits"),
+            Plugin("NodeVolumeLimits"),
+            Plugin("AzureDiskLimits"),
+            Plugin("VolumeBinding"),
+            Plugin("VolumeZone"),
             Plugin("PodTopologySpread"),
             Plugin("InterPodAffinity"),
         ]),
@@ -62,6 +61,10 @@ def default_plugins() -> Plugins:
             Plugin("DefaultPodTopologySpread", weight=1),
             Plugin("TaintToleration", weight=1),
         ]),
+        reserve=PluginSet(enabled=[Plugin("VolumeBinding")]),
+        unreserve=PluginSet(enabled=[Plugin("VolumeBinding")]),
+        pre_bind=PluginSet(enabled=[Plugin("VolumeBinding")]),
+        post_bind=PluginSet(enabled=[Plugin("VolumeBinding")]),
         bind=PluginSet(enabled=[Plugin("DefaultBinder")]),
     )
 

@@ -26,7 +26,7 @@ from ..apis.config import KubeSchedulerProfile, Plugins
 from . import interface as fw
 from .interface import (Code, CycleState, Status, TensorPlugin, WaitingPod,
                         WaitingPodsMap)
-from .provider import VOLUME_PLUGINS, default_plugins
+from .provider import default_plugins
 
 MAX_PERMIT_TIMEOUT = 600.0  # reference: interface.go maxTimeout 15 min, capped
 
@@ -41,12 +41,6 @@ class Framework:
                              else KubeSchedulerProfile().scheduler_name)
         plugins = (base_plugins or default_plugins()).apply(
             profile.plugins if profile else None)
-        volumes = sorted({p.name for ep in vars(plugins).values()
-                          for p in ep.enabled if p.name in VOLUME_PLUGINS})
-        if volumes:
-            raise NotImplementedError(
-                "profile %s enables the volume plugins %s (ROADMAP queue 1 "
-                "item 6: volumes)" % (self.profile_name, volumes))
         args = dict(profile.plugin_config) if profile else {}
 
         self._instances: Dict[str, fw.Plugin] = {}
@@ -160,8 +154,13 @@ class Framework:
                 return st
         return Status.success()
 
-    def has_relevant_host_filters(self, pod: api.Pod) -> bool:
-        return any(self._relevant(p, pod) for p in self.host_filter_plugins)
+    def has_relevant_host_filters(self, pod: api.Pod,
+                                  exclude=frozenset()) -> bool:
+        """exclude: plugin names whose verdicts something else already
+        covers (the scheduler's device-side volume mask passes the covered
+        set so fully-covered pods skip the per-node Python filter loop)."""
+        return any(self._relevant(p, pod) for p in self.host_filter_plugins
+                   if p.name() not in exclude)
 
     def run_pre_score_plugins(self, state: CycleState, pod: api.Pod,
                               nodes: List[api.Node]) -> Status:

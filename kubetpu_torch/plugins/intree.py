@@ -6,9 +6,8 @@ tensorized plugins' Filter and Score algorithms are device kernels
 (ops/kernels.py): a class here only declares the kernel names the
 framework routes into the programs' ProgramConfig, and, for the
 configurable scorers, resolves its arguments against the intern table
-(``kernel_args``).  The host-side plugins are ServiceAffinity, the binder
-and the preemption PostFilter.  The volume family is ROADMAP queue 1
-item 6 (framework/provider.py).
+(``kernel_args``).  The host-side plugins are ServiceAffinity, the binder,
+the preemption PostFilter and the volume family (plugins/volumes.py).
 """
 
 from __future__ import annotations
@@ -377,9 +376,10 @@ Registry = Dict[str, Callable[..., fw.Plugin]]
 
 
 def new_in_tree_registry() -> Registry:
-    """reference: plugins/registry.go:47-74, without the volume family.
-    A factory takes (args, handle): the plugin's arguments and the
-    Framework that owns it."""
+    """reference: plugins/registry.go:47-74.  A factory takes (args,
+    handle): the plugin's arguments and the Framework that owns it."""
+    from . import volumes
+
     def plain(cls):
         return lambda args=None, handle=None: cls()
 
@@ -401,4 +401,10 @@ def new_in_tree_registry() -> Registry:
         client=handle.client if handle else None)
     reg[DefaultPreemption.NAME] = lambda args=None, handle=None: \
         DefaultPreemption(handle=handle)
+    for cls in (volumes.VolumeBinding, volumes.VolumeRestrictions,
+                volumes.VolumeZone, volumes.NodeVolumeLimits,
+                volumes.EBSLimits, volumes.GCEPDLimits,
+                volumes.AzureDiskLimits, volumes.CinderLimits):
+        reg[cls.NAME] = (lambda c: lambda args=None, handle=None: c(
+            store=handle.client if handle else None))(cls)
     return reg

@@ -34,10 +34,13 @@ The cycle's snapshot tensors are reused; nothing is re-tensorized per
 failed pod.  Every device->host read is counted in CycleContext.stats
 (the wave reads its [B, C, K+1] result once per round).
 
-The port has no extenders, metrics, event recorder or host filter
-plugins (it refuses pods with volumes), so processPreemptionWithExtenders
-is the identity and the host-filter re-check of a chosen node always
-passes: the JAX package's extender and host-filter branches are left out.
+The port has no extenders, metrics or event recorder, so
+processPreemptionWithExtenders is the identity.  The profile's host
+filters (the volume family among them) join the device verdicts of the
+candidate nodes (_wave_candidates) and are checked on a chosen node with
+its victims removed (_host_filters_pass): against the final
+victim-adjusted NodeInfo, not inside every reprieve step — the JAX
+package's documented deviation (its README, "Preemption"), kept as it is.
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ pops a BATCH of pods and places it with one device program:
 
   schedule_pending -> pop a batch (the queue-sort order) -> cache snapshot
   -> host PreFilter per pod -> fresh tensorize (SnapshotBuilder +
-  PodBatchBuilder) -> host Filter verdicts into ``host_ok`` and host
-  PreScore/Score into ``score_bias`` -> the mode's program with
+  PodBatchBuilder) -> host Filter verdicts into ``host_ok`` (the volume
+  family as one device mask, state/volumes.py) and host PreScore/Score
+  into ``score_bias`` -> the mode's program with
   PRNGKey(cycle counter) -> ONE readback of ``packed`` -> per placement:
   host-filter re-check, Reserve, assume, Permit, then the bind cycle
   (WaitOnPermit, PreBind, Bind, PostBind); failed pods go through the
@@ -40,8 +41,7 @@ Binding runs in the cycle by default (``async_binding=False``); the JAX
 package binds on a pool by default.  A Permit plugin that answers Wait
 needs ``async_binding=True``: the bind cycle then runs on a pool of binder
 threads (``wait_for_inflight_binds``).  Placements do not depend on this
-setting.  Refused, each a ROADMAP queue 1 item: pods with volumes and
-profiles with the volume plugins (item 6), extenders (item 8); deferred:
+setting.  Refused, a ROADMAP queue 1 item: extenders (item 8); deferred:
 the decision audit (item 8), cycle chaining and delta tensorization (item
 7), the pipelined serving loop, the bind retry ladder and ``run`` (item
 9), and the JAX runtime's journal/chaos/devstats/AOT utilities (item 11).
@@ -78,6 +78,7 @@ from .models.sequential import schedule_sequential
 from .plugins.intree import DefaultPreemption, new_in_tree_registry
 from .preemption import CycleContext, Preemptor
 from .schedqueue.queue import SchedulingQueue
+from .state import volumes as vstate
 from .state.cache import SchedulerCache, Snapshot
 from .state.tensors import SnapshotBuilder
 from .utils import pallas_backend as PB
@@ -314,13 +315,34 @@ class Scheduler:
         return self.cache.is_assumed_pod(pod)
 
     @staticmethod
-    def _check_supported(qpods: List[QueuedPodInfo]) -> None:
+    def _host_relevance(fwk: Framework, qpods: List[QueuedPodInfo]
+                        ) -> Dict[str, Tuple[bool, bool]]:
+        """reference: kubetpu/scheduler.py:609-628 — one walk of the host
+        filter plugins' relevance per pod: uid -> (any relevant, any
+        relevant beyond the device-covered volume family)."""
+        out: Dict[str, Tuple[bool, bool]] = {}
         for qp in qpods:
-            pod = qp.pod
-            if pod.spec.volumes:
-                raise NotImplementedError(
-                    "pod %s/%s has volumes (ROADMAP queue 1 item 6: "
-                    "volumes)" % (pod.namespace, pod.metadata.name))
+            rel = unc = False
+            for p in fwk.host_filter_plugins:
+                if fwk._relevant(p, qp.pod):
+                    rel = True
+                    if p.name() not in vstate.DEVICE_COVERED_PLUGINS:
+                        unc = True
+                        break
+            out[qp.pod.uid] = (rel, unc)
+        return out
+
+    def _volume_mask(self, fwk: Framework, live: List[QueuedPodInfo],
+                     node_infos, table, cluster) -> Optional[torch.Tensor]:
+        """reference: kubetpu/scheduler.py:866-891 — the volume family's
+        [B, N] device mask, built only when the profile enables a covered
+        plugin and some pod of the batch has volumes; else None."""
+        enabled = {p.name() for p in fwk.host_filter_plugins}
+        if not (vstate.DEVICE_COVERED_PLUGINS & enabled
+                and any(qp.pod.spec.volumes for qp in live)):
+            return None
+        return vstate.volume_mask(cluster, vstate.build_volume_overlay(
+            self.store, node_infos, [qp.pod for qp in live], table, enabled))
 
     @staticmethod
     def _needs_topo(qpods: List[QueuedPodInfo], spread_sels) -> bool:
@@ -359,14 +381,14 @@ class Scheduler:
         self.stage_s[name] += t1 - t0
         return t1
 
-    def _host_filter_mask(self, fwk, live, states, relevant, node_infos,
+    def _host_filter_mask(self, fwk, live, states, loop, node_infos,
                           B: int, N: int) -> Optional[np.ndarray]:
         """reference: kubetpu/scheduler.py:892-905 — the host filters'
-        verdicts per (pod, node) as a [B, N] mask; None when no pod has a
-        relevant host filter."""
+        verdicts per (pod, node) as a [B, N] mask for the pods whose
+        ``loop`` entry is set; None when there are none."""
         host_ok = None
         for i, qp in enumerate(live):
-            if not relevant[qp.pod.uid]:
+            if not loop[qp.pod.uid]:
                 continue
             if host_ok is None:
                 host_ok = np.ones((B, N), bool)
@@ -420,7 +442,6 @@ class Scheduler:
         self.cache.update_snapshot(self.snapshot)
         node_infos = self.snapshot.node_info_list
         n_nodes = len(node_infos)
-        self._check_supported(qpods)
         # host PreFilter per pod (reference: kubetpu/scheduler.py:680-699);
         # a failure fails the pod, past preemption's help when the plugin
         # says UnschedulableAndUnresolvable
@@ -472,22 +493,32 @@ class Scheduler:
         N = cluster.allocatable.shape[0]
         # one walk of the host filters' relevance per pod, shared by the
         # host-filter loop and the commit-time re-check
-        # (kubetpu/scheduler.py:609-628 _host_relevance)
-        relevant = {qp.pod.uid: fwk.has_relevant_host_filters(qp.pod)
-                    for qp in live}
-        host_mask = self._host_filter_mask(fwk, live, states, relevant,
+        relevance = self._host_relevance(fwk, live)
+        relevant = {uid: rel for uid, (rel, _) in relevance.items()}
+        # the volume family on the device: one [B, N] mask in place of
+        # ~B x N Python filter calls; a pod whose relevant host filters
+        # are all covered by it skips the per-node loop (its filters
+        # still run at the commit-time re-check)
+        vol_mask = self._volume_mask(fwk, live, node_infos, table, cluster)
+        loop = {uid: rel and (vol_mask is None or unc)
+                for uid, (rel, unc) in relevance.items()}
+        host_mask = self._host_filter_mask(fwk, live, states, loop,
                                            node_infos, B, N)
         bias = self._host_score_bias(fwk, live, states, node_infos, B, N)
         batch_topo_keys = self._batch_topo_keys(table, pinfos)
-        # the nominated-pods two-pass overlay (addNominatedPods,
-        # generic_scheduler.go:530,594-612), a device mask ANDed into
-        # host_ok; None when no nominated pod is relevant
-        host_ok = self._nominated_overlay_mask(fwk, builder, cluster, batch,
-                                               live, node_infos, nominated,
-                                               batch_topo_keys)
-        if host_mask is not None:
-            host_t = torch.from_numpy(host_mask).to(self.device)
-            host_ok = host_t if host_ok is None else host_t & host_ok
+        # host_ok: the host filters' mask, then the volume mask, then the
+        # nominated-pods two-pass overlay (addNominatedPods,
+        # generic_scheduler.go:530,594-612; None when no nominated pod is
+        # relevant), as kubetpu/scheduler.py:963-971 ANDs them
+        host_ok = (None if host_mask is None
+                   else torch.from_numpy(host_mask).to(self.device))
+        if vol_mask is not None:
+            host_ok = vol_mask if host_ok is None else host_ok & vol_mask
+        nom_mask = self._nominated_overlay_mask(fwk, builder, cluster, batch,
+                                                live, node_infos, nominated,
+                                                batch_topo_keys)
+        if nom_mask is not None:
+            host_ok = nom_mask if host_ok is None else host_ok & nom_mask
         score_bias = (None if bias is None
                       else torch.from_numpy(bias).to(self.device))
         t = self._stage("tensorize", t)

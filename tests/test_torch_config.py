@@ -5,9 +5,7 @@ defaulting and validation, legacy Policy translation and feature gates
 Each case runs on kubetpu.apis / kubetpu.framework and on the port's
 copies: the decoded configurations, the frameworks built from them and the
 validation errors must agree, and the original's assertions hold on the
-port.  The port refuses the volume plugins (ROADMAP queue 1 item 6), which
-the legacy Policy's default predicates enable: that case checks the
-refusal and compares the frameworks without them.
+port.
 """
 import dataclasses
 
@@ -29,15 +27,12 @@ def config_view(cfg):
 
 
 def fw_view(fwk):
-    """A framework's plugin sets, the volume family left out (the port's
-    default set has none of it)."""
-    volumes = PORT.runtime.VOLUME_PLUGINS
+    """A framework's plugin sets at every extension point."""
     return dict(
         tensor_filters=fwk.tensor_filters, tensor_scores=fwk.tensor_scores,
         score_weights=fwk.score_weights,
         hard=fwk.hard_pod_affinity_weight,
-        points={ep: [p.name() for p in getattr(fwk, ep + "_plugins")
-                     if p.name() not in volumes]
+        points={ep: [p.name() for p in getattr(fwk, ep + "_plugins")]
                 for ep in ("queue_sort", "pre_filter", "filter",
                            "post_filter", "pre_score", "score", "reserve",
                            "permit", "pre_bind", "bind", "post_bind",
@@ -148,24 +143,35 @@ def test_policy_translation():
 def test_policy_default_sets():
     cfgs = [P.load.load_policy({"kind": "Policy"}) for P in PACKAGES]
     assert config_view(cfgs[0]) == config_view(cfgs[1])
-    # the default predicates enable the volume family, which the port
-    # refuses by name
-    with pytest.raises(NotImplementedError, match="item 6") as e:
-        framework(PORT, cfgs[1].profiles[0])
-    assert "VolumeBinding" in str(e.value)
-    volumes = PORT.runtime.VOLUME_PLUGINS
-    for cfg in cfgs:
-        for ps in vars(cfg.profiles[0].plugins).values():
-            ps.enabled = [p for p in ps.enabled if p.name not in volumes]
+    # the default predicates enable the volume family: the Policy's
+    # frameworks build and equal the JAX package's at every point
     views = [fw_view(framework(P, c.profiles[0]))
              for P, c in zip(PACKAGES, cfgs)]
     assert views[0] == views[1]
+    assert "VolumeBinding" in views[1]["points"]["filter"]
+    assert "VolumeBinding" in views[1]["points"]["pre_bind"]
     fwk = framework(PORT, cfgs[1].profiles[0])
     assert "NodeResourcesFit" in fwk.tensor_filters
     assert "InterPodAffinity" in fwk.tensor_filters
     weights = dict(fwk.tensor_scores)
     assert weights["NodePreferAvoidPods"] == 10000
     assert weights["PodTopologySpread"] == 2
+
+
+@pytest.mark.parametrize("name", [
+    "NoDiskConflict", "CheckVolumeBinding", "NoVolumeZoneConflict",
+    "MaxCSIVolumeCountPred", "MaxEBSVolumeCount", "MaxGCEPDVolumeCount",
+    "MaxAzureDiskVolumeCount"])
+def test_policy_volume_predicate_builds(name):
+    """A Policy naming one legacy volume predicate builds a Framework in
+    both packages, with the same plugins at every point."""
+    cfgs = [P.load.load_policy({"kind": "Policy",
+                                "predicates": [{"name": name}]})
+            for P in PACKAGES]
+    views = [fw_view(framework(P, c.profiles[0]))
+             for P, c in zip(PACKAGES, cfgs)]
+    assert views[0] == views[1]
+    assert views[1]["points"]["filter"]
 
 
 def test_policy_unknown_predicate():

@@ -470,8 +470,8 @@ def test_drive_with_extension_points(seed, terms, mode, backend, scorers):
 
 def test_providers_match_reference():
     """framework/provider.py's providers as a Framework's base set: the
-    same plugins at every point as the JAX package's (its volume family
-    aside), and the ClusterAutoscaler provider's MostAllocated in
+    same plugins at every point as the JAX package's, the volume family
+    included, and the ClusterAutoscaler provider's MostAllocated in
     LeastAllocated's place."""
     from kubetpu.framework import provider as jprov
     from kubetpu_torch.framework import provider as tprov
@@ -481,13 +481,13 @@ def test_providers_match_reference():
                for F, reg, prov in (
                    (JFramework, jintree.new_in_tree_registry(), jprov),
                    (TFramework, tintree.new_in_tree_registry(), tprov))]
-        views = [{ep: [p.name() for p in getattr(f, ep + "_plugins")
-                       if p.name() not in tprov.VOLUME_PLUGINS]
+        views = [{ep: [p.name() for p in getattr(f, ep + "_plugins")]
                   for ep in ("queue_sort", "pre_filter", "filter",
                              "post_filter", "pre_score", "score", "reserve",
                              "permit", "pre_bind", "bind", "post_bind",
                              "unreserve")} for f in fws]
         assert views[0] == views[1], name
+        assert "VolumeZone" in views[1]["filter"]
         assert fws[0].tensor_scores == fws[1].tensor_scores
     scores = dict(TFramework(tintree.new_in_tree_registry(),
                              base_plugins=tprov.cluster_autoscaler_plugins()

@@ -254,10 +254,11 @@ def _volume_batch(store_mod, hollow, A):
 
 
 def test_refused_volume_pod_loses_nothing():
-    """A pod with a volume is refused loudly (NotImplementedError naming
-    ROADMAP item 6), and the popped batch is not lost: all four pods are
-    back in the queue; once the volume pod is deleted, the next cycle
-    binds the other three where the JAX scheduler binds them."""
+    """A batch with a volume pod (an emptyDir) is no longer refused: the
+    one cycle binds all four pods where the JAX scheduler binds them,
+    and nothing is left in the queue.  (Until the volume family was
+    ported, the batch was refused and requeued whole; the lost-batch
+    guarantee is test_raising_plugin_loses_nothing's.)"""
     from tests.torch_port_util import FakeClock
     store, pods = _volume_batch(tstore, thollow, tapi)
     s = tsched.Scheduler(store, tconf.KubeSchedulerConfiguration(
@@ -266,13 +267,6 @@ def test_refused_volume_pod_loses_nothing():
     s.queue._clock = FakeClock()
     for p in pods:
         store.add(p)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        s.schedule_pending()
-    assert len(s.queue) == 4
-    assert all(not p.spec.node_name for p in store.list("Pod"))
-    store.delete(store.get_pod("default", "p2"))
-    s.queue._clock.t += 100.0
-    s.queue.flush_backoff_completed()
     out = s.schedule_pending()
     s.close()
     got = {o.pod.metadata.name: o.node for o in out}
@@ -282,13 +276,14 @@ def test_refused_volume_pod_loses_nothing():
     js = jsched.Scheduler(jstore_, config=jconf.KubeSchedulerConfiguration(
         profiles=[jconf.KubeSchedulerProfile()], batch_size=8,
         prewarm=False), async_binding=False)
-    for p in jpods[:2] + jpods[3:]:
+    for p in jpods:
         jstore_.add(p)
     want = {o.pod.metadata.name: o.node for o in js.schedule_pending()}
     js.close()
-    assert len(got) == 3 and all(got.values()), got
+    assert len(got) == 4 and all(got.values()), got
     assert got == want
     assert len(s.queue) == 0
+    assert all(p.spec.node_name for p in store.list("Pod"))
 
 
 def _raising_plugin_scheduler(point, base, method):
