@@ -22,7 +22,8 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              scheduler_perf's Preemption (500 nodes packed with 2,000
              low-priority fillers, 500 preemptors) under the default
              configuration (the sequential replay, every scan under
-             "error"), and a term-bearing preemption world
+             "error"; the DecisionLog equal card vs CPU, pod by pod), and
+             a term-bearing preemption world
              (kubetpu_torch/harness/preempt_worlds.py: 48 nodes, 16
              preemptors, PDBs, parked nominations) in gang mode under
              "pallas", whose what-ifs take the per-pod reprieve (its ms
@@ -63,7 +64,17 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              fill exactly (four per node), batch_size 1,000, gang.  The
              last batches find one free slot per node and contend.
              Drained under "pallas" and "lax": every pod placed, four per
-             node, identical placements;
+             node, identical placements; and a third time under "pallas"
+             with a full build every cycle (chaining off and a
+             DeltaTensorizer with resync interval 0, the port's path
+             before the resident cluster): the same placements; and a
+             fourth under "pallas" with delta refreshes every cycle and
+             no chain (chain_cycles off, the default DeltaTensorizer):
+             the same placements, so the chain's own share shows.  Each
+             drain reports its tensorize and upload seconds, chain uses
+             and the source of every cycle's cluster (chain, delta or a
+             resync reason), and the third and fourth hold their first
+             16 K1 launches against the plain version;
   preempt    Preemption5000Nodes' measured phase (config/performance-
              config.yaml:163-171): the fill's end state (20,000 900m
              fillers at priority -10, four on each of 5,000 nodes, bound
@@ -77,7 +88,14 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              Reports cycles, waves, wave rounds, evictions, device reads
              per wave, the stages (with "preempt"), the what-if's device
              ms per wave and K1's launches (recorded and held against the
-             plain version);
+             plain version).  Every pod failing the first cycle has a
+             PodDecision whose rejections name NodeResourcesFit; the
+             decision audit's stream ms per failure cycle (CUDA events
+             around the call: host launch gaps included) and its failed
+             and valid rows per call are reported.
+             The drain runs again with a full build every cycle: the same
+             evictions and placements, its tensorize and upload seconds
+             beside the delta/chained drain's;
   seq_slice  SchedulingBasic5000Nodes under the default configuration: mode
              sequential (the replay, models/sequential.py), adaptive
              sampling (500 of 5,000 nodes per pod), batch 1,000.  Every
@@ -161,6 +179,19 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              and the CPU retry the same pods; each reports its stages,
              the overlay's host s and the mask's device ms per cycle, ms
              per scan step or per round, and K1's launches;
+  resident   the resident cluster under churn (resident_world: nodes
+             with three 900m fillers each, waves of 900m pods and 2,000m
+             preemptors that must evict, and cluster events between
+             cycles: external binds, deletions, node label updates, a new
+             taint, a node added): 5,000 nodes gang under "pallas" (batch
+             500, chained cycles and delta refreshes, K1 counted and
+             every launch held against the plain version) and
+             sequential (batch 100), after every refresh verify() (the
+             card's resident fingerprint against the host mirror's)
+             holding; the same sequence at 1,000 nodes in both modes on
+             the card and on the CPU: the same placements and evictions,
+             the same cluster source every cycle, and per refresh the
+             same outcome, pod_uid_list and resident bytes (sha256);
   profile    the slice, backlog and fill (pallas) drains once more under
              torch.profiler: device busy time, the drain's device idle
              share, top kernels (separate runs, so the profiler's overhead
@@ -169,7 +200,11 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              same numbers for the window, the kernel launches per step and
              the gemv kernels' share of the device time; and the
              gang_spread drain with the profiler on over 16 auction rounds
-             (rounds 40-55): the same numbers per round;
+             (rounds 40-55): the same numbers per round; and one decision
+             audit (explain_verdicts in the first cycle of the packed
+             fill with 1,000 preemptors, every row failing) under the
+             profiler: its host dispatch time, stream time, kernel busy
+             time and top kernels;
 
 Every sequential scan (the reference check's and each seq_* drain's) runs
 under torch.cuda.set_sync_debug_mode("error"): a host sync inside the
@@ -183,15 +218,16 @@ each auction's flag reads must equal its rounds.
 
 The main path is the pallas drain of each of slice, backlog, fill,
 preempt, gang_anti, gang_spread and autoscaler, each sequential drain,
-binpack's card drains, points' card drains and the card drains of
-volumes: the kernel launch count is zeroed just before each and read
+binpack's card drains, points' card drains, the card drains of volumes
+and resident's card drains: the kernel launch count is zeroed just before each and read
 just after it, and reported per path.  The slice never launches the kernel (above), nor do the
 term-bearing gang drains (routed to the lax round, as the JAX package
 routes them) or the sequential replay (no propose step: the JAX
 package's scan reaches no Pallas kernel), nor does binpack (its scores
 route to lax); in the backlog, fill, autoscaler, term-free points and
-vol_backlog drains every launch's inputs and outputs are recorded (the
-fill's, autoscaler's, vol_backlog's and the preempt drain's first 16)
+vol_backlog drains and resident's 5,000-node gang drain every launch's
+inputs and outputs are recorded (the fill's, autoscaler's, vol_backlog's
+and the preempt drain's first 16)
 and, after the drain, the outputs are held bitwise against the plain
 version on the same inputs, and the kernel is timed on the widest
 recorded launch's real inputs.
@@ -214,10 +250,10 @@ import time
 ALL_PHASES = ("reference", "kernel", "slice", "backlog", "fill",
               "preempt", "seq_slice", "seq_anti", "seq_spread", "gang_anti",
               "gang_spread", "autoscaler", "binpack", "points", "volumes",
-              "profile")
+              "resident", "profile")
 MAIN_PATHS = ("slice", "backlog", "fill", "preempt", "seq_slice",
               "seq_anti", "seq_spread", "gang_anti", "gang_spread",
-              "autoscaler", "binpack", "points", "volumes")
+              "autoscaler", "binpack", "points", "volumes", "resident")
 FILL_NODES = 5000             # Preemption5000Nodes: 5,000 nodes,
 FILL_PODS = 4 * FILL_NODES    # 20,000 init pods (four 900m pods fill a node)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -282,8 +318,38 @@ def pending_pods(n, prefix, group_labels=10, cpu_milli=100, mem=250 << 20):
             for i in range(n)]
 
 
+def fresh_tensorize(sched) -> None:
+    """Tensorize every cycle from scratch, the port's path before the
+    resident cluster: no chain, and a DeltaTensorizer whose resync
+    interval of 0 rebuilds the whole cluster on every refresh."""
+    from kubetpu_torch.state.delta import DeltaTensorizer
+    sched.config.chain_cycles = False
+    for name, fwk in sched.profiles.items():
+        sched._delta[name] = DeltaTensorizer(
+            hard_pod_affinity_weight=fwk.hard_pod_affinity_weight,
+            resync_interval=0, device=sched.device)
+
+
+def resident_report(sched, seconds) -> dict:
+    """Where a drain's clusters came from, and what tensorize and upload
+    cost it."""
+    src = sched.cluster_sources
+    return dict(drain_s=seconds, tensorize_s=sched.stage_s["tensorize"],
+                upload_s=sched.stage_s["upload"],
+                chain_s=sched.stage_s["chain"], stage_s=dict(sched.stage_s),
+                chain_uses=src.count("chain"),
+                resyncs=sched.resync_count,
+                delta_cycles=sched.delta_cycle_count,
+                delta_rows=list(sched.delta_rows), sources=list(src))
+
+
+def placements_of(store) -> dict:
+    return {p.metadata.name: p.spec.node_name for p in store.list("Pod")}
+
+
 def drain(store, pods, backend, batch_size, device, record=None,
-          record_limit=None, profile=None, families=None):
+          record_limit=None, profile=None, families=None, fresh=False,
+          chain=True):
     """Drain ``pods`` through Scheduler.schedule_pending, in gang mode
     under ``backend``, or, with backend None, under the default
     configuration (the sequential replay); profile: the scheduler's one
@@ -291,7 +357,9 @@ def drain(store, pods, backend, batch_size, device, record=None,
     list that receives the first ``record_limit`` (default: all) propose
     launches as (inputs, outputs), cloned, for the check against the
     plain version; families: a dict counting every launch by its layout
-    ("default" or "generic" combine).  A gang drain on the card runs
+    ("default" or "generic" combine); fresh: tensorize every cycle from
+    scratch (fresh_tensorize); chain=False: delta refreshes every cycle,
+    no chain.  A gang drain on the card runs
     every auction under GangRounds (one host read per round, nothing
     else); returns (scheduler, placements, seconds, GangRounds summary or
     None)."""
@@ -303,6 +371,10 @@ def drain(store, pods, backend, batch_size, device, record=None,
     if backend is not None:
         cfg.mode, cfg.kernel_backend = "gang", backend
     sched = Scheduler(store, config=cfg, device=device)
+    if fresh:
+        fresh_tensorize(sched)
+    if not chain:
+        sched.config.chain_cycles = False
     for p in pods:
         store.add(p)
     placed = {}
@@ -634,6 +706,7 @@ def _seq_drain(what, store, pods, n_expected, profile=None):
     return sched, placed, dict(
         placed=n_placed, cycles=sched.cycle_count, launches=launches,
         drain_s=seconds, stage_s=sched.stage_s,
+        resident=resident_report(sched, seconds),
         pods_per_s=n_placed / seconds,
         next_start=sched._next_start_node_index, scan=scan,
         kv_shape_NL=list(scans.kv_shape), kv_matvec_ms=kv_ms,
@@ -1194,7 +1267,8 @@ def _pallas_vs_lax(what, make_world, batch_size, record_limit=None,
                             launches=launches, drain_s=seconds,
                             stage_s=sched.stage_s,
                             pods_per_s=n_placed / seconds,
-                            sync_check=rounds, launches_by_combine=families)
+                            sync_check=rounds, launches_by_combine=families,
+                            resident=resident_report(sched, seconds))
         if record is not None:
             if launches <= 0:
                 raise AssertionError("%s: the propose kernel never launched"
@@ -1227,6 +1301,7 @@ def phase_fill() -> dict:
     node (the template packs the cluster exactly); nothing is nominated,
     so no cycle runs a nominated-pods overlay pass."""
     from kubetpu_torch.models import programs as PR
+    from kubetpu_torch.ops import propose as PK
     with DeviceTimed(PR, "nominated_fit_mask") as overlay:
         out, stores = _pallas_vs_lax("fill", fill_world, 1000,
                                      record_limit=16)
@@ -1234,6 +1309,45 @@ def phase_fill() -> dict:
         raise AssertionError("fill: %d nominated-pods overlay passes with "
                              "nothing nominated" % len(overlay.events))
     out["overlay_passes"] = 0
+    # the third drain: a full build every cycle (chaining off, resync
+    # interval 0), the path before the resident cluster; the same
+    # placements
+    store, pods = fill_world()
+    record = []
+    PK.propose.launches = 0
+    sched, placed, seconds, _ = drain(store, pods, "pallas", 1000, "cuda",
+                                      record, 16, fresh=True)
+    if placements_of(store) != placements_of(stores["pallas"]):
+        raise AssertionError("fill: the fresh-per-cycle drain's placements "
+                             "differ from the chained drain's")
+    if sched.resync_count != len(sched.cluster_sources):
+        raise AssertionError("fill: the fresh drain did not rebuild every "
+                             "cycle (%s)" % sched.cluster_sources)
+    out["fresh"] = dict(placed=sum(1 for v in placed.values() if v),
+                        cycles=sched.cycle_count,
+                        launches=PK.propose.launches,
+                        recorded=check_recorded(record, "fill fresh"),
+                        placements_match_chained=True,
+                        resident=resident_report(sched, seconds))
+    # the fourth: delta refreshes every cycle and no chain, what the
+    # chain is measured against; the same placements
+    store, pods = fill_world()
+    record = []
+    PK.propose.launches = 0
+    sched, placed, seconds, _ = drain(store, pods, "pallas", 1000, "cuda",
+                                      record, 16, chain=False)
+    if placements_of(store) != placements_of(stores["pallas"]):
+        raise AssertionError("fill: the delta-only drain's placements "
+                             "differ from the chained drain's")
+    if "chain" in sched.cluster_sources:
+        raise AssertionError("fill: the delta-only drain chained")
+    out["delta_only"] = dict(placed=sum(1 for v in placed.values() if v),
+                             cycles=sched.cycle_count,
+                             launches=PK.propose.launches,
+                             recorded=check_recorded(record,
+                                                     "fill delta-only"),
+                             placements_match_chained=True,
+                             resident=resident_report(sched, seconds))
     for backend, store in stores.items():
         if out[backend]["placed"] != FILL_PODS:
             raise AssertionError("fill: %d/%d pods placed (%s)"
@@ -1271,9 +1385,12 @@ def preemptor_pods(n):
 
 
 class DeviceTimed:
-    """CUDA-event device time of every call of ``module.name`` whose first
-    argument (the cluster) lies on the card; calls on the CPU pass
-    through.  Events only: no sync inside the call.  Restored on exit."""
+    """CUDA-event stream time of every call of ``module.name`` whose first
+    argument (the cluster) lies on the card: from the call's first enqueue
+    to its last, so host launch gaps inside a many-kernel call count (the
+    profile phase splits one audit call into busy and idle).  Calls on the
+    CPU pass through.  Events only: no sync inside the call.  Restored on
+    exit."""
 
     def __init__(self, module, name):
         self.module, self.name, self.events = module, name, []
@@ -1307,13 +1424,16 @@ class DeviceTimed:
 
 
 def _preempt_drain(store, pods, backend, device, batch_size=None,
-                   parked=(), record=None, record_limit=None):
+                   parked=(), record=None, record_limit=None, fresh=False,
+                   max_cycles=None):
     """Drain ``pods`` through the failure path: gang under ``backend``, or
     the default configuration with backend None.  Backoff is 0 and, when
     nothing is active but pods wait, the unschedulable pods move at once
     (the reference's 60 s leftover flush, compressed).  ``parked``: (pod,
     node) nominations made before the drain.  On the card every auction
-    runs under GangRounds, every scan under SeqScans.  Returns (scheduler,
+    runs under GangRounds, every scan under SeqScans.  fresh: tensorize
+    every cycle from scratch (fresh_tensorize).  max_cycles: stop after
+    that many scheduling cycles.  Returns (scheduler,
     placements, deleted pods [(name, priority, group)] in order,
     nominations, seconds, sync summary)."""
     import torch
@@ -1326,6 +1446,8 @@ def _preempt_drain(store, pods, backend, device, batch_size=None,
     if backend is not None:
         cfg.mode, cfg.kernel_backend = "gang", backend
     sched = Scheduler(store, config=cfg, device=device)
+    if fresh:
+        fresh_tensorize(sched)
     # no backoff: set on the queue, since a configuration must ask for
     # more than 0 s
     sched.queue._initial_backoff = sched.queue._max_backoff = 0.0
@@ -1351,10 +1473,11 @@ def _preempt_drain(store, pods, backend, device, batch_size=None,
     try:
         with guard as gr:
             t0 = time.perf_counter()
-            idle = 0
-            while len(sched.queue):
+            idle = cycles = 0
+            while len(sched.queue) and cycles != max_cycles:
                 sched.queue.flush_backoff_completed()
                 out = sched.schedule_pending()
+                cycles += 1
                 if out:
                     idle = 0
                     for o in out:
@@ -1397,17 +1520,46 @@ def phase_preempt(n_nodes=FILL_NODES, device="cuda") -> dict:
     from kubetpu_torch import preemption as PRE
     from kubetpu_torch.models import programs as PR
     from kubetpu_torch.ops import propose as PK
-    from kubetpu_torch.scheduler import capacity_violations
+    from kubetpu_torch.scheduler import Scheduler, capacity_violations
+    from kubetpu_torch.utils.decisions import DecisionLog
     store = packed_fill_store(n_nodes)
     pods = preemptor_pods(n_nodes)
     record = []
+    decisions = []
+    audit_rows = []          # (failed rows, valid rows) per audit call
+    orig_record = DecisionLog.record
+    orig_audit = Scheduler._audit_failures
+
+    def spy(log, d):
+        decisions.append(d)
+        return orig_record(log, d)
+
+    def audit_spy(cycle_ctx, failed, host_ok):
+        audit_rows.append((len(failed), len(cycle_ctx.row_of)))
+        return orig_audit(cycle_ctx, failed, host_ok)
+    DecisionLog.record = spy
+    Scheduler._audit_failures = staticmethod(audit_spy)
     PK.propose.launches = 0          # this path starts: zero the count
-    with DeviceTimed(PR, "whatif_wave") as wave_t, \
-            DeviceTimed(PRE, "_whatif_reprieve") as rep_t:
-        sched, placed, deleted, noms, seconds, rounds = _preempt_drain(
-            store, pods, "pallas", device, n_nodes // 5, record=record,
-            record_limit=16)
+    try:
+        with DeviceTimed(PR, "whatif_wave") as wave_t, \
+                DeviceTimed(PRE, "_whatif_reprieve") as rep_t, \
+                DeviceTimed(PR, "explain_verdicts") as audit_t:
+            sched, placed, deleted, noms, seconds, rounds = _preempt_drain(
+                store, pods, "pallas", device, n_nodes // 5, record=record,
+                record_limit=16)
+    finally:
+        DecisionLog.record = orig_record
+        Scheduler._audit_failures = staticmethod(orig_audit)
     launches = PK.propose.launches
+    # the decision audit of the first cycle: every failed preemptor is
+    # attributed to NodeResourcesFit
+    first = [d for d in decisions
+             if d.cycle == 1 and d.outcome == "unschedulable"]
+    if not first or any("NodeResourcesFit" not in d.rejections
+                        for d in first):
+        raise AssertionError("preempt: %d first-cycle failures, not all "
+                             "attributed to NodeResourcesFit" % len(first))
+    audit_ms = audit_t.ms()
     unbound = [p.metadata.name for p in store.list("Pod")
                if p.metadata.labels.get("group") == "measured"
                and not p.spec.node_name]
@@ -1439,9 +1591,27 @@ def phase_preempt(n_nodes=FILL_NODES, device="cuda") -> dict:
                whatif_calls=len(wave_ms), whatif_ms=wave_ms,
                whatif_ms_per_wave=(sum(wave_ms) / stats["waves"]
                                    if stats["waves"] else None),
-               reprieve_calls=len(rep_t.ms()), sync_check=rounds)
+               reprieve_calls=len(rep_t.ms()), sync_check=rounds,
+               resident=resident_report(sched, seconds),
+               first_cycle_failures_audited=len(first),
+               audit_calls=len(audit_ms), audit_stream_ms=audit_ms,
+               audit_failed_rows=[f for f, _ in audit_rows],
+               audit_valid_rows=[v for _, v in audit_rows],
+               failure_cycles=sum(1 for c in sched.preempt_stats
+                                  if c["waves"]))
     if record:
         out["recorded"] = check_recorded(record, "preempt")
+    # the same drain tensorized from scratch every cycle: the same
+    # evictions and placements
+    fstore = packed_fill_store(n_nodes)
+    fsched, fplaced, fdeleted, _, fseconds, _ = _preempt_drain(
+        fstore, preemptor_pods(n_nodes), "pallas", device, n_nodes // 5,
+        fresh=True)
+    if fdeleted != deleted or placements_of(fstore) != placements_of(store):
+        raise AssertionError("preempt: the fresh-per-cycle drain differs "
+                             "from the delta/chained one")
+    out["fresh"] = dict(matches_delta=True, cycles=fsched.cycle_count,
+                        resident=resident_report(fsched, fseconds))
     return out
 
 
@@ -1450,13 +1620,14 @@ def _preempt_card_vs_cpu(what, make, backend, batch_size=None):
     card: the same deleted pods in the same order, the same nominations,
     the same placements."""
     from kubetpu_torch import preemption as PRE
-    runs = {}
+    runs, logs = {}, {}
     for dev in ("cpu", "cuda"):
         store, pods, parked = make()
         with DeviceTimed(PRE, "_whatif_reprieve") as rep_t:
             sched, placed, deleted, noms, seconds, sync = _preempt_drain(
                 store, pods, backend, dev, batch_size, parked)
         runs[dev] = (placed, deleted, noms)
+        logs[dev] = decision_view(sched)
         if sched.preempt_wave_failures:
             raise AssertionError("reference %s: a wave failed" % what)
         if dev == "cuda":
@@ -1478,8 +1649,23 @@ def _preempt_card_vs_cpu(what, make, backend, batch_size=None):
                                  runs["cpu"][0] == runs["cuda"][0]))
     if not runs["cpu"][1] or not runs["cpu"][2]:
         raise AssertionError("reference %s: nothing was preempted" % what)
-    out.update(cpu_s=cpu_s, matches_cpu=True)
+    if logs["cpu"] != logs["cuda"]:
+        diff = [k for k in logs["cpu"] if logs["cpu"][k] != logs["cuda"].get(k)]
+        raise AssertionError("reference %s: DecisionLogs differ card vs CPU "
+                             "(%d pods, e.g. %s)" % (what, len(diff),
+                                                    diff[:3]))
+    out.update(cpu_s=cpu_s, matches_cpu=True, decisions_match_cpu=len(
+        logs["cpu"]))
     return out
+
+
+def decision_view(sched) -> dict:
+    """Every pod's last decision: outcome, node, rejections, blocking,
+    best node and score, nomination, message."""
+    return {d.name: (d.outcome, d.node, d.rejections, d.blocking,
+                     d.best_node, d.best_score, d.nominated_node, d.message,
+                     d.n_feasible)
+            for d in sched.decisions.recent(10 ** 6)}
 
 
 def _preemption_references() -> dict:
@@ -1505,6 +1691,263 @@ def _preemption_references() -> dict:
     if not terms["reprieve_calls"]:
         raise AssertionError("reference terms: no per-pod reprieve ran")
     out["preemption_terms"] = terms
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the resident cluster: delta refreshes and chains under churn
+
+
+def resident_world(n_nodes, batch, waves, seed=8):
+    """A seeded churn world: n_nodes hollow nodes (4 cpu) each holding
+    three 900m fillers of priority -10 (one free slot), some also a 100m
+    pod; ``waves`` x
+    ``batch`` pending 900m pods of priority 0, and batch // 2 preemptors
+    of 2,000m at priority 100, which fit nowhere until a filler is
+    evicted.  Returns (store, pods, churn): churn(cycle, store) applies
+    the cluster events before a cycle — external binds, pod deletions,
+    node label updates, one new taint (inside the taint vocabulary's
+    cap), one node added — the same on every device."""
+    import copy
+    import random
+    from kubetpu_torch.api import types as api
+    from kubetpu_torch.harness import hollow
+    from kubetpu_torch.utils.intern import pow2_bucket
+    def bound(p, node):
+        # uids from names: two runs in one process give equal uid lists
+        p.metadata.uid = "u-" + p.metadata.name
+        p.spec.node_name = node
+        store.add(p)
+
+    store = hollow_store(n_nodes, 0)
+    for i, p in enumerate(filler_pods(3 * n_nodes)):
+        bound(p, f"node-{i // 3}")
+    # small bound pods that put the pod count 1.5 batches under its pow2
+    # bucket: the chain's bucket guard then lets the first cycles chain
+    for j in range(pow2_bucket(3 * n_nodes) - 3 * n_nodes - 3 * batch // 2):
+        bound(hollow.make_pod(f"small{j}", cpu_milli=100,
+                              labels={"group": "small"}), f"node-{j}")
+    pods = [hollow.make_pod(f"w{i}", cpu_milli=900, mem=250 << 20,
+                            labels={"app": f"app-{i % 10}",
+                                    "group": "measured"})
+            for i in range(waves * batch)]
+    pods += [hollow.make_pod(f"pre{i}", cpu_milli=2000, mem=250 << 20,
+                             priority=100, labels={"group": "preemptor"})
+             for i in range(batch // 2)]
+    for p in pods:
+        p.metadata.uid = "u-" + p.metadata.name
+    r = random.Random(seed)
+    k = max(n_nodes // 100, 2)
+
+    def churn(cycle, store):
+        # events before cycles 1, 3, 5, 6 and 7; cycles 2 and 4 see none
+        # and can chain (gang mode)
+        if cycle == 1:                      # external binds
+            for j in range(k):
+                bound(hollow.make_pod(f"ext{j}", cpu_milli=100,
+                                      labels={"group": "external"}),
+                      f"node-{r.randrange(n_nodes)}")
+        elif cycle == 3:                    # deletions
+            names = sorted(p.metadata.name for p in store.list("Pod")
+                           if p.spec.node_name
+                           and p.metadata.labels.get("group") == "init")
+            for name in r.sample(names, k):
+                store.delete(store.get("Pod", "default/" + name))
+        elif cycle == 5:                    # node label updates
+            for j in r.sample(range(n_nodes), k):
+                n = copy.deepcopy(store.get("Node", f"node-{j}"))
+                n.metadata.labels[api.LABEL_ZONE] = "zone-7"
+                store.update(n)
+        elif cycle == 6:                    # a new taint, inside the cap
+            n = copy.deepcopy(store.get("Node",
+                                        f"node-{r.randrange(n_nodes)}"))
+            n.spec.taints.append(api.Taint(key="maintenance", value="soon",
+                                           effect="PreferNoSchedule"))
+            store.update(n)
+        elif cycle == 7:                    # the node set changes
+            store.add(hollow.make_node(f"node-{n_nodes}", zone="zone-0",
+                                       region="region-0"))
+    return store, pods, churn
+
+
+class RefreshProbe:
+    """Wraps DeltaTensorizer.refresh: after every refresh, verify() (the
+    card's fingerprint against the host mirror's) must hold; with
+    ``digest`` each refresh also records its outcome, pod_uid_list and a
+    sha256 of every resident tensor's bytes (for card against CPU).
+    Restored on exit."""
+
+    def __init__(self, digest=False):
+        self.digest = digest
+        self.verified = 0
+        self.records = []
+
+    def __enter__(self):
+        import hashlib
+        from kubetpu_torch.state import delta as D
+        self._orig = orig = D.DeltaTensorizer.refresh
+        probe = self
+
+        def refresh(dt, *a, **kw):
+            cluster, st = orig(dt, *a, **kw)
+            if not dt.verify():
+                raise AssertionError("resident: the card's residents differ "
+                                     "from the host mirror after a refresh "
+                                     "(%s)" % (st.reason or "delta"))
+            probe.verified += 1
+            if probe.digest:
+                h = hashlib.sha256()
+                for f in type(cluster)._fields:
+                    for leaf in D._leaves(getattr(cluster, f)):
+                        x = leaf.cpu().numpy()
+                        h.update(("%s%s" % (x.dtype, x.shape)).encode())
+                        h.update(x.tobytes())
+                probe.records.append((st.reason, st.delta_rows,
+                                      dt.pod_uid_list(), h.hexdigest()))
+            return cluster, st
+        D.DeltaTensorizer.refresh = refresh
+        return self
+
+    def __exit__(self, *exc):
+        from kubetpu_torch.state import delta as D
+        D.DeltaTensorizer.refresh = self._orig
+
+
+def resident_drain(n_nodes, batch, waves, backend, device, digest=False,
+                   record=None):
+    """resident_world drained (gang under ``backend``, or sequential with
+    None) with the churn before each cycle, the preemption drain's queue
+    settings (backoff 0, unschedulable pods retried when the queue idles)
+    and every refresh verified.  record: a list that receives every
+    propose launch as (inputs, outputs), cloned, for check_recorded.
+    Returns (placements, deleted, report, refresh records)."""
+    from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
+                                           KubeSchedulerProfile)
+    from kubetpu_torch.ops import propose as PK
+    from kubetpu_torch.scheduler import Scheduler, capacity_violations
+    import torch
+    store, pods, churn = resident_world(n_nodes, batch, waves)
+    cfg = KubeSchedulerConfiguration(profiles=[KubeSchedulerProfile()],
+                                     batch_size=batch)
+    if backend is not None:
+        cfg.mode, cfg.kernel_backend = "gang", backend
+    sched = Scheduler(store, config=cfg, device=device)
+    sched.queue._initial_backoff = sched.queue._max_backoff = 0.0
+    deleted = []
+    orig_delete = store.delete
+
+    def delete(obj):
+        if obj.kind == "Pod":
+            deleted.append(obj.metadata.name)
+        return orig_delete(obj)
+    store.delete = delete
+    for p in pods:
+        store.add(p)
+    card = device == "cuda"
+    guard = (GangRounds() if card and backend is not None
+             else SeqScans() if card else contextlib.nullcontext())
+    if card:
+        PK.propose.launches = 0      # this path starts: zero the count
+    restore = (_record_launches(record, None)
+               if record is not None else None)
+    try:
+        with RefreshProbe(digest) as probe, guard:
+            t0 = time.perf_counter()
+            cycle = idle = 0
+            while len(sched.queue) and cycle < 40:
+                churn(cycle, store)
+                sched.queue.flush_backoff_completed()
+                out = sched.schedule_pending()
+                cycle += 1
+                if out:
+                    idle = 0
+                    continue
+                idle += 1
+                if idle > 2:
+                    raise AssertionError("resident drain stalled with %d "
+                                         "pods queued" % len(sched.queue))
+                sched.queue.move_all_to_active_or_backoff_queue(
+                    "UnschedulableTimeout")
+            if card:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        if restore is not None:
+            restore()
+    store.delete = orig_delete
+    sched.close()
+    what = "resident %s %s" % (backend or "sequential", device)
+    if sched.preempt_wave_failures:
+        raise AssertionError("%s: a wave failed" % what)
+    if capacity_violations(store):
+        raise AssertionError("%s: capacity violated" % what)
+    unbound = [p.metadata.name for p in store.list("Pod")
+               if not p.spec.node_name]
+    if unbound:
+        raise AssertionError("%s: %d pods unbound" % (what, len(unbound)))
+    sources = sched.cluster_sources
+    for want in ("initial", "node-set", "delta"):
+        if want not in sources:
+            raise AssertionError("%s: no %r cycle (%s)" % (what, want,
+                                                           sources))
+    report = dict(cycles=sched.cycle_count, evicted=len(deleted),
+                  verified=probe.verified, **resident_report(sched, seconds))
+    if card:
+        report["launches"] = PK.propose.launches
+    return placements_of(store), deleted, report, probe.records
+
+
+def phase_resident() -> dict:
+    """The resident cluster under churn: a 5,000-node world drained gang
+    under "pallas" (chained cycles and delta refreshes, K1's launches
+    counted) and sequentially (delta refreshes), every refresh verified
+    on the card; the same sequence at 1,000 nodes on the card and on the
+    CPU, in both modes: the same placements and evictions, the same
+    refresh outcomes, pod_uid_lists and resident bytes."""
+    out = {}
+    record = []
+    _, _, gang, _ = resident_drain(5000, 500, 8, "pallas", "cuda",
+                                   record=record)
+    if "chain" not in gang["sources"]:
+        raise AssertionError("resident: the gang drain never chained")
+    if len(record) != gang["launches"]:
+        raise AssertionError("resident: %d launches recorded of %d"
+                             % (len(record), gang["launches"]))
+    # every launch of the gang drain, chained cycles included, against
+    # the plain version
+    out["recorded"] = check_recorded(record, "resident gang")
+    del record
+    out["gang_5000"] = gang
+    out["launches"] = gang["launches"]
+    _, _, seq, _ = resident_drain(5000, 100, 7, None, "cuda")
+    out["sequential_5000"] = seq
+    out["launches"] += seq["launches"]
+    for backend in ("pallas", None):
+        runs = {dev: resident_drain(1000, 100, 8, backend, dev, digest=True)
+                for dev in ("cuda", "cpu")}
+        (cp, cd, crep, crec), (pp, pd, prep, prec) = (runs["cuda"],
+                                                      runs["cpu"])
+        what = "resident 1000 %s" % (backend or "sequential")
+        if (cp, cd) != (pp, pd):
+            raise AssertionError("%s: card and CPU differ (placements %s, "
+                                 "evictions %s)" % (what, cp == pp,
+                                                    cd == pd))
+        if crep["sources"] != prep["sources"]:
+            raise AssertionError("%s: refresh outcomes differ: %s vs %s"
+                                 % (what, crep["sources"], prep["sources"]))
+        for i, (a, b) in enumerate(zip(crec, prec)):
+            if a != b:
+                raise AssertionError(
+                    "%s: refresh %d differs card vs CPU (reason %s, rows "
+                    "%s, uid list %s, residents %s)" % (
+                        what, i, a[0] == b[0], a[1] == b[1], a[2] == b[2],
+                        a[3] == b[3]))
+        if len(crec) != len(prec) or not crec:
+            raise AssertionError("%s: %d vs %d refreshes" % (
+                what, len(crec), len(prec)))
+        out["card_vs_cpu_1000_" + (backend or "sequential")] = dict(
+            card=crep, cpu_drain_s=prep["drain_s"], refreshes=len(crec),
+            matches_cpu=True)
     return out
 
 
@@ -1830,7 +2273,8 @@ def volume_drain(store, pods, backend, batch_size, device, record=None,
     mask_ms = mask.ms()
     stats = dict(cycles=sched.cycle_count, drain_s=seconds,
                  stage_s=dict(sched.stage_s), overlay_host_s=overlay_s,
-                 mask_device_ms=mask_ms)
+                 mask_device_ms=mask_ms,
+                 resident=resident_report(sched, seconds))
     if backend is not None:
         stats.update(rounds=sched.gang_rounds,
                      routes=sorted(set(sched.gang_backends)))
@@ -2198,6 +2642,58 @@ def _profiled_rounds_window(store, pods, first=40, n=16):
                 placed=sum(1 for v in placed.values() if v))
 
 
+def _profiled_audit(n_nodes=FILL_NODES, n_pods=1000):
+    """One decision audit under torch.profiler: the first cycle of the
+    packed fill with ``n_pods`` preemptors (gang, pallas, one batch; every
+    row fails, so the cycle runs the wave and then the audit), with the
+    profiler on over its explain_verdicts call alone.  Reports the call's
+    host dispatch time (until it returns), its stream time (CUDA events
+    around it), the wall time until the device is done, the kernels' busy
+    time and idle share of the stream time, the host's launch calls and
+    the device kernels, and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from kubetpu_torch.models import programs as PR
+    store = packed_fill_store(n_nodes)
+    orig = PR.explain_verdicts
+    got = {}
+
+    def explain(cluster, *args, **kw):
+        if got:
+            return orig(cluster, *args, **kw)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            out = orig(cluster, *args, **kw)
+            b.record()
+            got["host_ms"] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            got["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        got["stream_ms"] = a.elapsed_time(b)
+        got["prof"] = prof
+        return out
+    PR.explain_verdicts = explain
+    try:
+        _preempt_drain(store, preemptor_pods(n_pods), "pallas", "cuda",
+                       n_pods, max_cycles=1)
+    finally:
+        PR.explain_verdicts = orig
+    if "prof" not in got:
+        raise AssertionError("profile audit: the cycle ran no audit")
+    prof = got.pop("prof")
+    rows = _device_rows(prof)
+    busy_ms = sum(_dev_us(e) for e in rows) / 1e3
+    return dict(got, device_busy_ms=busy_ms,
+                idle_share_of_stream=1.0 - busy_ms / got["stream_ms"],
+                launches=sum(1 for e in prof.events()
+                             if "LaunchKernel" in e.name),
+                device_kernels=sum(e.count for e in rows), top=_top(rows))
+
+
 def phase_profile() -> dict:
     return dict(
         slice=_profiled_drain(hollow_store(5000, 1),
@@ -2207,7 +2703,8 @@ def phase_profile() -> dict:
         fill=_profiled_drain(*fill_world(), "pallas", 1000),
         seq_slice=_profiled_scan_window(hollow_store(5000, 1),
                                         pending_pods(1000, "measured")),
-        gang_spread=_profiled_rounds_window(*spread_world()))
+        gang_spread=_profiled_rounds_window(*spread_world()),
+        audit=_profiled_audit())
 
 
 def main() -> int:
@@ -2254,6 +2751,7 @@ def main() -> int:
             recorded.append(results["preempt"]["recorded"])
         vol_backlog = results["volumes"]["vol_backlog"]["recorded"]
         recorded.append(vol_backlog)
+        recorded.append(results["resident"]["recorded"])
         log({"kernels": [{
             "name": "propose", "route": "cuda",
             "source": "kubetpu_torch/ops/csrc/propose.cu",
@@ -2270,7 +2768,9 @@ def main() -> int:
             "bound_ms_generic": k["bound_ms_generic"],
             "fill_real_launch": recorded[1]["real_launch"],
             "autoscaler_real_launch": recorded[2]["real_launch"],
-            "vol_backlog_real_launch": vol_backlog["real_launch"]}]})
+            "vol_backlog_real_launch": vol_backlog["real_launch"],
+            "resident_real_launch":
+                results["resident"]["recorded"]["real_launch"]}]})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,9 @@ reference: pkg/scheduler/apis/config/types.go — KubeSchedulerConfiguration
 :55, KubeSchedulerProfile :115, Plugins :176, PluginSet :217, Plugin :230,
 DefaultPercentageOfNodesToScore :251; the counterpart of
 kubetpu/apis/config.py.  YAML decoding, defaulting and validation live in
-apis/load.py.  The JAX package's serving-runtime knobs (chaining,
-deadlines, bind retries, prewarm, meshes) have no counterpart here: the
-port tensorizes fresh every cycle, which gives the same placements.
+apis/load.py.  Of the JAX package's serving-runtime knobs only cycle
+chaining is ported; deadlines, bind retries, prewarm and meshes have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -112,3 +112,8 @@ class KubeSchedulerConfiguration:
     # (ops/propose.py; the name matches the JAX package's option) for the
     # batches it serves (utils/pallas_backend.py); others run "lax"
     kernel_backend: str = "lax"
+    # gang mode: the auction's placements, materialized on the device
+    # (models/gang.materialize_assigned), are the next cycle's cluster
+    # instead of a refresh; any store event the chain does not account for
+    # breaks it (scheduler.py).  The JAX package's default, as here
+    chain_cycles: bool = True

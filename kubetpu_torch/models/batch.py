@@ -114,6 +114,24 @@ def _leaf_to_device(x, device):
     return None if x is None else copy_to(x, device)
 
 
+def take_rows(batch: PodBatch, rows) -> PodBatch:
+    """The sub-batch of pod rows ``rows`` (an int64 tensor on the batch's
+    device), in that order.  Every leaf is [B, ...] but the selector
+    sets, whose flat [B*T] slot index is gathered pod-major (their unique
+    selectors stay shared)."""
+    B = batch.batch_cap
+
+    def take(x):
+        if x is None:
+            return None
+        if isinstance(x, SelectorSet):
+            return x._replace(index=x.index.view(B, -1)[rows].reshape(-1))
+        if isinstance(x, (PodTerms, SpreadConstraints)):
+            return type(x)(*[take(f) for f in x])
+        return x[rows]
+    return PodBatch(*[take(f) for f in batch])
+
+
 def batch_to_device(batch: PodBatch, device) -> PodBatch:
     """Copy every leaf of a host PodBatch to ``device`` (always a copy)."""
     return PodBatch(*[_leaf_to_device(f, device) for f in batch])

@@ -57,7 +57,8 @@ import torch
 
 from ..ops import kernels as K
 from ..ops import propose as PK
-from ..ops.selectors import concat_selector_sets, match_selectors_unique
+from ..ops.selectors import (concat_selector_sets, match_selectors_unique,
+                             pad_selector_slots)
 from ..state.tensors import ExistingTerms
 from ..utils import pallas_backend as PB
 from ..utils import prng
@@ -270,6 +271,83 @@ def _rules_for(terms, mu, uidx, k, pair_ok, order, is_start, admit_cap,
         pref_b = _unsort(_seg_prefix(e_b[order], is_start), order)
         defer = defer | (((pref_b > 0) & mu_t).any(dim=1) & pair_ok)
     return defer
+
+
+def materialize_assigned(cluster, batch, chosen, requested, nz, ports_used,
+                         pad_pods_to: int = 0, pad_terms_to: int = 0,
+                         extend_score_terms: bool = False,
+                         hard_pod_affinity_weight: float = 1.0):
+    """Fold an auction's placements into the cluster (kubetpu.models.gang.
+    materialize_assigned): the assigned batch pods join the existing-pod
+    axis at their nodes, with their required anti-affinity terms in
+    filter_terms; their committed usage replaces requested/nonzero; their
+    registered hostPorts join cluster.ports.  Cycle chaining serves the
+    result as the next cycle's cluster.  extend_score_terms adds their
+    preferred terms (signed weights) and required-affinity terms
+    (hard_pod_affinity_weight) to score_terms, as a fresh build would;
+    pad_pods_to / pad_terms_to pad the grown pod axis and filter-term
+    axis to the given (pow2) sizes with build-default rows."""
+    batch = densify_for(cluster, batch)
+    ext = _extend_cluster(cluster, batch)
+    assigned = (chosen >= 0) & batch.valid
+    ext = ext._replace(
+        pod_node=torch.cat([cluster.pod_node, chosen.to(torch.int32)]),
+        pod_valid=torch.cat([cluster.pod_valid, assigned]),
+        requested=requested,
+        nonzero_requested=nz,
+        ports=cluster.ports | (ports_used > 0.5))
+    dev = cluster.pod_valid.device
+    if extend_score_terms:
+        P0 = cluster.pod_valid.shape[0]
+        TK = cluster.topo_pair.shape[1]
+        st = cluster.score_terms
+
+        def term_rows(t, w):
+            bb, tt = t.valid.shape
+            return (t.sel, t.ns_hot.reshape(bb * tt, -1),
+                    t.topo_key.reshape(-1),
+                    P0 + torch.arange(bb, dtype=torch.int32,
+                                      device=dev).repeat_interleave(tt),
+                    w.reshape(-1),
+                    (t.valid & t.topo_known & (t.topo_key < TK)).reshape(-1))
+
+        pr = term_rows(batch.pref, batch.pref.weight * _f(batch.pref.valid))
+        ra = term_rows(batch.ra,
+                       torch.full_like(batch.ra.weight,
+                                       hard_pod_affinity_weight)
+                       * _f(batch.ra.valid))
+        ext = ext._replace(score_terms=ExistingTerms(
+            sel=concat_selector_sets(concat_selector_sets(st.sel, pr[0]),
+                                     ra[0]),
+            ns_hot=torch.cat([st.ns_hot, pr[1], ra[1]]),
+            topo_key=torch.cat([st.topo_key, pr[2], ra[2]]),
+            pod_idx=torch.cat([st.pod_idx, pr[3], ra[3]]),
+            weight=torch.cat([st.weight, pr[4], ra[4]]),
+            valid=torch.cat([st.valid, pr[5], ra[5]])))
+
+    def pad(x, n, fill=0):
+        return torch.cat([x, torch.full((n,) + tuple(x.shape[1:]), fill,
+                                        dtype=x.dtype, device=x.device)])
+
+    P = ext.pod_valid.shape[0]
+    if pad_pods_to > P:
+        n = pad_pods_to - P
+        ext = ext._replace(
+            pod_kv=pad(ext.pod_kv, n), pod_key=pad(ext.pod_key, n),
+            pod_ns_hot=pad(ext.pod_ns_hot, n),
+            pod_node=pad(ext.pod_node, n, -1),
+            pod_valid=pad(ext.pod_valid, n),
+            pod_terminating=pad(ext.pod_terminating, n))
+    ft = ext.filter_terms
+    E = ft.valid.shape[0]
+    if pad_terms_to > E:
+        n = pad_terms_to - E
+        ext = ext._replace(filter_terms=ft._replace(
+            sel=pad_selector_slots(ft.sel, pad_terms_to),
+            ns_hot=pad(ft.ns_hot, n), topo_key=pad(ft.topo_key, n),
+            pod_idx=pad(ft.pod_idx, n), weight=pad(ft.weight, n),
+            valid=pad(ft.valid, n)))
+    return ext
 
 
 def run_auction(cluster, batch, cfg: ProgramConfig, rng,

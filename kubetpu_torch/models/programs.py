@@ -142,6 +142,92 @@ def run_filters(cluster, batch, cfg: ProgramConfig, host_ok=None,
     return feasible, unresolvable, affinity_ok
 
 
+def explain_filters(cluster, batch, cfg: ProgramConfig, host_ok=None):
+    """Per-filter unschedulability attribution (the tensor analog of the
+    reference's per-node FailedPredicates map, core/generic_scheduler.go:
+    565).  For every pod with no feasible node, a filter is *blocking*
+    when every node that passes all OTHER filters fails it.  Returns
+    (no_feasible [B] bool, blocking [F, B] bool), F = len(cfg.filters)."""
+    no_feasible, masks, base, _, _, _ = _explain_masks(cluster, batch, cfg,
+                                                       host_ok)
+    return no_feasible, torch.stack(_blocking(masks, base, no_feasible))
+
+
+def _explain_masks(cluster, batch, cfg: ProgramConfig, host_ok):
+    """The audit's shared front half: (no_feasible, the per-filter masks
+    ANDed with the base, base, all_ok, affinity_ok, the densified
+    batch)."""
+    from .batch import densify_for
+    batch = densify_for(cluster, batch)
+    base = cluster.node_valid[None, :] & batch.valid[:, None]
+    if host_ok is not None:
+        base = base & host_ok
+    affinity_ok = K.node_affinity_filter(cluster, batch)
+    masks = [_filter_mask(name, cluster, batch, cfg, affinity_ok)[0] & base
+             for name in cfg.filters]
+    all_ok = base
+    for m in masks:
+        all_ok = all_ok & m
+    no_feasible = ~all_ok.any(dim=1) & batch.valid
+    return no_feasible, masks, base, all_ok, affinity_ok, batch
+
+
+def _blocking(masks, base, no_feasible):
+    """Per filter: every node passing all the other filters fails it."""
+    out = []
+    for i in range(len(masks)):
+        others = base
+        for j, m in enumerate(masks):
+            if j != i:
+                others = others & m
+        blocked = others.any(dim=1) & ~(others & masks[i]).any(dim=1)
+        out.append(blocked & no_feasible)
+    return out
+
+
+# best_score ships in integer milli-units so the whole audit packs into
+# one i32 array; default-profile totals reach ~1e6 per node
+# (NodePreferAvoidPods 10000 x 100), so micro-units would overflow i32,
+# and the clip before the cast is a second fence
+SCORE_SCALE = 1_000
+_SCORE_I32_MAX = float(2 ** 31 - 128)
+
+
+def explain_verdicts(cluster, batch, cfg: ProgramConfig, host_ok=None):
+    """The per-pod decision audit program (the DecisionLog feed): why each
+    pod was (un)schedulable this cycle, in ONE packed [2F + 3, B] i32
+    tensor (F = len(cfg.filters)):
+
+      rows 0..F-1      per-filter failed-node counts over valid nodes
+                       passing host_ok
+      rows F..2F-1     0/1 blocking flags (explain_filters)
+      row 2F           0/1 no-feasible-node flag
+      row 2F + 1       best feasible node row (-1 when none): the first
+                       argmax of the weighted score over the feasible mask
+      row 2F + 2       best feasible score in milli-units (SCORE_SCALE,
+                       rounded half to even, clipped to the i32 range)
+
+    Evaluated against the cycle-start cluster, so a gang pod that lost
+    only to intra-batch contention reports its round-0 feasible count
+    and best score."""
+    no_feasible, masks, base, all_ok, affinity_ok, batch = _explain_masks(
+        cluster, batch, cfg, host_ok)
+    i32 = torch.int32
+    fail_counts = [(base & ~m).sum(dim=1, dtype=i32) for m in masks]
+    blocking = [b.to(i32) for b in _blocking(masks, base, no_feasible)]
+    scores, _ = run_scores(cluster, batch, cfg, all_ok, affinity_ok)
+    masked = torch.where(all_ok, scores, torch.full_like(scores, -2.0 ** 30))
+    any_ok = all_ok.any(dim=1)
+    best_node = torch.where(any_ok, torch.argmax(masked, dim=1),
+                            torch.full_like(any_ok, -1, dtype=torch.int64))
+    best_score = torch.where(any_ok, masked.max(dim=1).values,
+                             torch.zeros_like(masked[:, 0]))
+    milli = torch.round(best_score * SCORE_SCALE).clamp(-_SCORE_I32_MAX,
+                                                        _SCORE_I32_MAX)
+    return torch.stack(fail_counts + blocking + [
+        no_feasible.to(i32), best_node.to(i32), milli.to(i32)])
+
+
 STATIC_RAW_SCORES = {
     # score plugins whose RAW scores do not depend on the auction carry:
     # gang mode computes them once and re-normalizes per round
@@ -426,3 +512,72 @@ def nominated_topology_mask(cluster, nom_batch, nom_rows, nom_prio, batch,
     affected = (placed[None, :]
                 & (nom_prio[None, :] >= batch.priority[:, None])).any(dim=1)
     return torch.where(affected[:, None], ok, torch.ones_like(ok))
+
+
+# ---------------------------------------------------------------------------
+# the delta path's scatter (kubetpu/models/programs.py:446-514)
+
+# ClusterDelta's node-row and pod-row tables, by the ClusterTensors field
+# each one updates (the label id lists densify first)
+_NODE_DELTA = (("allocatable", "allocatable"), ("requested", "requested"),
+               ("nonzero_requested", "nonzero_requested"),
+               ("node_valid", "node_valid"),
+               ("unschedulable", "unschedulable"), ("kv", "kv_ids"),
+               ("keymask", "keymask"), ("num", "num"),
+               ("topo_pair", "topo_pair"), ("taints", "taints"),
+               ("ports", "ports"), ("images", "images"),
+               ("avoid_hot", "avoid_hot"), ("zone_hot", "zone_hot"))
+_POD_DELTA = (("pod_kv", "pod_kv_ids"), ("pod_key", "pod_key"),
+              ("pod_ns_hot", "pod_ns_hot"), ("pod_node", "pod_node"),
+              ("pod_valid", "pod_valid"),
+              ("pod_terminating", "pod_terminating"))
+_WHOLE_DELTA = ("image_size", "image_spread", "taint_is_hard",
+                "taint_is_prefer")
+
+
+def apply_cluster_delta(cluster, delta, donate: bool = True):
+    """Scatter one cycle's ClusterDelta (state/tensors.py gather_delta)
+    into the resident ClusterTensors.  donate=True updates the resident
+    tensors in place (``index_copy_`` per field; the caller's previous
+    ClusterTensors then shares their storage); donate=False clones each
+    updated tensor first, leaving the input untouched.  The tables' pad
+    rows (index N or P, which XLA's mode="drop" discards) are cut off on
+    the host, so no out-of-range index reaches the device; every table
+    travels in one packed host->device copy.  The label id lists densify
+    as HostClusterArrays.to_device densifies them, so a delta-applied
+    cluster equals a rebuild byte for byte.  The four [I]/[T] vocab
+    vectors are replaced wholesale."""
+    from ..state.tensors import _densify_ids
+    from ..utils.device import upload_packed
+    N = cluster.allocatable.shape[0]
+    P = cluster.pod_valid.shape[0]
+    nd = int(np.count_nonzero(delta.node_rows < N))
+    pd = int(np.count_nonzero(delta.pod_rows < P))
+    host = ([delta.node_rows[:nd].astype(np.int64)]
+            + [getattr(delta, f)[:nd] for _, f in _NODE_DELTA]
+            + [delta.pod_rows[:pd].astype(np.int64)]
+            + [getattr(delta, f)[:pd] for _, f in _POD_DELTA]
+            + [getattr(delta, f) for f in _WHOLE_DELTA])
+    dev = upload_packed(host, cluster.allocatable.device)
+    n_node = len(_NODE_DELTA)
+    nr, node_vals = dev[0], dev[1:1 + n_node]
+    pr = dev[1 + n_node]
+    pod_vals = dev[2 + n_node:2 + n_node + len(_POD_DELTA)]
+    whole = dev[2 + n_node + len(_POD_DELTA):]
+    L = cluster.kv.shape[1]
+
+    def scat(x, rows, vals):
+        x = x if donate else x.clone()
+        return x.index_copy_(0, rows, vals)
+
+    upd = {}
+    for (field, _), vals in zip(_NODE_DELTA, node_vals):
+        if field == "kv":
+            vals = _densify_ids(vals, L)
+        upd[field] = scat(getattr(cluster, field), nr, vals)
+    for (field, _), vals in zip(_POD_DELTA, pod_vals):
+        if field == "pod_kv":
+            vals = _densify_ids(vals, L)
+        upd[field] = scat(getattr(cluster, field), pr, vals)
+    upd.update(zip(_WHOLE_DELTA, whole))
+    return cluster._replace(**upd)

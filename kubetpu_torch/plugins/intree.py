@@ -145,10 +145,10 @@ class RequestedToCapacityRatio(TensorPlugin, fw.ScorePlugin):
 
     def kernel_args(self, table) -> tuple:
         """(shape, ((kind, channel, weight), ...)).  A resource the
-        cluster does not know resolves to channel -1, the kernel's
-        zero-capacity branch (upstream: capacity 0).  The JAX package
-        resolves it to the first extended channel instead (ROADMAP queue
-        3, a reference fault)."""
+        cluster does not know resolves as the JAX package resolves it, to
+        the first extended channel (N_FIXED_CHANNELS + max(-1, 0)); the
+        upstream plugin scores it as capacity 0 (ROADMAP queue 3: a
+        deviation of the JAX package the port inherits)."""
         from ..state.tensors import N_FIXED_CHANNELS
         resolved = []
         for name, weight in self.resources:
@@ -158,8 +158,7 @@ class RequestedToCapacityRatio(TensorPlugin, fw.ScorePlugin):
                 resolved.append((1, 0, weight))
             else:
                 ch = table.rname.get(name)
-                resolved.append((2, N_FIXED_CHANNELS + ch if ch >= 0
-                                 else -1, weight))
+                resolved.append((2, N_FIXED_CHANNELS + max(ch, 0), weight))
         return (self.shape, tuple(resolved))
 
 

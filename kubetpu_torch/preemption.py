@@ -605,11 +605,12 @@ class Preemptor:
             hostname_topokey=max(
                 builder.table.topokey.get(api.LABEL_HOSTNAME), 0),
             plugin_args=fwk.tensor_plugin_args(builder.table))
-        cycle = CycleContext(builder=builder,
-                             cluster=host.to_device(sched.device), cfg=cfg,
-                             node_infos=node_infos)
-        cycle.pod_rows = host.arrays["_pod_rows"]
-        return cycle
+        # pod_rows stays None: a fresh build's rows are the node-walk
+        # order CycleContext.pod_row_map derives, as the JAX package's
+        # fallback leaves them
+        return CycleContext(builder=builder,
+                            cluster=host.to_device(sched.device), cfg=cfg,
+                            node_infos=node_infos)
 
     def _pods_batch(self, pods: Sequence[api.Pod], cycle: CycleContext):
         """The pods' PodBatch on the cycle's device."""

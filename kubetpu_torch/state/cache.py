@@ -257,6 +257,14 @@ class SchedulerCache:
                 self._move_to_head(item)
             self.node_tree.remove_node(node)
 
+    def node_count(self) -> int:
+        with self._lock:
+            return len(self.nodes)
+
+    def pod_count(self) -> int:
+        with self._lock:
+            return sum(len(i.info.pods) for i in self.nodes.values())
+
     # -- snapshot -----------------------------------------------------------
 
     def update_snapshot(self, snapshot: Snapshot) -> None:

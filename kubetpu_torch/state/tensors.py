@@ -345,8 +345,8 @@ class SnapshotBuilder:
 
         d["filter_terms"] = self._build_terms(filter_owners, kind="filter")
         d["score_terms"] = self._build_terms(score_owners, kind="score")
-        # row assignments + per-image node counts (kept for parity with the
-        # JAX package's builder, whose delta path starts from them)
+        # row assignments + per-image node counts: the delta path
+        # (state/delta.py) starts from them
         d["_pod_rows"] = pod_rows
         d["_image_nodes"] = image_nodes
         return HostClusterArrays(arrays=d)
@@ -397,10 +397,10 @@ class SnapshotBuilder:
 
 
 # --------------------------------------------------------------------------
-# Per-row fills used by SnapshotBuilder.build (copied from the JAX package,
-# where its incremental delta path shares them).  Filling a row through
-# these helpers produces byte-identical arrays to a fresh build of the same
-# NodeInfo against the same InternTable.
+# Per-row fills, shared by SnapshotBuilder.build (the from-scratch walk) and
+# state/delta.py DeltaTensorizer (the incremental path).  Filling a row
+# through these helpers produces byte-identical arrays to a fresh build of
+# the same NodeInfo against the same InternTable.
 
 
 def fill_node_row(d: dict, n_idx: int, ni: NodeInfo, t: InternTable) -> None:
@@ -480,6 +480,117 @@ def clear_pod_row(d: dict, row: int) -> None:
     d["pod_ns_hot"][row] = 0.0
     d["_pod_kv_ids"][row] = -1
     d["pod_key"][row] = False
+
+
+def vocab_signature(table: InternTable) -> tuple:
+    """Every width the cluster tensors are sized with: each vocab's pow2
+    cap (zone included) plus the topokey LENGTH — ``topo_pair`` columns
+    are filled from the key LIST at build time, so topokey growth inside
+    the cap still invalidates built tensors.  The one signature both
+    resident-state guards compare (the scheduler's gang chain and the
+    DeltaTensorizer)."""
+    caps = tuple((n, getattr(table, n).cap) for n in
+                 ("kv", "key", "ns", "topokey", "rname", "port", "taint",
+                  "image", "avoid", "zone"))
+    return caps + (("topokey_len", len(table.topokey)),)
+
+
+def pod_has_terms(pi: PodInfo, hard_pod_affinity_weight: int = 1) -> bool:
+    """True when this existing pod contributes rows to filter_terms or
+    score_terms (the delta path then rebuilds the term tensors)."""
+    return bool(pi.required_anti_affinity_terms
+                or pi.preferred_affinity_terms
+                or pi.preferred_anti_affinity_terms
+                or (hard_pod_affinity_weight and pi.required_affinity_terms))
+
+
+class ClusterDelta(NamedTuple):
+    """Compact [D]-indexed update tables for one cycle's dirty rows,
+    applied on the device by models/programs.py apply_cluster_delta.  Row
+    vectors are padded to a pow2 bucket with ONE-PAST-CAPACITY indices (N
+    for node rows, P for pod rows), as the JAX package pads them; the
+    scatter writes the pads into a spare row that is dropped, so the
+    device never sees an out-of-range index.  Label one-hots ride as
+    compact id lists ([D, ML] i32) and densify on the device.  The [I]
+    image vectors and the [T] taint-effect vectors are cluster-global and
+    tiny, so every delta replaces them wholesale."""
+    node_rows: np.ndarray          # [Dn] i32 (pad = N)
+    allocatable: np.ndarray        # [Dn, R] f32
+    requested: np.ndarray          # [Dn, R] f32
+    nonzero_requested: np.ndarray  # [Dn, 2] f32
+    node_valid: np.ndarray         # [Dn] bool
+    unschedulable: np.ndarray      # [Dn] bool
+    kv_ids: np.ndarray             # [Dn, MLn] i32 (densified on device)
+    keymask: np.ndarray            # [Dn, K] bool
+    num: np.ndarray                # [Dn, K] f32
+    topo_pair: np.ndarray          # [Dn, TK] i32
+    taints: np.ndarray             # [Dn, T] bool
+    ports: np.ndarray              # [Dn, P] bool
+    images: np.ndarray             # [Dn, I] bool
+    avoid_hot: np.ndarray          # [Dn, AV] bool
+    zone_hot: np.ndarray           # [Dn, Z] f32
+    image_size: np.ndarray         # [I] f32 (full replace)
+    image_spread: np.ndarray       # [I] f32 (full replace)
+    taint_is_hard: np.ndarray      # [T] bool (full replace: a dirty node
+                                   # can intern a new taint inside the cap)
+    taint_is_prefer: np.ndarray    # [T] bool (full replace)
+    pod_rows: np.ndarray           # [Dp] i32 (pad = P)
+    pod_kv_ids: np.ndarray         # [Dp, MLp] i32 (densified on device)
+    pod_key: np.ndarray            # [Dp, K] bool
+    pod_ns_hot: np.ndarray         # [Dp, NS] f32
+    pod_node: np.ndarray           # [Dp] i32
+    pod_valid: np.ndarray          # [Dp] bool
+    pod_terminating: np.ndarray    # [Dp] bool
+
+
+def gather_delta(host: HostClusterArrays, node_rows: List[int],
+                 pod_rows: List[int]) -> ClusterDelta:
+    """Slice the dirty rows out of the host mirror into pow2-bucketed
+    update tables (the host half of the delta path)."""
+    a = host.arrays
+    N = a["allocatable"].shape[0]
+    PP = a["pod_node"].shape[0]
+    Dn = pow2_bucket(len(node_rows), 8)
+    Dp = pow2_bucket(len(pod_rows), 8)
+    nr = np.full((Dn,), N, np.int32)
+    nr[:len(node_rows)] = node_rows
+    pr = np.full((Dp,), PP, np.int32)
+    pr[:len(pod_rows)] = pod_rows
+
+    def g(field: str, rows: List[int], cap: int) -> np.ndarray:
+        arr = a[field]
+        out = np.zeros((cap,) + arr.shape[1:], arr.dtype)
+        if rows:
+            out[:len(rows)] = arr[rows]
+        return out
+
+    return ClusterDelta(
+        node_rows=nr,
+        allocatable=g("allocatable", node_rows, Dn),
+        requested=g("requested", node_rows, Dn),
+        nonzero_requested=g("nonzero_requested", node_rows, Dn),
+        node_valid=g("node_valid", node_rows, Dn),
+        unschedulable=g("unschedulable", node_rows, Dn),
+        kv_ids=g("_kv_ids", node_rows, Dn),
+        keymask=g("keymask", node_rows, Dn),
+        num=g("num", node_rows, Dn),
+        topo_pair=g("topo_pair", node_rows, Dn),
+        taints=g("taints", node_rows, Dn),
+        ports=g("ports", node_rows, Dn),
+        images=g("images", node_rows, Dn),
+        avoid_hot=g("avoid_hot", node_rows, Dn),
+        zone_hot=g("zone_hot", node_rows, Dn),
+        image_size=a["image_size"].copy(),
+        image_spread=np.asarray(a["image_spread"], np.float32).copy(),
+        taint_is_hard=a["taint_is_hard"].copy(),
+        taint_is_prefer=a["taint_is_prefer"].copy(),
+        pod_rows=pr,
+        pod_kv_ids=g("_pod_kv_ids", pod_rows, Dp),
+        pod_key=g("pod_key", pod_rows, Dp),
+        pod_ns_hot=g("pod_ns_hot", pod_rows, Dp),
+        pod_node=g("pod_node", pod_rows, Dp),
+        pod_valid=g("pod_valid", pod_rows, Dp),
+        pod_terminating=g("pod_terminating", pod_rows, Dp))
 
 
 def _norm_image(name: str) -> str:

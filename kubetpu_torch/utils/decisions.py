@@ -1,0 +1,188 @@
+"""Per-pod "why (un)scheduled" decision audit (a copy of
+kubetpu/utils/decisions.py; the port imports nothing of the JAX package).
+
+The reference surfaces scheduling failures as one aggregated event string
+("0/100 nodes are available: 88 Insufficient cpu, ..." — framework/
+v1alpha1/interface.go FitError).  The batched device path already
+computes per-(pod, node) verdict masks; the scheduler folds them
+(models/programs.py explain_verdicts), together with the host filters'
+rejections, into this bounded log, which answers "which plugin, on how
+many nodes, rejected pod X" — and "which node would it have landed on" —
+after the cycle's tensors are gone.
+
+Bounded-memory contract: at most ``KUBETPU_DECISIONS`` entries (default
+1024) keyed by namespace/name; recording an already-known pod replaces
+its entry in place (a pod's LAST attempt is the interesting one), older
+pods evict FIFO and count in ``evicted``.  The audit is on by default and
+disabled with ``KUBETPU_AUDIT=0`` — disabled, the scheduler never calls
+into this module, so the hot path takes no DecisionLog lock.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+AUDIT_ENV = "KUBETPU_AUDIT"
+CAPACITY_ENV = "KUBETPU_DECISIONS"
+DEFAULT_CAPACITY = 1024
+
+
+def audit_enabled() -> bool:
+    return os.environ.get(AUDIT_ENV, "1") not in ("", "0", "false", "False")
+
+
+class PodDecision:
+    """One pod's most recent scheduling decision."""
+
+    __slots__ = ("name", "namespace", "uid", "outcome", "node",
+                 "nominated_node", "message", "n_feasible", "best_node",
+                 "best_score", "rejections", "blocking", "host_reasons",
+                 "extenders", "cycle", "ts")
+
+    def __init__(self, name: str, namespace: str, uid: str, outcome: str,
+                 node: str = "", nominated_node: str = "",
+                 message: str = "", n_feasible: int = 0,
+                 best_node: str = "", best_score: Optional[float] = None,
+                 rejections: Optional[Dict[str, int]] = None,
+                 blocking: Optional[List[str]] = None,
+                 host_reasons: Optional[Dict[str, int]] = None,
+                 extenders: Optional[Dict[str, Any]] = None,
+                 cycle: int = 0):
+        self.name = name
+        self.namespace = namespace
+        self.uid = uid
+        self.outcome = outcome          # "scheduled" | "unschedulable"
+        self.node = node
+        self.nominated_node = nominated_node
+        self.message = message
+        self.n_feasible = n_feasible
+        self.best_node = best_node
+        self.best_score = best_score
+        self.rejections = rejections or {}   # plugin -> failed-node count
+        self.blocking = blocking or []       # decisive plugin name(s)
+        self.host_reasons = host_reasons or {}  # host reason -> node count
+        self.extenders = extenders or {}
+        self.cycle = cycle
+        self.ts = time.time()
+
+    def why(self) -> str:
+        """The human one-liner: 'pod X: 412 nodes failed NodeResourcesFit,
+        588 failed InterPodAffinity, best feasible score 0.83 on
+        node-17'."""
+        key = f"{self.namespace}/{self.name}"
+        if self.outcome == "scheduled":
+            out = (f"pod {key}: scheduled on {self.node} "
+                   f"({self.n_feasible} feasible node(s))")
+            return out
+        parts = [f"{n} nodes failed {plugin}"
+                 for plugin, n in sorted(self.rejections.items(),
+                                         key=lambda kv: -kv[1]) if n]
+        parts += [f"{n} nodes rejected by host filter: {reason}"
+                  for reason, n in sorted(self.host_reasons.items(),
+                                          key=lambda kv: -kv[1]) if n]
+        for ename, info in self.extenders.items():
+            parts.append(f"extender {ename}: {info}")
+        out = f"pod {key}: " + (", ".join(parts) if parts
+                                else self.message or "unschedulable")
+        if self.blocking:
+            out += f" (blocking: {', '.join(self.blocking)})"
+        if self.best_node and self.best_score is not None:
+            out += (f", best feasible score {self.best_score:.2f} "
+                    f"on {self.best_node}")
+        if self.nominated_node:
+            out += f"; preemption nominated {self.nominated_node}"
+        return out
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = {"pod": self.name, "namespace": self.namespace, "uid": self.uid,
+             "outcome": self.outcome, "cycle": self.cycle,
+             "ts": round(self.ts, 3), "why": self.why()}
+        if self.node:
+            d["node"] = self.node
+        if self.nominated_node:
+            d["nominated_node"] = self.nominated_node
+        if self.message:
+            d["message"] = self.message
+        d["n_feasible"] = self.n_feasible
+        if self.best_node:
+            d["best_node"] = self.best_node
+            d["best_score"] = (round(self.best_score, 4)
+                               if self.best_score is not None else None)
+        if self.rejections:
+            d["rejections"] = dict(self.rejections)
+        if self.blocking:
+            d["blocking"] = list(self.blocking)
+        if self.host_reasons:
+            d["host_reasons"] = dict(self.host_reasons)
+        if self.extenders:
+            d["extenders"] = dict(self.extenders)
+        return d
+
+
+class DecisionLog:
+    """Bounded, lock-guarded map of the most recent decision per pod."""
+
+    def __init__(self, capacity: Optional[int] = None,
+                 enabled: Optional[bool] = None):
+        self.capacity = capacity or int(
+            os.environ.get(CAPACITY_ENV, str(DEFAULT_CAPACITY)))
+        self.enabled = audit_enabled() if enabled is None else enabled
+        self._lock = threading.Lock()
+        self._entries: "collections.OrderedDict[str, PodDecision]" = \
+            collections.OrderedDict()
+        self._evicted = 0
+
+    @staticmethod
+    def _key(name: str, namespace: str) -> str:
+        return f"{namespace}/{name}"
+
+    def record(self, decision: PodDecision) -> None:
+        key = self._key(decision.name, decision.namespace)
+        with self._lock:
+            self._entries.pop(key, None)
+            self._entries[key] = decision
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+                self._evicted += 1
+
+    def get(self, name: str,
+            namespace: Optional[str] = None) -> Optional[PodDecision]:
+        """Lookup by pod name; namespace=None matches any namespace (the
+        /debug/explain?pod= convenience — pod names are usually unique
+        enough for a debugging endpoint)."""
+        with self._lock:
+            if namespace is not None:
+                return self._entries.get(self._key(name, namespace))
+            for d in reversed(self._entries.values()):
+                if d.name == name:
+                    return d
+        return None
+
+    def recent(self, n: int = 50,
+               outcome: Optional[str] = None) -> List[PodDecision]:
+        if n <= 0:
+            return []   # entries[-0:] would be the WHOLE log
+        with self._lock:
+            entries = list(self._entries.values())
+        if outcome:
+            entries = [d for d in entries if d.outcome == outcome]
+        return entries[-n:][::-1]
+
+    def evicted(self) -> int:
+        with self._lock:
+            return self._evicted
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def to_dict(self, n: int = 50,
+                outcome: Optional[str] = None) -> Dict[str, Any]:
+        return {"enabled": self.enabled, "capacity": self.capacity,
+                "size": len(self), "evicted": self.evicted(),
+                "decisions": [d.to_dict()
+                              for d in self.recent(n, outcome=outcome)]}

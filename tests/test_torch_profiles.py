@@ -355,16 +355,16 @@ def test_routing_reasons_match_reference():
 
 
 # ---------------------------------------------------------------------------
-# RequestedToCapacityRatio's unknown resource (the stated divergence)
+# RequestedToCapacityRatio's unknown resource (the JAX package's resolution)
 
 
-def test_rtcr_unknown_resource_diverges_from_reference_alias():
-    """A resource the cluster does not know: the port resolves it to
-    channel -1, the kernel's zero-capacity branch (upstream: capacity 0,
-    score rawScoringFunction(100)); the JAX package's kernel_args resolves
-    it to the first extended channel (N_FIXED_CHANNELS + max(-1, 0)) and
-    so scores the world's one interned extended resource instead.  Filed
-    as a reference fault in ROADMAP queue 3."""
+def test_rtcr_unknown_resource_matches_reference():
+    """A resource the cluster does not know: the port resolves it as the
+    JAX package's kernel_args does, to the first extended channel
+    (N_FIXED_CHANNELS + max(-1, 0)), and so scores the world's one
+    interned extended resource — bitwise the JAX kernel's scores.  (The
+    upstream plugin scores it as capacity 0: a deviation of the JAX
+    package that the port inherits, ROADMAP queue 3.)"""
     jcl, jb, cfg, table = plugin_world(6, 24, 40)
     assert table.rname.get(PW.EXT) == 0 and table.rname.get("x.io/y") < 0
     args = {"shape": [{"utilization": 0, "score": 0},
@@ -372,20 +372,13 @@ def test_rtcr_unknown_resource_diverges_from_reference_alias():
             "resources": [{"name": "x.io/y", "weight": 1}]}
     jargs = jintree.RequestedToCapacityRatio(args).kernel_args(table)
     targs = tintree.RequestedToCapacityRatio(args).kernel_args(table)
-    assert jargs[1] == ((2, 4, 1),) and targs[1] == ((2, -1, 1),)
+    assert targs == jargs and jargs[1] == ((2, 4, 1),)
     tcl, tb, jbd = carry(jcl, jb)
     port = tK.requested_to_capacity_ratio_score(tcl, tb, *targs)
-    alias = tK.requested_to_capacity_ratio_score(tcl, tb, *jargs)
-    # the port's argument is the kernel's own unknown-resource branch,
-    # bitwise the JAX kernel's on the same argument ...
-    assert_same(jK.requested_to_capacity_ratio_score(jcl, jbd, *targs),
-                port.contiguous(), "unknown")
-    # ... which scores capacity 0 everywhere: MaxNodeScore
-    assert bool((port == 100.0).all())
-    # the reference's alias scores the extended resource instead
     assert_same(jK.requested_to_capacity_ratio_score(jcl, jbd, *jargs),
-                alias.contiguous(), "alias")
-    assert not bool((alias == port).all())
+                port.contiguous(), "unknown resource")
+    # the alias scores the extended resource: not capacity 0 everywhere
+    assert not bool((port == 100.0).all())
 
 
 # ---------------------------------------------------------------------------

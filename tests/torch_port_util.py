@@ -8,6 +8,9 @@ identical state.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import multiprocessing
 import random
 from typing import NamedTuple
 
@@ -363,6 +366,18 @@ def cycle_view(sched, store, outcomes, deleted):
         unschedulable=[qp.pod.metadata.name
                        for qp in q.unschedulable_q.values()],
         nominated=[(p.metadata.name, nn) for p, nn in q.all_nominated()])
+
+
+@contextlib.contextmanager
+def jax_process():
+    """A spawned child process for a test module's JAX scheduler drives
+    (submit a module-level function; its result comes back pickled).  The
+    JAX programs those drives compile then live in the child and go with
+    it when the module ends, instead of accumulating in the test worker,
+    and a fault inside XLA ends the child, not the test worker."""
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as ex:
+        yield ex
 
 
 def drive(pkg, scenario, max_cycles=12, **sched_kw):
