@@ -99,9 +99,10 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
   seq_slice  SchedulingBasic5000Nodes under the default configuration: mode
              sequential (the replay, models/sequential.py), adaptive
              sampling (500 of 5,000 nodes per pod), batch 1,000.  Every
-             pod placed, no capacity violated, and the placements and the
-             final start index equal the same drain with device="cpu"
-             (whose time is reported beside the card's);
+             pod placed, no capacity violated; and the first 250 of the
+             1,000 pods drained on the card and with device="cpu" (a cut:
+             the CPU replay costs ~45 s per 1,000 pods): the same
+             placements and final start index (the CPU's time reported);
   seq_anti   SchedulingPodAntiAffinity5000Nodes (scheduler_perf
              config/performance-config.yaml:20-26): 5,000 nodes, 1,000
              init pods bound one per node on every fifth node (a cut: the
@@ -136,7 +137,8 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
   binpack    SchedulingBasic5000Nodes under a bin-packing profile (the
              default set plus RequestedToCapacityRatio with the plugin's
              default arguments and NodeResourceLimits): the sequential
-             replay on the card (every scan under "error") and on the CPU,
+             replay on the card (every scan under "error"), its first 250
+             pods on the card and on the CPU (the same cut as seq_slice):
              same placements and start index; launches and device ms per
              scan step over a profiled window of 128 steps; the same world
              in gang mode under "pallas", routed to the lax round as
@@ -192,10 +194,44 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              the card and on the CPU: the same placements and evictions,
              the same cluster source every cycle, and per refresh the
              same outcome, pod_uid_list and resident bytes (sha256);
-  profile    the slice, backlog and fill (pallas) drains once more under
-             torch.profiler: device busy time, the drain's device idle
-             share, top kernels (separate runs, so the profiler's overhead
-             stays out of the numbers above); and the seq_slice drain with
+  serving    the serving loop (Scheduler's pipelined executor, cycle
+             recovery, Scheduler.run, the HTTP server, the CLI and the
+             REST store).  The fill (Preemption5000Nodes' init phase,
+             5,000 nodes, 20,000 fillers, gang under "pallas", batch
+             1,000, chain on) drained synchronously and pipelined at
+             depths 1, 2 and 4, twice each, with the dispatch deadline
+             armed (10 s): every drain binds the same pod -> node map,
+             launches K1 as often as the synchronous drain, every launch
+             recorded and held against the plain version; the depth-4
+             ring reaches 3 parked cycles; per drain the seconds, stages,
+             host-exempt seconds, the serving thread's wait on the
+             dispatcher thread, cycles and re-runs.  vol_backlog (batch
+             1,024, so a volume batch finds cycles in flight and flushes
+             them first) pipelined at depth 2 equals its synchronous
+             drain.  Every drain runs on a frozen queue clock in passes
+             (serve_passes), and fails on any recovery or demotion.  One
+             injected dispatch fault (the backlog's 1,000-node world,
+             depth 2, the third auction raises on the dispatcher thread):
+             the recovery recorded with its reason and the pallas
+             demotion, the cycle's pods requeued, the younger cycle
+             re-run, every pod bound exactly once, four per node, no
+             capacity violated; then reset_demotion.  Scheduler.run and
+             SchedulerServer on 5,000 hollow nodes with 5,000 pending
+             pods and one that fits nowhere (depth 2, binding on the
+             pool): every pod bound within a bound, /healthz, /metrics
+             and /debug/explain answer, close() within 10 s.  ``python -m
+             kubetpu_torch --once`` on 5,000 hollow nodes and pods with a
+             pipelined configuration binds what the same in-process drain
+             binds.  The REST store in two processes: this one serves
+             1,000 hollow nodes and 2,000 pods through APIServer, ``python
+             -m kubetpu_torch --api-server URL --once`` schedules them,
+             and this process's store sees every binding;
+  profile    the slice and backlog (pallas) drains once more under
+             torch.profiler, and the fill's first 5 of 20 cycles (5,000
+             fillers: a cut, the whole drain's trace costs ~1 min):
+             device busy time, the drain's device idle share, top kernels
+             (separate runs, so the profiler's overhead stays out of the
+             numbers above); and the seq_slice drain with
              the profiler on over a steady window of 128 scan steps: the
              same numbers for the window, the kernel launches per step and
              the gemv kernels' share of the device time; and the
@@ -218,9 +254,10 @@ each auction's flag reads must equal its rounds.
 
 The main path is the pallas drain of each of slice, backlog, fill,
 preempt, gang_anti, gang_spread and autoscaler, each sequential drain,
-binpack's card drains, points' card drains, the card drains of volumes
-and resident's card drains: the kernel launch count is zeroed just before each and read
-just after it, and reported per path.  The slice never launches the kernel (above), nor do the
+binpack's card drains, points' card drains, the card drains of volumes,
+resident's card drains and serving's fill and vol_backlog drains: the
+kernel launch count is zeroed just before each and read just after it,
+and reported per path.  The slice never launches the kernel (above), nor do the
 term-bearing gang drains (routed to the lax round, as the JAX package
 routes them) or the sequential replay (no propose step: the JAX
 package's scan reaches no Pallas kernel), nor does binpack (its scores
@@ -250,10 +287,11 @@ import time
 ALL_PHASES = ("reference", "kernel", "slice", "backlog", "fill",
               "preempt", "seq_slice", "seq_anti", "seq_spread", "gang_anti",
               "gang_spread", "autoscaler", "binpack", "points", "volumes",
-              "resident", "profile")
+              "resident", "serving", "profile")
 MAIN_PATHS = ("slice", "backlog", "fill", "preempt", "seq_slice",
               "seq_anti", "seq_spread", "gang_anti", "gang_spread",
-              "autoscaler", "binpack", "points", "volumes", "resident")
+              "autoscaler", "binpack", "points", "volumes", "resident",
+              "serving")
 FILL_NODES = 5000             # Preemption5000Nodes: 5,000 nodes,
 FILL_PODS = 4 * FILL_NODES    # 20,000 init pods (four 900m pods fill a node)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -1176,22 +1214,40 @@ def phase_gang_spread() -> dict:
     return out
 
 
-def phase_seq_slice() -> dict:
-    """SchedulingBasic5000Nodes under the default configuration, on the
-    card and on the CPU: same placements, same final start index."""
-    sched, placed, out = _seq_drain("seq_slice", hollow_store(5000, 1),
-                                    pending_pods(1000, "measured"), 1000)
-    csched, cplaced, cseconds, _ = drain(hollow_store(5000, 1),
-                                      pending_pods(1000, "measured"), None,
-                                      1000, "cpu")
+# pods of the sequential card-vs-CPU comparisons (seq_slice, binpack): a
+# cut of the 1,000 measured pods, since the CPU replay at 5,000 nodes
+# costs ~45 s per 1,000 pods of the smoke's time limit
+SEQ_CPU_PODS = 250
+
+
+def _seq_card_vs_cpu(what, profile=None) -> dict:
+    """The first SEQ_CPU_PODS of the 1,000 measured pods on 5,000 nodes
+    (one bound pod each) through the replay on the card and on the CPU:
+    the same placements and the same final start index."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        sched, placed, seconds, _ = drain(
+            hollow_store(5000, 1), pending_pods(1000, "measured")
+            [:SEQ_CPU_PODS], None, 1000, device, profile=profile)
+        runs[device] = (sched, placed, seconds)
+    (card, placed, _), (cpu, cplaced, cseconds) = runs["cuda"], runs["cpu"]
     if cplaced != placed:
         diff = [k for k in placed if placed[k] != cplaced.get(k)]
-        raise AssertionError("seq_slice: %d placements differ card vs CPU"
-                             % len(diff))
-    if csched._next_start_node_index != sched._next_start_node_index:
-        raise AssertionError("seq_slice: start index differs card vs CPU")
-    out.update(cpu_drain_s=cseconds, cpu_stage_s=csched.stage_s,
-               matches_cpu=True)
+        raise AssertionError("%s: %d placements differ card vs CPU"
+                             % (what, len(diff)))
+    if cpu._next_start_node_index != card._next_start_node_index:
+        raise AssertionError("%s: start index differs card vs CPU" % what)
+    return dict(cpu_pods=SEQ_CPU_PODS, cpu_drain_s=cseconds,
+                cpu_stage_s=cpu.stage_s, matches_cpu=True)
+
+
+def phase_seq_slice() -> dict:
+    """SchedulingBasic5000Nodes under the default configuration on the
+    card; its first SEQ_CPU_PODS pods on the card and on the CPU: same
+    placements, same final start index."""
+    _, _, out = _seq_drain("seq_slice", hollow_store(5000, 1),
+                           pending_pods(1000, "measured"), 1000)
+    out.update(_seq_card_vs_cpu("seq_slice"))
     return out
 
 
@@ -2004,28 +2060,19 @@ def phase_autoscaler() -> dict:
 
 def phase_binpack() -> dict:
     """SchedulingBasic5000Nodes under the bin-packing profile: the
-    sequential replay on the card (every scan under "error") and on the
-    CPU, the same placements and start index; the replay's launches and
+    sequential replay on the card (every scan under "error"), and its
+    first SEQ_CPU_PODS pods on the card and on the CPU, the same
+    placements and start index; the replay's launches and
     device ms per step over a profiled window; and the same world in gang
     mode under "pallas", routed to the lax round for its
     RequestedToCapacityRatio score."""
-    sched, placed, out = _seq_drain("binpack", hollow_store(5000, 1),
-                                    pending_pods(1000, "measured"), 1000,
-                                    profile=binpack_profile())
-    csched, cplaced, cseconds, _ = drain(
-        hollow_store(5000, 1), pending_pods(1000, "measured"), None, 1000,
-        "cpu", profile=binpack_profile())
-    if cplaced != placed:
-        diff = [k for k in placed if placed[k] != cplaced.get(k)]
-        raise AssertionError("binpack: %d placements differ card vs CPU"
-                             % len(diff))
-    if csched._next_start_node_index != sched._next_start_node_index:
-        raise AssertionError("binpack: start index differs card vs CPU")
-    out.update(cpu_drain_s=cseconds, cpu_stage_s=csched.stage_s,
-               matches_cpu=True,
-               window=_profiled_scan_window(
-                   hollow_store(5000, 1), pending_pods(1000, "measured"),
-                   sched_profile=binpack_profile()))
+    _, _, out = _seq_drain("binpack", hollow_store(5000, 1),
+                           pending_pods(1000, "measured"), 1000,
+                           profile=binpack_profile())
+    out.update(_seq_card_vs_cpu("binpack", profile=binpack_profile()))
+    out.update(window=_profiled_scan_window(
+        hollow_store(5000, 1), pending_pods(1000, "measured"),
+        sched_profile=binpack_profile()))
     _, gang = _gang_drain("binpack gang", hollow_store(5000, 1),
                           pending_pods(1000, "measured"), 1000,
                           profile=binpack_profile())
@@ -2150,6 +2197,476 @@ def phase_points() -> dict:
             out["launches"] += launches
             out[what] = res
     return out
+
+
+# ---------------------------------------------------------------------------
+# serving: the pipelined executor, cycle recovery, Scheduler.run, the CLI
+# and the REST store
+
+SERVE_DEPTHS = (1, 2, 4)
+SERVE_DEADLINE_S = 10.0     # armed on every serving drain: no demotion
+
+
+def serve_sched(store, batch_size, depth, pipelined=True, **cfg_kw):
+    """A gang scheduler under "pallas" with the chain on, the depth-k
+    pipelined executor (pipelined=False: the synchronous drain) and the
+    dispatch deadline armed, on the card, on a frozen queue clock."""
+    from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
+                                           KubeSchedulerProfile)
+    from kubetpu_torch.scheduler import Scheduler
+    cfg_kw.setdefault("dispatch_deadline_seconds", SERVE_DEADLINE_S)
+    cfg = KubeSchedulerConfiguration(
+        profiles=[KubeSchedulerProfile()], batch_size=batch_size,
+        mode="gang", kernel_backend="pallas", chain_cycles=True,
+        pipeline_cycles=pipelined, pipeline_depth=depth, **cfg_kw)
+    sched = Scheduler(store, config=cfg, device="cuda")
+    sched.queue._clock = _QueueClock()
+    return sched
+
+
+def serve_passes(sched, max_passes=8):
+    """Drain in passes on the frozen queue clock: a pass pops until the
+    queue runs dry and flushes the pipeline; then the clock passes every
+    backoff and the unschedulable leftover timeout and the next pass
+    retries what failed.  So the synchronous and the pipelined drains pop
+    the same pods in the same cycles.  Ends after a pass that binds
+    nothing.  Returns the outcomes."""
+    outs = []
+    for _ in range(max_passes):
+        bound = 0
+        while True:
+            got = sched.schedule_pending()
+            outs.extend(got)
+            bound += sum(1 for o in got if o.node)
+            if not got and not len(sched._pipeline.ring):
+                break
+        got = sched.flush_pipeline()
+        outs.extend(got)
+        bound += sum(1 for o in got if o.node)
+        if not bound:
+            break
+        sched.queue._clock.t += 1000.0
+        sched.queue.flush_backoff_completed()
+        sched.queue.flush_unschedulable_leftover()
+    return outs
+
+
+def serve_drain(store, pods, batch_size, depth, pipelined=True, record=None,
+                **cfg_kw):
+    """One drain of ``pods`` through serve_sched and serve_passes, every
+    K1 launch recorded (record).  Reports the drain's seconds, stages,
+    the host seconds exempted from the deadline (summed over cycles), the
+    serving thread's seconds blocked on the dispatcher thread, cycles,
+    rounds, the ring's high-water mark and the re-run cycles.  Fails on
+    any recovery or demotion."""
+    from kubetpu_torch.utils import pallas_backend as PB
+    sched = serve_sched(store, batch_size, depth, pipelined, **cfg_kw)
+    exempt = []
+    commit = sched._commit_group
+
+    def commit_spy(prep, packed):
+        exempt.append(prep.host_exempt_s)
+        return commit(prep, packed)
+    sched._commit_group = commit_spy
+    for p in pods:
+        store.add(p)
+    restore = (_record_launches(record, None) if record is not None
+               else None)
+    try:
+        t0 = time.perf_counter()
+        outs = serve_passes(sched)
+        seconds = time.perf_counter() - t0
+    finally:
+        if restore is not None:
+            restore()
+        sched.close()
+    if sched.recovery_log or PB.demotion() is not None:
+        raise AssertionError("serving drain (depth %d): recovered %s, "
+                             "demotion %r" % (depth,
+                                              list(sched.recovery_log),
+                                              PB.demotion()))
+    if sched.preempt_wave_failures:
+        raise AssertionError("serving drain: %d preemption waves failed"
+                             % sched.preempt_wave_failures)
+    stats = dict(depth=depth if pipelined else "sync", drain_s=seconds,
+                 stage_s=dict(sched.stage_s),
+                 host_exempt_s=sum(exempt),
+                 dispatch_wait_s=sched.dispatch_wait_s,
+                 cycles=sched.cycle_count, rounds=sum(sched.gang_rounds),
+                 routes=sorted({b for b, _ in sched.gang_backends}),
+                 ring_high_water=sched._pipeline.ring.high_water,
+                 reruns=sched._pipeline.reruns,
+                 chain_uses=sched.cluster_sources.count("chain"),
+                 sources=list(sched.cluster_sources))
+    return sched, outs, stats
+
+
+def _serve_depths(what, make_world, batch_size, depths=SERVE_DEPTHS,
+                  reps=2, record=True):
+    """The world drained synchronously and pipelined at every depth of
+    ``depths``, each ``reps`` times: every drain binds the same pod ->
+    node map; with record, every K1 launch of every drain is held to the
+    plain version and each drain launches K1 as often as the
+    synchronous one."""
+    from kubetpu_torch.ops import propose as PK
+    from kubetpu_torch.scheduler import capacity_violations
+    runs, want = [], None
+    for depth, pipelined in [(1, False)] + [(d, True) for d in depths
+                                            for _ in range(reps)]:
+        store, pods = make_world()
+        rec = [] if record else None
+        PK.propose.launches = 0          # this path starts: zero the count
+        _, _, stats = serve_drain(store, pods, batch_size, depth, pipelined,
+                                  rec)
+        stats["launches"] = PK.propose.launches
+        placed = placements_of(store)
+        bad = capacity_violations(store)
+        if bad:
+            raise AssertionError("%s (%s): capacity violated on %d nodes"
+                                 % (what, stats["depth"], len(bad)))
+        if want is None:
+            want, sync = placed, stats
+        elif placed != want:
+            diff = sum(1 for k in want if placed.get(k) != want[k])
+            raise AssertionError("%s: depth %d binds %d pods elsewhere than "
+                                 "the synchronous drain"
+                                 % (what, depth, diff))
+        if record:
+            if stats["launches"] != sync["launches"]:
+                raise AssertionError(
+                    "%s: depth %d launched K1 %d times, the synchronous "
+                    "drain %d" % (what, depth, stats["launches"],
+                                  sync["launches"]))
+            if stats["launches"]:
+                stats["recorded"] = check_recorded(rec, "%s depth %s"
+                                                   % (what, stats["depth"]))
+        stats["bound"] = sum(1 for v in placed.values() if v)
+        stats.pop("sources")
+        runs.append(stats)
+        log({"serving_drain": what, **stats})
+    return runs
+
+
+def _serve_fault(n_nodes=1000, depth=2, fail_at=3, batch_size=512):
+    """A seeded 1,000-node pipelined drain (the backlog's world, batch
+    512) whose ``fail_at``-th dispatch raises on the dispatcher thread:
+    the recovery is recorded with its reason and demotes the process to
+    lax, the cycle's pods are requeued, the younger cycles (dispatched,
+    or prepared against the failed cycle's chain) are re-run; every pod
+    ends bound exactly once (a store that counts binds), four on every
+    node; no capacity violated.  Then reset_demotion."""
+    import kubetpu_torch.scheduler as S
+    from kubetpu_torch.client.store import ClusterStore
+    from kubetpu_torch.scheduler import capacity_violations
+    from kubetpu_torch.utils import pallas_backend as PB
+
+    class CountingStore(ClusterStore):
+        def __init__(self):
+            super().__init__()
+            self.bind_calls = []
+
+        def bind(self, pod, node_name):
+            self.bind_calls.append(pod.metadata.name)
+            super().bind(pod, node_name)
+
+    src_store, pods = backlog_world() if n_nodes == 1000 else (
+        hollow_store(n_nodes, 3, varied=True),
+        pending_pods(4 * n_nodes, "backlog", cpu_milli=900))
+    store = CountingStore()
+    for kind in ("Node", "Pod"):
+        for obj in src_store.list(kind):
+            store.add(obj)
+    orig, calls = S.run_auction, [0]
+
+    def faulty(*args, **kw):
+        calls[0] += 1
+        if calls[0] == fail_at:
+            raise RuntimeError("injected dispatch fault")
+        return orig(*args, **kw)
+    S.run_auction = faulty
+    try:
+        sched = serve_sched(store, batch_size, depth)
+        reprepared = [0]
+        reprepare = sched._pipeline._reprepare
+
+        def counted(prep):
+            reprepared[0] += 1
+            return reprepare(prep)
+        sched._pipeline._reprepare = counted
+        for p in pods:
+            store.add(p)
+        outs = serve_passes(sched)
+    finally:
+        S.run_auction = orig
+        sched.close()
+    try:
+        log_ = list(sched.recovery_log)
+        if (len(log_) != 1 or log_[0]["kind"] != "dispatch-error"
+                or log_[0]["demoted"] != ["pallas->lax"]
+                or "injected dispatch fault" not in log_[0]["reason"]):
+            raise AssertionError("fault: recovery log %s" % log_)
+        if not (PB.demotion() or "").startswith("dispatch-error"):
+            raise AssertionError("fault: demotion %r" % PB.demotion())
+        requeued = [o for o in outs if o.err and "dispatch recovered" in o.err]
+        if len(requeued) != log_[0]["pods"] or not requeued:
+            raise AssertionError("fault: %d pods requeued, the log says %d"
+                                 % (len(requeued), log_[0]["pods"]))
+        if reprepared[0] < 1:
+            raise AssertionError("fault: no younger cycle was re-run")
+        if len(store.bind_calls) != len(set(store.bind_calls)):
+            raise AssertionError("fault: a pod was bound twice")
+        bound = {p.metadata.name for p in store.list("Pod")
+                 if p.spec.node_name and p.metadata.name.startswith(
+                     "backlog")}
+        if bound != set(store.bind_calls):
+            raise AssertionError("fault: binds and bound pods differ")
+        per_node = {}
+        for p in store.list("Pod"):
+            if p.spec.node_name:
+                per_node[p.spec.node_name] = per_node.get(
+                    p.spec.node_name, 0) + 1
+        bad = capacity_violations(store)
+        if bad:
+            raise AssertionError("fault: capacity violated on %d nodes"
+                                 % len(bad))
+        # each node fits four 900m pods beside its 0-3 100m ones
+        if len(bound) != 4 * n_nodes:
+            raise AssertionError("fault: %d pods bound, %d expected"
+                                 % (len(bound), 4 * n_nodes))
+        routes = [b for b, _ in sched.gang_backends]
+        return dict(recovery=log_[0], requeued=len(requeued),
+                    reruns=sched._pipeline.reruns, reprepared=reprepared[0],
+                    bound=len(bound),
+                    binds=len(store.bind_calls), cycles=sched.cycle_count,
+                    routes_before=routes[:fail_at - 1],
+                    routes_after=sorted(set(routes[fail_at:])))
+    finally:
+        PB.reset_demotion()
+
+
+def _http_get(port, path):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen("http://127.0.0.1:%d%s" % (port, path),
+                                    timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _serve_run(n_nodes=5000, n_pods=5000, depth=2, timeout_s=300.0):
+    """Scheduler.run() and SchedulerServer on the card: 5,000 hollow nodes,
+    5,000 pending pods and one that fits nowhere, gang under "pallas",
+    pipelined at depth 2, binding on the pool.  Waits (bounded) until
+    every pod is bound; /healthz, /metrics (the cycle counters) and
+    /debug/explain for a bound and the unschedulable pod answer; close()
+    returns within its join bound."""
+    from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
+                                           KubeSchedulerProfile)
+    from kubetpu_torch.harness import hollow
+    from kubetpu_torch.scheduler import Scheduler, capacity_violations
+    from kubetpu_torch.server import SchedulerServer
+    from kubetpu_torch.utils import pallas_backend as PB
+    from kubetpu_torch.utils.metrics import SchedulerMetrics
+    store = hollow_store(n_nodes, 0)
+    metrics = SchedulerMetrics()
+    sched = Scheduler(store, config=KubeSchedulerConfiguration(
+        profiles=[KubeSchedulerProfile()], batch_size=1000, mode="gang",
+        kernel_backend="pallas", pipeline_cycles=True, pipeline_depth=depth,
+        dispatch_deadline_seconds=SERVE_DEADLINE_S),
+        device="cuda", metrics=metrics, async_binding=True)
+    server = SchedulerServer(sched, port=0)
+    port = server.start()
+    try:
+        for p in pending_pods(n_pods, "served"):
+            store.add(p)
+        store.add(hollow.make_pod("huge", cpu_milli=10 ** 6))
+        t0 = time.perf_counter()
+        sched.run()
+        prewarm_s = time.perf_counter() - t0
+        deadline = time.perf_counter() + timeout_s
+        bound = 0
+        while time.perf_counter() < deadline:
+            bound = sum(1 for p in store.list("Pod") if p.spec.node_name)
+            if bound == n_pods and sched.decisions.get("huge") is not None:
+                break
+            time.sleep(0.1)
+        seconds = time.perf_counter() - t0
+        if bound != n_pods:
+            raise AssertionError("served: %d/%d pods bound in %.0f s"
+                                 % (bound, n_pods, timeout_s))
+        if store.get_pod("default", "huge").spec.node_name:
+            raise AssertionError("served: the oversized pod was bound")
+        if capacity_violations(store):
+            raise AssertionError("served: capacity violated")
+        health = _http_get(port, "/healthz")
+        code, text = _http_get(port, "/metrics")
+        want = ('scheduler_schedule_attempts_total{result="scheduled"} %d.0'
+                % n_pods)
+        if (health != (200, "ok") or code != 200
+                or "scheduler_device_batch_size_count" not in text
+                or want not in text):
+            raise AssertionError("served: /healthz %s, /metrics %d"
+                                 % (health, code))
+        explained = {}
+        # the DecisionLog is bounded: ask for the last pod popped
+        for pod, outcome in (("served-%d" % (n_pods - 1), "scheduled"),
+                             ("huge", "unschedulable")):
+            code, body = _http_get(port, "/debug/explain?pod=" + pod)
+            doc = json.loads(body)
+            if code != 200 or doc["outcome"] != outcome:
+                raise AssertionError("served: /debug/explain?pod=%s: %d %s"
+                                     % (pod, code, body[:200]))
+            explained[pod] = doc["outcome"]
+    finally:
+        t1 = time.perf_counter()
+        sched.close()
+        server.stop()
+        close_s = time.perf_counter() - t1
+    if close_s > 10.0 or sched._serve_thread is not None:
+        raise AssertionError("served: close() took %.1f s" % close_s)
+    if sched.recovery_log or PB.demotion() is not None:
+        raise AssertionError("served: recovered %s"
+                             % list(sched.recovery_log))
+    return dict(bound=bound, seconds=seconds, prewarm_s=prewarm_s,
+                close_s=close_s, cycles=sched.cycle_count,
+                dispatch_wait_s=sched.dispatch_wait_s,
+                stage_s=dict(sched.stage_s), explained=explained,
+                ring_high_water=sched._pipeline.ring.high_water)
+
+
+PIPELINED_YAML = """apiVersion: kubescheduler.config.k8s.io/v1beta1
+kind: KubeSchedulerConfiguration
+mode: gang
+batchSize: 1000
+kernelBackend: pallas
+pipelineCycles: true
+pipelineDepth: 2
+"""
+
+
+def _cli(args, timeout_s=600):
+    """python -m kubetpu_torch as a subprocess on the card (its JSON lines
+    and exit code); the kernel library built above is reused."""
+    import os
+    import torch
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-m", "kubetpu_torch"] + args,
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=timeout_s)
+    if out.returncode != 0:
+        raise AssertionError("python -m kubetpu_torch %s: exit %d\n%s"
+                             % (" ".join(args), out.returncode,
+                                out.stderr[-3000:]))
+    return [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith("{")]
+
+
+def _serve_cli(n_nodes=5000, n_pods=5000):
+    """``python -m kubetpu_torch --once`` on its own hollow world with the
+    pipelined configuration: its JSON line's ``scheduled`` equals what
+    the same world's in-process drain binds."""
+    import os
+    import tempfile
+    from kubetpu_torch.client.store import ClusterStore
+    from kubetpu_torch.harness import hollow
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "pipelined.yaml")
+        with open(path, "w") as fh:
+            fh.write(PIPELINED_YAML)
+        t0 = time.perf_counter()
+        lines = _cli(["--once", "--mode", "gang", "--hollow-nodes",
+                      str(n_nodes), "--hollow-pods", str(n_pods),
+                      "--config", path])
+        seconds = time.perf_counter() - t0
+    summary = lines[-1]
+    # the same world in this process (as __main__ builds it)
+    store = ClusterStore()
+    for n in hollow.make_nodes(n_nodes, zones=8):
+        store.add(n)
+    pods = hollow.make_pods(n_pods, prefix="pend-", group_labels=16)
+    _, outs, stats = serve_drain(store, pods, 1000, 2)
+    in_process = sum(1 for p in store.list("Pod") if p.spec.node_name)
+    if summary.get("scheduled") != in_process or in_process != n_pods:
+        raise AssertionError("cli: scheduled %s, the in-process drain %d"
+                             % (summary, in_process))
+    return dict(summary=summary, subprocess_s=seconds,
+                in_process_bound=in_process, in_process_s=stats["drain_s"])
+
+
+def _serve_rest(n_nodes=1000, n_pods=2000, timeout_s=120.0):
+    """The REST control plane in two processes: this one serves a hollow
+    cluster through APIServer; ``python -m kubetpu_torch --api-server URL
+    --once`` (pipelined configuration) schedules it over HTTP; this
+    process's store sees every binding."""
+    import os
+    import tempfile
+    from kubetpu_torch.client.rest import APIServer
+    from kubetpu_torch.scheduler import capacity_violations
+    store = hollow_store(n_nodes, 0)
+    for p in pending_pods(n_pods, "rest"):
+        store.add(p)
+    api = APIServer(store)
+    port = api.start()
+    try:
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(
+                os.path.abspath(__file__))) as tmp:
+            path = os.path.join(tmp, "pipelined.yaml")
+            with open(path, "w") as fh:
+                fh.write(PIPELINED_YAML)
+            t0 = time.perf_counter()
+            lines = _cli(["--api-server", "http://127.0.0.1:%d" % port,
+                          "--once", "--config", path])
+            seconds = time.perf_counter() - t0
+        deadline = time.perf_counter() + timeout_s
+        while time.perf_counter() < deadline:
+            bound = sum(1 for p in store.list("Pod") if p.spec.node_name)
+            if bound == n_pods:
+                break
+            time.sleep(0.1)
+    finally:
+        api.stop()
+    if bound != n_pods or lines[-1].get("scheduled") != n_pods:
+        raise AssertionError("rest: the server sees %d/%d bound; the "
+                             "client says %s" % (bound, n_pods, lines[-1]))
+    if capacity_violations(store):
+        raise AssertionError("rest: capacity violated")
+    return dict(server_bound=bound, client=lines[-1], subprocess_s=seconds)
+
+
+def phase_serving() -> dict:
+    """The serving loop on the card: the pipelined fill at every depth,
+    twice each, against the synchronous drain; vol_backlog pipelined
+    (the host-filter flush path) against its synchronous drain; one
+    injected dispatch fault; Scheduler.run with SchedulerServer; the CLI;
+    the REST store in two processes."""
+    from kubetpu_torch.ops import propose as PK
+    launches = 0
+    fill = _serve_depths("fill", fill_world, 1000)
+    launches += sum(r["launches"] for r in fill)
+    if fill[-1]["ring_high_water"] != 3:
+        raise AssertionError("serving: the depth-4 ring reached %d parked "
+                             "cycles" % fill[-1]["ring_high_water"])
+    vol = _serve_depths("vol_backlog", vol_backlog_world, 1024, depths=(2,),
+                        reps=1)
+    launches += sum(r["launches"] for r in vol)
+    recorded = [r["recorded"] for r in fill + vol if "recorded" in r]
+    PK.propose.launches = 0
+    fault = _serve_fault()
+    served = _serve_run()
+    cli = _serve_cli()
+    rest = _serve_rest()
+    return dict(launches=launches, fill=fill, vol_backlog=vol, fault=fault,
+                served=served, cli=cli, rest=rest,
+                recorded=dict(checked=sum(r["checked"] for r in recorded),
+                              max_abs_err=max(r["max_abs_err"]
+                                              for r in recorded),
+                              real_launch=recorded[0]["real_launch"]))
 
 
 # ---------------------------------------------------------------------------
@@ -2700,7 +3217,10 @@ def phase_profile() -> dict:
                               pending_pods(1000, "measured"), "pallas",
                               1000),
         backlog=_profiled_drain(*backlog_world(), "pallas", 4096),
-        fill=_profiled_drain(*fill_world(), "pallas", 1000),
+        # the fill's first 5 of 20 cycles: the whole drain's trace costs
+        # ~1 min of the smoke's time limit to take and read
+        fill=_profiled_drain(fill_world()[0], filler_pods(FILL_PODS)
+                             [:FILL_PODS // 4], "pallas", 1000),
         seq_slice=_profiled_scan_window(hollow_store(5000, 1),
                                         pending_pods(1000, "measured")),
         gang_spread=_profiled_rounds_window(*spread_world()),
@@ -2752,6 +3272,7 @@ def main() -> int:
         vol_backlog = results["volumes"]["vol_backlog"]["recorded"]
         recorded.append(vol_backlog)
         recorded.append(results["resident"]["recorded"])
+        recorded.append(results["serving"]["recorded"])
         log({"kernels": [{
             "name": "propose", "route": "cuda",
             "source": "kubetpu_torch/ops/csrc/propose.cu",
@@ -2770,7 +3291,9 @@ def main() -> int:
             "autoscaler_real_launch": recorded[2]["real_launch"],
             "vol_backlog_real_launch": vol_backlog["real_launch"],
             "resident_real_launch":
-                results["resident"]["recorded"]["real_launch"]}]})
+                results["resident"]["recorded"]["real_launch"],
+            "serving_real_launch":
+                results["serving"]["recorded"]["real_launch"]}]})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@ reference: pkg/scheduler/apis/config/types.go — KubeSchedulerConfiguration
 :55, KubeSchedulerProfile :115, Plugins :176, PluginSet :217, Plugin :230,
 DefaultPercentageOfNodesToScore :251; the counterpart of
 kubetpu/apis/config.py.  YAML decoding, defaulting and validation live in
-apis/load.py.  Of the JAX package's serving-runtime knobs only cycle
-chaining is ported; deadlines, bind retries, prewarm and meshes have no
-counterpart here.
+apis/load.py.  The JAX package's serving-runtime knobs are here with its
+defaults (leader election, the metrics and health addresses, the dispatch
+deadline, bind retries, prewarm, the pipelined drain); meshes are not
+ported (ROADMAP queue 1 item 10), and ``prewarm_ladder`` is decoded but
+has no torch reader (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -96,6 +98,10 @@ class KubeSchedulerConfiguration:
     percentage_of_nodes_to_score: int = DEFAULT_PERCENTAGE_OF_NODES_TO_SCORE
     pod_initial_backoff_seconds: float = 1.0     # types.go:97
     pod_max_backoff_seconds: float = 10.0        # types.go:103
+    # HA / serving (server.py, __main__.py, utils/leaderelection.py)
+    leader_election: bool = False
+    metrics_bind_address: str = ""
+    health_bind_address: str = ""
     # reference: types.go:85 DisablePreemption — off, a pod that fits
     # nowhere is requeued without the PostFilter (no evictions)
     disable_preemption: bool = False
@@ -117,3 +123,31 @@ class KubeSchedulerConfiguration:
     # instead of a refresh; any store event the chain does not account for
     # breaks it (scheduler.py).  The JAX package's default, as here
     chain_cycles: bool = True
+    # a cycle whose dispatch raises is recovered: the backend demotes one
+    # rung (pallas -> lax, utils/pallas_backend.demote), the residents are
+    # dropped and the pods requeued (Scheduler._recover_cycle).  A cycle
+    # whose dispatch-to-readback wall time, less host work on other
+    # cycles, exceeds this many seconds is recovered the same way; 0 (the
+    # default) turns the deadline off.  Env override:
+    # KUBETPU_DISPATCH_DEADLINE
+    dispatch_deadline_seconds: float = 0.0
+    # a bind that fails with a transport error ("binding rejected: ...")
+    # retries this many times on the pod backoff ladder, each attempt
+    # first asking the store whether the bind landed (bind is not
+    # idempotent)
+    bind_retries: int = 2
+    # Scheduler.run builds or loads the CUDA kernels and runs one dry
+    # cycle before serving, so the first served cycle pays no nvcc
+    prewarm: bool = True
+    # the JAX package's pod-bucket compile ladder; eager torch compiles
+    # nothing per shape, so the port decodes it and never reads it
+    prewarm_ladder: int = 2
+    # gang mode with chain_cycles: schedule_pending runs the depth-k
+    # pipelined executor (pipeline.py): cycle k's auction runs on a
+    # dispatcher thread while the serving thread commits k-1 and
+    # prepares k+1; outcomes lag up to pipeline_depth - 1 cycles.
+    # Placements equal the synchronous drain's at every depth
+    pipeline_cycles: bool = False
+    # the most cycles in flight at once; 1 = synchronous.  Env override:
+    # KUBETPU_PIPELINE_DEPTH
+    pipeline_depth: int = 2

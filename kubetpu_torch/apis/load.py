@@ -55,34 +55,22 @@ def load_config(doc: Dict[str, Any]) -> KubeSchedulerConfiguration:
     cfg.pod_initial_backoff_seconds = doc.get("podInitialBackoffSeconds", 1.0)
     cfg.pod_max_backoff_seconds = doc.get("podMaxBackoffSeconds", 10.0)
     cfg.disable_preemption = doc.get("disablePreemption", False)
-    _refuse_serving_settings(doc)
+    le = doc.get("leaderElection", {}) or {}
+    cfg.leader_election = bool(le.get("leaderElect", False))
+    cfg.metrics_bind_address = doc.get("metricsBindAddress", "")
+    cfg.health_bind_address = doc.get("healthzBindAddress", "")
     cfg.extenders = list(doc.get("extenders", []) or [])
     # the batch scheduler's extensions
     cfg.batch_size = doc.get("batchSize", 256)
     cfg.mode = doc.get("mode", "sequential")
     cfg.kernel_backend = doc.get("kernelBackend", "lax")
+    # the depth-k pipelined executor (pipeline.py)
+    cfg.pipeline_cycles = bool(doc.get("pipelineCycles", False))
+    cfg.pipeline_depth = int(doc.get("pipelineDepth", 2))
     cfg.profiles = [_decode_profile(p) for p in doc.get("profiles", [])]
     apply_defaults(cfg)
     validate(cfg)
     return cfg
-
-
-def _refuse_serving_settings(doc: Dict[str, Any]) -> None:
-    """The serving loop's settings (leader election, the metrics and health
-    endpoints, the pipelined drain) have no reader in the port until
-    ROADMAP queue 1 item 9: a document that turns one on is refused,
-    never ignored."""
-    asked = [key for key, on in (
-        ("leaderElection.leaderElect",
-         bool((doc.get("leaderElection") or {}).get("leaderElect"))),
-        ("metricsBindAddress", bool(doc.get("metricsBindAddress"))),
-        ("healthzBindAddress", bool(doc.get("healthzBindAddress"))),
-        ("pipelineCycles", bool(doc.get("pipelineCycles"))),
-        ("pipelineDepth", "pipelineDepth" in doc)) if on]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: the serving loop is not ported "
-            "(ROADMAP queue 1 item 9)")
 
 
 def _decode_profile(doc: Dict[str, Any]) -> KubeSchedulerProfile:
@@ -140,6 +128,8 @@ def validate(cfg: KubeSchedulerConfiguration,
         errs.append("mode must be 'sequential' or 'gang'")
     if cfg.kernel_backend not in KERNEL_BACKENDS:
         errs.append("kernelBackend must be 'lax' or 'pallas'")
+    if int(getattr(cfg, "pipeline_depth", 2) or 0) < 1:
+        errs.append("pipelineDepth must be >= 1")
     if cfg.pod_max_backoff_seconds < cfg.pod_initial_backoff_seconds:
         errs.append("podMaxBackoffSeconds must be >= podInitialBackoffSeconds")
     names = [p.scheduler_name for p in cfg.profiles]

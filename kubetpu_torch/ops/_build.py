@@ -31,6 +31,22 @@ _lock = threading.Lock()
 _propose_lib: Optional[ctypes.CDLL] = None
 # seconds spent compiling, per source (0.0 when the library was cached)
 build_seconds: Dict[str, float] = {}
+# kernel libraries built or loaded, and CUDA graphs captured, by this
+# process: the dispatch deadline exempts a cycle during which it grew
+# (the torch twin of the JAX package's compile-activity exemption)
+_compile_events = 0
+
+
+def compile_events() -> int:
+    with _lock:
+        return _compile_events
+
+
+def note_compile_event() -> None:
+    """Count one library load or CUDA graph capture."""
+    global _compile_events
+    with _lock:
+        _compile_events += 1
 
 
 def nvcc_path() -> str:
@@ -77,9 +93,10 @@ def build(name: str) -> str:
 
 def load_propose() -> ctypes.CDLL:
     """The propose kernel's library, built at first use."""
-    global _propose_lib
+    global _propose_lib, _compile_events
     with _lock:
         if _propose_lib is None:
+            _compile_events += 1
             lib = ctypes.CDLL(build("propose"))
             p = ctypes.c_void_p
             lib.propose_launch.argtypes = [p] * 19

@@ -56,6 +56,7 @@ from .framework.types import NodeInfo, PodInfo, pod_with_affinity
 from .models import programs
 from .models.batch import (PodBatchBuilder, batch_to_device, build_nominated,
                            densify_for)
+from .ops._build import note_compile_event
 from .state.tensors import MIB, CH_PODS, SnapshotBuilder, resource_to_channels
 from .utils.intern import pow2_bucket
 
@@ -343,6 +344,7 @@ def _candidate_pass(cluster, batch1, cfg, pod_valid, dreq, dnz, row):
         for _ in range(2):
             one(*static)
     torch.cuda.current_stream().wait_stream(side)
+    note_compile_event()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = one(*static)

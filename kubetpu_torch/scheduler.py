@@ -39,12 +39,26 @@ so the lax round whatever the configured backend; each cycle's route is
 recorded in ``gang_backends``.
 
 Binding runs in the cycle by default (``async_binding=False``); the JAX
-package binds on a pool by default.  A Permit plugin that answers Wait
-needs ``async_binding=True``: the bind cycle then runs on a pool of binder
-threads (``wait_for_inflight_binds``).  Placements do not depend on this
-setting.  Refused, a ROADMAP queue 1 item: extenders (item 8); deferred:
-the pipelined serving loop, the bind retry ladder and ``run`` (item 9),
-and the JAX runtime's journal/chaos/devstats/AOT utilities (item 11).
+package binds on a pool by default, as ``python -m kubetpu_torch`` does.
+A Permit plugin that answers Wait needs ``async_binding=True``: the bind
+cycle then runs on a pool of binder threads (``wait_for_inflight_binds``).
+Placements do not depend on this setting.  A bind that fails with a
+transport error retries on the pod backoff ladder (``bind_retries``),
+each attempt first asking the store whether the bind landed.  Refused, a
+ROADMAP queue 1 item: extenders (item 8); deferred: the JAX runtime's
+journal/chaos/devstats/AOT/SLO utilities and its flight recorder (item
+11; ``utils/trace.py`` keeps the recorder's call sites).
+
+A cycle has the reference's seams: ``_prepare_group`` (host work up to
+the dispatch), ``_dispatch_group`` (the device program, the packed copy
+and the next cycle's chain), ``_readback_guarded`` (the one readback,
+with the dispatch deadline) and ``_commit_group``.  The synchronous drain
+runs them in order.  With ``pipeline_cycles`` in gang mode the depth-k
+executor (pipeline.py) runs the dispatch on a dispatcher thread, so cycle
+k's auction overlaps k-1's commit and k+1's prepare, with the same
+placements.  A cycle whose dispatch raises, or blows
+``dispatch_deadline_seconds``, is recovered before anything of it commits
+(``_recover_cycle``).  ``run`` serves on a thread that never dies.
 
 The resident cluster: each profile keeps one device-resident cluster
 (state/delta.py DeltaTensorizer), brought up to date each cycle by a
@@ -62,11 +76,13 @@ from __future__ import annotations
 
 import copy
 import logging
+import os
 import threading
 import time
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -79,24 +95,27 @@ from .client.store import ClusterStore
 from .framework.interface import Code, CycleState, Status
 from .framework.runtime import Framework
 from .framework.types import (PodInfo, QueuedPodInfo, pod_with_affinity,
-                              pod_with_required_anti_affinity)
+                              pod_with_required_anti_affinity, wallclock)
 from .models import programs
 from .models.batch import (PodBatchBuilder, batch_to_device, build_nominated,
                            nominated_to_device, take_rows)
 from .models.gang import materialize_assigned, run_auction
 from .models.sequential import schedule_sequential
+from .ops._build import compile_events, load_propose
+from .pipeline import PipelinedExecutor, depth_from_env
 from .plugins.intree import DefaultPreemption, new_in_tree_registry
 from .preemption import CycleContext, Preemptor
 from .schedqueue.queue import SchedulingQueue
 from .state import volumes as vstate
 from .state.cache import SchedulerCache, Snapshot
 from .state.delta import DeltaTensorizer
-from .state.tensors import vocab_signature
+from .state.tensors import SnapshotBuilder, vocab_signature
 from .utils import pallas_backend as PB
 from .utils import prng
 from .utils.decisions import DecisionLog, PodDecision
 from .utils.device import DeviceLike, resolve_device
 from .utils.intern import pow2_bucket
+from .utils.trace import NO_TRACE
 
 
 @dataclass
@@ -108,19 +127,75 @@ class ScheduleOutcome:
     preemption_may_help: bool = True
 
 
+@dataclass
+class PreparedCycle:
+    """reference: kubetpu/scheduler.py:76 — one cycle's host state
+    between its prepare and its commit: the unit the pipelined drain
+    keeps in flight."""
+    fwk: Framework
+    chain_seq0: int
+    node_infos: list
+    states: Dict[str, CycleState]
+    live: List[QueuedPodInfo]
+    pinfos: List[PodInfo]
+    builder: object
+    cluster: object
+    batch: object
+    hbatch: object                 # the host batch (routing reads it)
+    host_relevant: Dict[str, bool]
+    host_ok: Optional[torch.Tensor]
+    score_bias: Optional[torch.Tensor]
+    cfg: programs.ProgramConfig
+    cycle_ctx: CycleContext
+    needs_topo: bool = True
+    used_chain: bool = False
+    pod_uids: list = field(default_factory=list)
+    host_reject: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    # the relevance walk, kept so a re-prepare never walks it again
+    relevance: Optional[Dict[str, Tuple[bool, bool]]] = None
+    # host reads of the auction's progress flags (GangResult.syncs)
+    syncs: int = 0
+    # the deadline's anchor (wallclock at the dispatch; 0 = never
+    # dispatched) and the compile-activity count then (deadline armed)
+    dispatch_t0: float = 0.0
+    compile_snap: Optional[int] = None
+    # host seconds spent on other cycles inside this cycle's
+    # dispatch->readback window, and the start of its parking between
+    # schedule_pending calls: both are exempt from the deadline
+    host_exempt_s: float = 0.0
+    parked_t: float = 0.0
+    # the flight recorder's stand-in (utils/trace.py)
+    trace: object = NO_TRACE
+
+
+def _copy_to_host(packed: torch.Tensor):
+    """(host tensor, event): a card tensor is copied into pinned host
+    memory without blocking, with an event recorded after the copy; a
+    CPU tensor is its own host copy."""
+    if not packed.is_cuda:
+        return packed, None
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
 class Scheduler:
     """reference: scheduler.go:69.  ``device`` defaults to CUDA; pass
     device="cpu" to run the plain PyTorch path.  registry: the plugin
     factories (default: plugins/intree.new_in_tree_registry(), to which a
     caller adds its own).  async_binding: run each bind cycle on a binder
-    pool (see the module docstring)."""
+    pool (see the module docstring).  seed: the first cycle's PRNG key is
+    seed + 1.  metrics: a utils/metrics.SchedulerMetrics to feed."""
 
     def __init__(self, store: ClusterStore,
                  config: Optional[KubeSchedulerConfiguration] = None,
                  registry=None, device: DeviceLike = None,
-                 async_binding: bool = False):
+                 async_binding: bool = False, seed: int = 0, metrics=None):
         self.device = resolve_device(device)
         self.store = store
+        self.metrics = metrics
         self.config = config or KubeSchedulerConfiguration(
             profiles=[KubeSchedulerProfile()])
         if not self.config.profiles:
@@ -141,9 +216,10 @@ class Scheduler:
         self.queue = SchedulingQueue(
             sort_key=any_fw.queue_sort_key,
             pod_initial_backoff=self.config.pod_initial_backoff_seconds,
-            pod_max_backoff=self.config.pod_max_backoff_seconds)
+            pod_max_backoff=self.config.pod_max_backoff_seconds,
+            metrics=metrics)
         self.snapshot = Snapshot()
-        self._rng_counter = 0   # PRNGKey(cycle) — the JAX scheduler's seed 0
+        self._rng_counter = seed   # PRNGKey(seed + cycle), as the JAX one
         # rotating node-search start of the sequential replay (reference:
         # nextStartNodeIndex, generic_scheduler.go:451); kept across cycles
         self._next_start_node_index = 0
@@ -209,6 +285,28 @@ class Scheduler:
         # preemption waves that raised; their pods were served one by one
         # through the PostFilter, as the JAX scheduler serves them
         self.preempt_wave_failures = 0
+        # the serving runtime: the dispatch deadline (0 = off; the env
+        # overrides the config), the recovery trail (bounded), the two
+        # deadline-exempt cycles after a recovery, the last commit's
+        # failure flag (the pipelined drain re-runs cycles dispatched
+        # against a failed commit's chain)
+        dl = os.environ.get("KUBETPU_DISPATCH_DEADLINE")
+        self._dispatch_deadline = float(
+            dl if dl else self.config.dispatch_deadline_seconds or 0.0)
+        self.recovery_log: deque = deque(maxlen=256)
+        self._deadline_grace = 0
+        self._last_commit_failed = False
+        # the depth-k pipelined executor (pipeline.py) and its dispatcher
+        # thread (made at the first pipelined dispatch), the dispatch it
+        # ran last, and the serving thread's seconds blocked on it
+        self._pipeline = PipelinedExecutor(
+            self, depth_from_env(self.config.pipeline_depth or 2))
+        self._dispatcher: Optional[ThreadPoolExecutor] = None
+        self._dispatch_future: Optional[Future] = None
+        self.dispatch_wait_s = 0.0
+        self._stop = threading.Event()
+        self._serve_thread: Optional[threading.Thread] = None
+        self._closed = False
         self._add_all_event_handlers()
         # reference: scheduler.go:548 — preemption runs unless disabled;
         # DefaultPreemption serves it through the PostFilter point, with
@@ -338,16 +436,23 @@ class Scheduler:
         outcomes ([] when the queue is empty).  If a group raises, every
         popped pod without an outcome goes back to the queue before the
         exception propagates (as the JAX scheduler's _recover_cycle,
-        kubetpu/scheduler.py:1225): nothing popped is lost."""
-        qpods = self.queue.pop_batch(max_batch or self.config.batch_size,
-                                     timeout=timeout)
+        kubetpu/scheduler.py:1225): nothing popped is lost.  With
+        ``pipeline_cycles`` in gang mode with the chain on, the depth-k
+        executor runs instead (pipeline.py): outcomes lag up to depth - 1
+        cycles, and ``flush_pipeline`` returns the rest."""
+        max_batch = max_batch or self.config.batch_size
+        self._settled = set()
+        if (self.config.pipeline_cycles and self.config.mode == "gang"
+                and self.config.chain_cycles):
+            return self._pipeline.drain(max_batch, timeout)
+        start = wallclock()
+        qpods = self.queue.pop_batch(max_batch, timeout=timeout)
         by_profile: Dict[str, List[QueuedPodInfo]] = {}
         for qp in qpods:
             if not self._skip_pod_schedule(qp.pod):
                 by_profile.setdefault(qp.pod.spec.scheduler_name,
                                       []).append(qp)
         outcomes: List[ScheduleOutcome] = []
-        self._settled = set()
         try:
             for name, group in by_profile.items():
                 outcomes.extend(self._schedule_group(self.profiles[name],
@@ -356,7 +461,14 @@ class Scheduler:
             self._requeue_unsettled(
                 [qp for group in by_profile.values() for qp in group])
             raise
+        if self.metrics and outcomes:
+            self.metrics.observe_cycle(len(outcomes), wallclock() - start)
         return outcomes
+
+    def flush_pipeline(self) -> List[ScheduleOutcome]:
+        """reference: kubetpu/scheduler.py:551 — commit every in-flight
+        pipelined cycle, oldest first."""
+        return self._pipeline.flush()
 
     def _requeue_unsettled(self, qpods: List[QueuedPodInfo]) -> None:
         """reference: kubetpu/scheduler.py:1275-1284 — each pod with no
@@ -511,6 +623,31 @@ class Scheduler:
 
     def _schedule_group(self, fwk: Framework, qpods: List[QueuedPodInfo]
                         ) -> List[ScheduleOutcome]:
+        """reference: kubetpu/scheduler.py:584 — one synchronous cycle:
+        prepare, dispatch, then readback and commit."""
+        prep, outcomes = self._prepare_group(fwk, qpods)
+        if prep is None:
+            return outcomes
+        with prep.trace.stage("dispatch"):
+            try:
+                res = self._dispatch_group(prep)
+            except Exception as e:   # device fault: recover, never lose
+                out = self._recover_cycle(prep, repr(e), "dispatch-error")
+                prep.trace.finish(recovered="dispatch-error")
+                return outcomes + out
+        return outcomes + self._finish_group(prep, res)
+
+    def _prepare_group(self, fwk: Framework, qpods: List[QueuedPodInfo],
+                       uncommitted: Optional[List["PreparedCycle"]] = None,
+                       relevance: Optional[Dict[str, Tuple[bool, bool]]]
+                       = None):
+        """reference: kubetpu/scheduler.py:630 — the host half of a cycle,
+        up to the dispatch: snapshot, PreFilter, the cycle's cluster
+        (chained or refreshed), the batch, the host filter and score
+        planes and the nominated overlay.  Returns (PreparedCycle or None,
+        early outcomes).  uncommitted: every dispatched-but-uncommitted
+        pipelined cycle, whose cluster the delta scatter must not update
+        in place (None: the executor's ring)."""
         t = time.perf_counter()
         # the event sequence BEFORE the snapshot: a chain is reusable only
         # if no event landed since the state it embeds
@@ -519,6 +656,11 @@ class Scheduler:
         self.cache.update_snapshot(self.snapshot)
         node_infos = self.snapshot.node_info_list
         n_nodes = len(node_infos)
+        if self.metrics:
+            self.metrics.cache_size.set(n_nodes, "nodes")
+            self.metrics.cache_size.set(self.cache.pod_count(), "pods")
+            self.metrics.cache_size.set(len(self.cache.assumed_pods),
+                                        "assumed_pods")
         # host PreFilter per pod (reference: kubetpu/scheduler.py:680-699);
         # a failure fails the pod, past preemption's help when the plugin
         # says UnschedulableAndUnresolvable
@@ -543,7 +685,7 @@ class Scheduler:
             live.append(qp)
         if not live:
             self._stage("snapshot", t)
-            return outcomes
+            return None, outcomes
         if n_nodes == 0:
             for qp in live:
                 outcomes.append(self._fail(fwk, qp, "0/0 nodes are available",
@@ -551,7 +693,7 @@ class Scheduler:
                                            state=states[qp.pod.uid]))
                 self._record_decision(qp.pod, "unschedulable",
                                       message="0/0 nodes are available")
-            return outcomes
+            return None, outcomes
         spread_sels = [self.store.default_spread_selector(qp.pod)
                        for qp in live]
         pinfos = [PodInfo(qp.pod) for qp in live]
@@ -563,8 +705,10 @@ class Scheduler:
         t = self._stage("snapshot", t)
 
         # the cycle's cluster: the chained one, or the refreshed resident
-        builder, cluster, pod_uids, t = self._cluster_for(
-            fwk, node_infos, pinfos + nom_pinfos, chain_seq0, t)
+        if uncommitted is None:
+            uncommitted = self._pipeline.inflight_preps()
+        builder, cluster, pod_uids, used_chain, t = self._cluster_for(
+            fwk, node_infos, pinfos + nom_pinfos, chain_seq0, uncommitted, t)
         hbatch = PodBatchBuilder(builder.table).build(
             pinfos, spread_selectors=spread_sels)
         t = self._stage("tensorize", t)
@@ -574,8 +718,10 @@ class Scheduler:
         B = batch.valid.shape[0]
         N = cluster.allocatable.shape[0]
         # one walk of the host filters' relevance per pod, shared by the
-        # host-filter loop and the commit-time re-check
-        relevance = self._host_relevance(fwk, live)
+        # host-filter loop and the commit-time re-check (the pipelined
+        # drain walks it first, for its serialize decision)
+        if relevance is None:
+            relevance = self._host_relevance(fwk, live)
         relevant = {uid: rel for uid, (rel, _) in relevance.items()}
         # the volume family on the device: one [B, N] mask in place of
         # ~B x N Python filter calls; a pod whose relevant host filters
@@ -622,41 +768,175 @@ class Scheduler:
         # chain's (neither is the snapshot's node-walk order)
         cycle_ctx.pod_rows = {uid: i for i, uid in enumerate(pod_uids)
                               if uid}
+        prep = PreparedCycle(
+            fwk=fwk, chain_seq0=chain_seq0, node_infos=node_infos,
+            states=states, live=live, pinfos=pinfos, builder=builder,
+            cluster=cluster, batch=batch, hbatch=hbatch,
+            host_relevant=relevant, host_ok=host_ok, score_bias=score_bias,
+            cfg=cfg, cycle_ctx=cycle_ctx,
+            needs_topo=self._needs_topo(live, spread_sels),
+            used_chain=used_chain, pod_uids=pod_uids,
+            host_reject=host_reject, relevance=relevance)
+        return prep, outcomes
 
+    def _dispatch_group(self, prep: "PreparedCycle",
+                        extra_uncommitted: int = 0,
+                        background: bool = False) -> Future:
+        """reference: kubetpu/scheduler.py:1024 — the device half of a
+        cycle: the mode's program, the packed readback's copy to the host
+        and, in gang mode, the chained cluster of the next cycle.  Returns
+        a future of (packed host copy, copy event).  background: run it on
+        the dispatcher thread (the pipelined drain) and return at once;
+        then an error surfaces at the readback, where _readback_guarded
+        recovers it.  extra_uncommitted: pods of earlier cycles whose
+        commits have not landed (the chain's bucket guard)."""
+        prep.dispatch_t0 = wallclock()
+        if self._dispatch_deadline > 0:
+            prep.compile_snap = compile_events()
+        # the chain's bucket guard reads the cache HERE, on the serving
+        # thread, before any later commit lands (as the reference reads it
+        # at its dispatch)
+        fresh_pods = self.cache.pod_count() + extra_uncommitted
+        if not background:
+            fut: Future = Future()
+            fut.set_result(self._dispatch_body(prep, fresh_pods))
+            return fut
+        if self._dispatcher is None:
+            self._dispatcher = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="dispatcher")
+        fut = self._dispatcher.submit(self._dispatch_body, prep, fresh_pods)
+        self._dispatch_future = fut
+        return fut
+
+    def _dispatch_body(self, prep: "PreparedCycle", fresh_pods: int):
+        t = time.perf_counter()
         if self.config.mode == "gang":
-            needs_topo = self._needs_topo(live, spread_sels)
-            self.gang_backends.append(self._gang_backend(cfg, needs_topo,
-                                                         hbatch))
-            res = run_auction(cluster, batch, cfg, self._next_rng(),
-                              host_ok=host_ok, score_bias=score_bias,
-                              intra_batch_topology=needs_topo,
-                              kernel_backend=self.gang_backends[-1][0])
-            packed = res.packed.cpu().numpy()     # the cycle's one readback
-            self.gang_rounds.append(int(packed[3 * B]))
-            self.gang_syncs.append(res.syncs)
+            backend = self._gang_backend(prep.cfg, prep.needs_topo,
+                                         prep.hbatch)
+            self.gang_backends.append(backend)
+            res = run_auction(prep.cluster, prep.batch, prep.cfg,
+                              self._next_rng(), host_ok=prep.host_ok,
+                              score_bias=prep.score_bias,
+                              intra_batch_topology=prep.needs_topo,
+                              kernel_backend=backend[0])
+            prep.syncs = res.syncs
             # the auction's verdict rows, shared lazily: preemption reads
             # them only if nothing committed since
-            cycle_ctx.set_lazy_verdicts(res.feasible0, res.unresolvable)
+            prep.cycle_ctx.set_lazy_verdicts(res.feasible0, res.unresolvable)
+            packed = _copy_to_host(res.packed)   # the cycle's one readback
             t = self._stage("auction", t)
-            self._chain_next(fwk, builder, cluster, batch, res, pinfos,
-                             pod_uids, chain_seq0, n_nodes)
-            t = self._stage("chain", t)
+            self._chain_next(prep, res, fresh_pods)
+            self._stage("chain", t)
         else:
+            n_nodes = len(prep.node_infos)
             start = self._next_start_node_index % n_nodes
             res = schedule_sequential(
-                cluster, batch, cfg, self._next_rng(),
-                hard_pod_affinity_weight=float(fwk.hard_pod_affinity_weight),
-                host_ok=host_ok, start_index=start, score_bias=score_bias)
-            packed = res.packed.cpu().numpy()     # the cycle's one readback
-            self._next_start_node_index = int(packed[3 * B])
-            t = self._stage("auction", t)
+                prep.cluster, prep.batch, prep.cfg, self._next_rng(),
+                hard_pod_affinity_weight=float(
+                    prep.fwk.hard_pod_affinity_weight),
+                host_ok=prep.host_ok, start_index=start,
+                score_bias=prep.score_bias)
+            packed = _copy_to_host(res.packed)
+            self._stage("auction", t)
+        return packed
 
+    def _await_dispatch(self) -> None:
+        """Wait until the dispatcher thread is idle: what the serving
+        thread does next (read or drop the chain, recover) must follow
+        the dispatch it issued last, as in the reference's program
+        order.  An error stays in its future for the readback."""
+        fut = self._dispatch_future
+        if fut is not None and not fut.done():
+            t0 = time.perf_counter()
+            futures_wait([fut])
+            self.dispatch_wait_s += time.perf_counter() - t0
+
+    def _readback_group(self, prep: "PreparedCycle", fut: Future
+                        ) -> np.ndarray:
+        """reference: kubetpu/scheduler.py:1381 — the cycle's ONE
+        device->host readback: wait for the dispatch, then for the packed
+        [3B+1] copy.  Raises what the dispatch raised."""
+        t0 = wallclock()
+        if not fut.done():
+            futures_wait([fut])
+            self.dispatch_wait_s += wallclock() - t0
+        host, event = fut.result()
+        if event is not None:
+            event.synchronize()
+        return host.numpy()
+
+    def _readback_guarded(self, prep: "PreparedCycle", fut: Future):
+        """reference: kubetpu/scheduler.py:1300 — (packed, None) on
+        success; (None, recovery outcomes) when the dispatch raised, or
+        when its dispatch-to-readback wall time, less the host seconds
+        spent on other cycles in that window, exceeded the deadline.  A
+        cycle during which a kernel library was built or loaded or a CUDA
+        graph captured is exempt (legitimate, bounded first-use work),
+        as are the two cycles after a recovery."""
+        if prep.parked_t:
+            # time parked in the in-flight ring is caller think time
+            prep.host_exempt_s += wallclock() - prep.parked_t
+            prep.parked_t = 0.0
+        try:
+            packed = self._readback_group(prep, fut)
+        except Exception as e:
+            out = self._recover_cycle(prep, repr(e), "dispatch-error")
+            prep.trace.finish(recovered="dispatch-error")
+            return None, out
+        dl = self._dispatch_deadline
+        if dl > 0 and prep.dispatch_t0:
+            if self._deadline_grace > 0:
+                self._deadline_grace -= 1
+            else:
+                elapsed = (wallclock() - prep.dispatch_t0
+                           - prep.host_exempt_s)
+                compiled = (prep.compile_snap is not None
+                            and compile_events() != prep.compile_snap)
+                if not compiled and elapsed > dl:
+                    out = self._recover_cycle(
+                        prep, "dispatch+readback %.3fs > deadline %.3fs"
+                        % (elapsed, dl), "dispatch-deadline")
+                    prep.trace.finish(recovered="dispatch-deadline")
+                    return None, out
+        return packed, None
+
+    def _finish_group(self, prep: "PreparedCycle", fut: Future
+                      ) -> List[ScheduleOutcome]:
+        """reference: kubetpu/scheduler.py:1347 — readback and commit."""
+        packed, recovered = self._readback_guarded(prep, fut)
+        if packed is None:
+            # the cycle never happened as far as state goes: its pods are
+            # requeued and its residents dropped; a later pipelined cycle
+            # dispatched against its chain must re-run too
+            self._last_commit_failed = True
+            return recovered
+        with prep.trace.stage("commit"):
+            out = self._commit_group(prep, packed)
+        prep.trace.finish()
+        return out
+
+    def _commit_group(self, prep: "PreparedCycle", packed: np.ndarray
+                      ) -> List[ScheduleOutcome]:
+        """reference: kubetpu/scheduler.py:1403 — commit each placement in
+        pod order; failures go through the preemption wave and the
+        PostFilter after every commit has landed."""
+        t = time.perf_counter()
+        fwk, live, states, pinfos = (prep.fwk, prep.live, prep.states,
+                                     prep.pinfos)
+        node_infos, cycle_ctx = prep.node_infos, prep.cycle_ctx
+        n_nodes = len(node_infos)
+        B = prep.batch.valid.shape[0]
         self.cycle_count += 1
+        if self.config.mode == "gang":
+            self.gang_rounds.append(int(packed[3 * B]))
+            self.gang_syncs.append(prep.syncs)
+        else:
+            self._next_start_node_index = int(packed[3 * B])
         chosen = packed[:B][:len(live)].tolist()
         n_feas = packed[B:2 * B][:len(live)].tolist()
         unres = (packed[2 * B:3 * B][:len(live)] != 0).tolist()
+        outcomes: List[Optional[ScheduleOutcome]] = []
         failed = []
-        first = len(outcomes)
         commit_failed = False
         for i, qp in enumerate(live):
             if chosen[i] < 0:
@@ -665,7 +945,7 @@ class Scheduler:
                 continue
             outcome = self._commit(fwk, qp, states[qp.pod.uid], pinfos[i],
                                    node_infos[chosen[i]].node_name,
-                                   n_feas[i], relevant[qp.pod.uid])
+                                   n_feas[i], prep.host_relevant[qp.pod.uid])
             if outcome.node:
                 # preemption for pods failing later in this batch must see
                 # this placement (CycleContext.cluster_now)
@@ -684,6 +964,10 @@ class Scheduler:
         # landed; the per-pod PostFilter below reads its verdicts.  Only
         # when DefaultPreemption is the first PostFilter plugin
         wave_pods = [live[i].pod for i in failed if not unres[i]]
+        if wave_pods:
+            # preemption may capture a CUDA graph, which no other thread
+            # may launch work beside
+            self._await_dispatch()
         pf = fwk.post_filter_plugins
         if (wave_pods and self.preemptor is not None and pf
                 and isinstance(pf[0], DefaultPreemption)):
@@ -698,39 +982,48 @@ class Scheduler:
                     "preemption wave failed; per-pod fallback",
                     exc_info=True)
         audit_rows = (self._audit_rows(cycle_ctx, [live[i] for i in failed],
-                                       host_ok, wave_pods)
-                      if failed and audit else {})
+                                       prep.host_ok, wave_pods)
+                      if failed and self.decisions.enabled else {})
         # failures requeue after every commit has landed, as the JAX
         # scheduler defers them: the queue's move-request cycle then
         # reflects this cycle's binds and evictions
         for i in failed:
             qp = live[i]
             msg = f"0/{n_nodes} nodes are available"
-            outcomes[first + i] = self._fail(
+            outcomes[i] = self._fail(
                 fwk, qp, msg, preemption_may_help=not unres[i],
                 cycle=cycle_ctx, state=states[qp.pod.uid])
             self._record_decision(
                 qp.pod, "unschedulable", message=msg,
                 nominated_node=qp.pod.status.nominated_node_name or "",
-                host_reasons=host_reject.get(qp.pod.uid),
+                host_reasons=prep.host_reject.get(qp.pod.uid),
                 **audit_rows.get(qp.pod.uid, {}))
-        # a failed commit invalidates the chain: its cluster carries the
-        # pod's usage
+        # a failed commit invalidates the chain (its cluster carries the
+        # pod's usage) and every pipelined cycle dispatched against it
+        self._last_commit_failed = commit_failed
         if commit_failed and self.config.mode == "gang":
+            self._await_dispatch()
             self._drop_chain()
         self.preempt_stats.append(dict(cycle_ctx.stats))
         self._stage("preempt", t)
         return outcomes
 
     def _cluster_for(self, fwk: Framework, node_infos, pending, chain_seq0,
-                     t: float):
+                     uncommitted, t: float):
         """reference: kubetpu/scheduler.py:712-826 — the cycle's cluster:
         the chain when its sequence, profile, node count and vocab caps
         still hold, else the profile's DeltaTensorizer refreshed from the
         snapshot (pending: this cycle's and the nominated pods, in that
-        order, interned first).  Returns (builder, cluster, pod uid per
-        existing-pod row, stage clock); the refresh's host work counts as
-        tensorize and its device copies as upload."""
+        order, interned first).  The scatter updates the resident in place
+        only while no cycle in ``uncommitted`` reads it.  Returns
+        (builder, cluster, pod uid per existing-pod row, chained?, stage
+        clock); the refresh's host work counts as tensorize and its device
+        copies as upload."""
+        # the chain of the last dispatch, once it is there (the wait is
+        # dispatch_wait_s, not tensorize)
+        t_wait = time.perf_counter()
+        self._await_dispatch()
+        t += time.perf_counter() - t_wait
         with self._chain_lock:
             chain = self._chain
         use_chain = (chain is not None and chain["seq"] == chain_seq0
@@ -743,16 +1036,17 @@ class Scheduler:
                 chain["caps"]
         if use_chain:
             self.cluster_sources.append("chain")
-            return chain["builder"], chain["cluster"], chain["pod_uids"], t
+            return (chain["builder"], chain["cluster"], chain["pod_uids"],
+                    True, t)
         delta = self._delta.get(fwk.profile_name)
         if delta is None:
             delta = DeltaTensorizer(
                 hard_pod_affinity_weight=fwk.hard_pod_affinity_weight,
                 device=self.device)
             self._delta[fwk.profile_name] = delta
-        # the synchronous cycle keeps no earlier cycle's cluster in flight
         cluster, dstats = delta.refresh(
-            node_infos, pending=pending, donate=delta.safe_to_donate(()))
+            node_infos, pending=pending,
+            donate=delta.safe_to_donate([p.cluster for p in uncommitted]))
         now = time.perf_counter()
         self.stage_s["upload"] += delta.upload_s
         self.stage_s["tensorize"] += now - t - delta.upload_s
@@ -767,20 +1061,22 @@ class Scheduler:
             self.cluster_sources.append("clean")
         self._drop_chain()
         # after refresh: a compacting resync swaps the builder
-        return delta.builder, cluster, delta.pod_uid_list(), now
+        return delta.builder, cluster, delta.pod_uid_list(), False, now
 
-    def _chain_next(self, fwk, builder, cluster, batch, res, pinfos,
-                    pod_uids, chain_seq0: int, n_nodes: int) -> None:
+    def _chain_next(self, prep: "PreparedCycle", res,
+                    fresh_pods: int) -> None:
         """reference: kubetpu/scheduler.py:1151-1207 — materialize this
         auction's placements as the next cycle's cluster (before any
-        commit, so the cache's pod count excludes this cycle's assumes),
-        unless chaining is off or the grown pod axis would land in a
-        bigger pow2 bucket than a fresh build would use (pow2 slack
-        compounds across cycles; a rebuild compacts it)."""
+        commit), unless chaining is off or the grown pod axis would land
+        in a bigger pow2 bucket than a fresh build would use (pow2 slack
+        compounds across cycles; a rebuild compacts it).  fresh_pods: the
+        cache's pod count at the dispatch plus the pods of cycles
+        dispatched but not committed."""
+        cluster, batch = prep.cluster, prep.batch
         B_cap = batch.valid.shape[0]
         p_next = int(cluster.pod_valid.shape[0]) + B_cap
         if (not self._chain_enabled()
-                or pow2_bucket(p_next) > pow2_bucket(self.cache.pod_count()
+                or pow2_bucket(p_next) > pow2_bucket(fresh_pods
                                                      + 2 * B_cap)):
             self._drop_chain()
             return
@@ -790,16 +1086,62 @@ class Scheduler:
             cluster, batch, res.chosen, res.requested, res.nz,
             res.ports_used, pad_pods_to=pow2_bucket(p_next),
             pad_terms_to=pow2_bucket(e_next), extend_score_terms=True,
-            hard_pod_affinity_weight=float(fwk.hard_pod_affinity_weight))
-        uids = list(pod_uids)
-        uids.extend(pi.pod.uid for pi in pinfos)
-        uids.extend([None] * (B_cap - len(pinfos)))      # batch padding
+            hard_pod_affinity_weight=float(
+                prep.fwk.hard_pod_affinity_weight))
+        uids = list(prep.pod_uids)
+        uids.extend(pi.pod.uid for pi in prep.pinfos)
+        uids.extend([None] * (B_cap - len(prep.pinfos)))    # batch padding
         uids.extend([None] * (pow2_bucket(p_next) - len(uids)))
         with self._chain_lock:
-            self._chain = dict(builder=builder, cluster=next_cluster,
-                               pod_uids=uids, seq=chain_seq0,
-                               caps=vocab_signature(builder.table),
-                               profile=fwk.profile_name, n_nodes=n_nodes)
+            self._chain = dict(builder=prep.builder, cluster=next_cluster,
+                               pod_uids=uids, seq=prep.chain_seq0,
+                               caps=vocab_signature(prep.builder.table),
+                               profile=prep.fwk.profile_name,
+                               n_nodes=len(prep.node_infos))
+
+    # ------------------------------------------------------------- recovery
+
+    def _recover_cycle(self, prep: "PreparedCycle", reason: str,
+                       kind: str) -> List[ScheduleOutcome]:
+        """reference: kubetpu/scheduler.py:1225 — the recovery of a cycle
+        whose dispatch raised or blew its deadline (kind
+        "dispatch-error" / "dispatch-deadline"), before anything of it
+        committed: demote the backend one rung (pallas -> lax,
+        process-wide, utils/pallas_backend.demote), drop the chain and
+        the profile's resident (the next cycle resyncs), and requeue the
+        cycle's pods through backoff; the next two cycles are exempt from
+        the deadline.  Never raises."""
+        logging.getLogger("kubetpu_torch").warning(
+            "cycle recovery (%s): %s; %d pods requeued", kind, reason,
+            len(prep.live))
+        demoted = []
+        if self.config.kernel_backend == "pallas" and PB.demotion() is None:
+            PB.demote("%s: %s" % (kind, reason[:200]))
+            demoted.append("pallas->lax")
+        self._await_dispatch()
+        with self._chain_lock:
+            self._chain = None
+            self._chain_seq += 1
+        self._delta.pop(prep.fwk.profile_name, None)
+        for qp in prep.live:
+            try:
+                self.queue.add_unschedulable_if_not_present(
+                    qp, qp.scheduling_cycle)
+            except ValueError:
+                pass
+            self._settled.add(qp.pod.uid)
+        # unschedulable -> backoff/active now; each pod's own backoff
+        # paces the retry
+        self.queue.move_all_to_active_or_backoff_queue("DispatchRecovery")
+        self._deadline_grace = 2
+        self.recovery_log.append(
+            {"kind": kind, "reason": reason, "pods": len(prep.live),
+             "demoted": demoted, "cycle": self.cycle_count})
+        if self.metrics is not None:
+            self.metrics.recoveries.inc(kind)
+        err = f"dispatch recovered ({kind}): pod requeued"
+        return [ScheduleOutcome(pod=qp.pod, node="", err=err)
+                for qp in prep.live]
 
     def _nominated_overlay_mask(self, fwk, builder, cluster, batch, qpods,
                                 node_infos, nominated, batch_topo_keys=()):
@@ -943,14 +1285,15 @@ class Scheduler:
         requeued (None on the binder pool, which settled it at submit)."""
         pod = qp.pod
         failed = None
+        bind_start = wallclock()
         try:
             for run, what in ((lambda: fwk.wait_on_permit(pod),
                                "permit rejected"),
                               (lambda: fwk.run_pre_bind_plugins(state, pod,
                                                                 node_name),
                                "prebind failed"),
-                              (lambda: fwk.run_bind_plugins(state, pod,
-                                                            node_name),
+                              (lambda: self._bind_with_retries(
+                                  fwk, state, pod, node_name),
                                "bind failed")):
                 st = run()
                 if not st.is_success():
@@ -974,7 +1317,56 @@ class Scheduler:
         if failed is not None:
             return failed or what
         fwk.run_post_bind_plugins(state, pod, node_name)
+        if self.metrics:
+            now = wallclock()
+            self.metrics.binding_duration.observe(now - bind_start)
+            self.metrics.pod_scheduled(
+                qp.attempts, now - qp.initial_attempt_timestamp,
+                now - qp.timestamp)
         return None
+
+    def _bind_with_retries(self, fwk: Framework, state: CycleState,
+                           pod: api.Pod, node_name: str) -> Status:
+        """reference: kubetpu/scheduler.py:2170-2215 — Bind, and the
+        transient-bind retry ladder: a bind that failed with a transport
+        error ("binding rejected: ..." from DefaultBinder) retries up to
+        ``bind_retries`` times, sleeping the pod backoff ladder between
+        attempts.  Bind is not idempotent, so each attempt first asks the
+        store: a bind that landed with its response lost is a success
+        without a second POST, and a pod that is gone or bound elsewhere
+        stops the ladder at once."""
+        st = fwk.run_bind_plugins(state, pod, node_name)
+        retries = max(int(self.config.bind_retries), 0)
+        delay = min(self.config.pod_initial_backoff_seconds,
+                    self.config.pod_max_backoff_seconds)
+        attempt = 0
+        while (not st.is_success() and attempt < retries
+               and st.message().startswith("binding rejected:")):
+            bound = self._bound_node(pod)
+            if bound == node_name:
+                # applied, response lost: already bound right
+                st = Status.success()
+                attempt += 1
+                break
+            if bound != "":
+                break         # gone (None) or bound elsewhere: permanent
+            attempt += 1
+            time.sleep(delay)
+            delay = min(delay * 2, self.config.pod_max_backoff_seconds)
+            st = fwk.run_bind_plugins(state, pod, node_name)
+        if attempt and st.is_success() and self.metrics is not None:
+            self.metrics.recoveries.inc("bind-retry")
+        return st
+
+    def _bound_node(self, pod: api.Pod) -> Optional[str]:
+        """reference: kubetpu/scheduler.py:2138 — the store's view of a
+        pod's binding: its node, "" when it exists unbound, None when it
+        is gone or the store cannot be read."""
+        try:
+            cur = self.store.get_pod(pod.namespace, pod.metadata.name)
+        except Exception:
+            return None
+        return None if cur is None else (cur.spec.node_name or "")
 
     def _unassume(self, fwk: Framework, state: CycleState, pod: api.Pod,
                   assumed: Optional[api.Pod], node_name: str) -> None:
@@ -1061,6 +1453,8 @@ class Scheduler:
                 nominated_node_name=nominated_node)
         except Exception:
             pass
+        if self.metrics:
+            self.metrics.pod_unschedulable()
 
     # ------------------------------------------------------------------ audit
 
@@ -1132,9 +1526,116 @@ class Scheduler:
             out[qp.pod.uid] = info
         return out
 
+    # ------------------------------------------------------------- serving
+
+    def prewarm(self) -> bool:
+        """reference: kubetpu/scheduler.py:2397 — before the first pod
+        arrives, build or load the CUDA kernels and run the mode's
+        program once on the current cluster with a synthetic batch, so
+        the first served cycle pays neither nvcc nor first allocations.
+        Nothing is assumed, bound or queued, and no cycle key is drawn.
+        Returns True if a program ran."""
+        if self.device.type == "cuda" and self.config.mode == "gang" \
+                and self.config.kernel_backend == "pallas":
+            load_propose()
+        snap = Snapshot()
+        self.cache.update_snapshot(snap)
+        node_infos = snap.node_info_list
+        if not node_infos:
+            return False
+        fwk = next(iter(self.profiles.values()))
+        protos = [PodInfo(api.Pod(
+            metadata=api.ObjectMeta(name=f"prewarm-{i}", namespace="default",
+                                    labels={"kubetpu-prewarm": f"g{i}"}),
+            spec=api.PodSpec(containers=[api.Container(
+                name="c", image="", resources=api.ResourceRequirements(
+                    requests={"cpu": "1m", "memory": "1Mi"}))])))
+            for i in range(min(self.config.batch_size, 1024))]
+        builder = SnapshotBuilder(
+            hard_pod_affinity_weight=fwk.hard_pod_affinity_weight)
+        builder.intern_pending(protos)
+        cluster = builder.build(node_infos).to_device(self.device)
+        batch = batch_to_device(PodBatchBuilder(builder.table).build(protos),
+                                self.device)
+        cfg = programs.ProgramConfig(
+            filters=fwk.tensor_filters, scores=fwk.tensor_scores,
+            hostname_topokey=max(builder.table.topokey.get(
+                api.LABEL_HOSTNAME), 0),
+            plugin_args=fwk.tensor_plugin_args(builder.table))
+        rng = prng.PRNGKey(0, device=self.device)
+        if self.config.mode == "gang":
+            res = run_auction(cluster, batch, cfg, rng,
+                              intra_batch_topology=False,
+                              kernel_backend=self.config.kernel_backend)
+        else:
+            res = schedule_sequential(
+                cluster, batch, cfg, rng,
+                hard_pod_affinity_weight=float(fwk.hard_pod_affinity_weight))
+        res.packed.cpu()
+        return True
+
+    def run(self) -> Optional[threading.Thread]:
+        """reference: kubetpu/scheduler.py:2733 (scheduler.go:339 Run) —
+        start the queue's and the cache's periodic work, prewarm (unless
+        the configuration or KUBETPU_PREWARM=0 turns it off), then serve
+        on a thread that never dies: a cycle that raises is logged and
+        the loop goes on.  Returns that thread, or None when close() ran
+        first (also during the prewarm)."""
+        if self._closed:
+            return None
+        self.queue.run()
+        self.cache.run()
+        if (self.config.prewarm
+                and os.environ.get("KUBETPU_PREWARM", "1") != "0"):
+            try:
+                self.prewarm()
+            except Exception:
+                logging.getLogger("kubetpu_torch").warning(
+                    "prewarm failed; the first cycle pays it", exc_info=True)
+
+        if self._closed:
+            return None
+
+        def loop():
+            while not self._stop.is_set():
+                try:
+                    self.schedule_pending(timeout=0.2)
+                except Exception:
+                    logging.getLogger("kubetpu_torch").error(
+                        "scheduling cycle raised", exc_info=True)
+                    time.sleep(0.1)
+        t = threading.Thread(target=loop, daemon=True,
+                             name="kubetpu-scheduler")
+        self._serve_thread = t
+        t.start()
+        return t
+
     def close(self) -> None:
+        """reference: kubetpu/scheduler.py:2787 — idempotent: stop the
+        serving loop and join it (bounded), then flush the pipeline (only
+        if the loop has ended, so the flush never races a cycle), then
+        close the queue, the cache, the dispatcher and the bind pool."""
+        if self._closed:
+            return
+        self._closed = True
+        self._stop.set()
+        t = self._serve_thread
+        serve_loop_live = False
+        if (t is not None and t is not threading.current_thread()
+                and t.is_alive()):
+            t.join(timeout=2.0)
+            serve_loop_live = t.is_alive()
+        self._serve_thread = None
+        if not serve_loop_live:
+            try:
+                self.flush_pipeline()
+            except Exception:
+                logging.getLogger("kubetpu_torch").warning(
+                    "pipeline flush at close failed", exc_info=True)
         self.queue.close()
         self.cache.close()
+        if self._dispatcher is not None:
+            self._dispatcher.shutdown(wait=not serve_loop_live)
         if self._bind_pool is not None:
             self._bind_pool.shutdown(wait=False)
 

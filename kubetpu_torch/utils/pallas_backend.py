@@ -11,16 +11,47 @@ and no pod carries a soft spread constraint; any other batch runs the lax
 round.  The decision is made before the auction from what the batch
 holds, and the caller records it.  It is not a fallback: on CUDA tensors
 the kernel builds and launches, or raises.
+
+The one exception is the recovery rung (kubetpu/utils/pallas_backend.py
+:97-115): after a cycle's dispatch raised or blew its deadline, the
+scheduler's ``_recover_cycle`` calls ``demote`` with the reason, and every
+later cycle of the process routes lax until ``reset_demotion``.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..ops.propose import SUPPORTED_SCORES
+
+_lock = threading.Lock()
+# the recovery rung's latch: the first reason wins, process-wide
+_demotion: Optional[str] = None   # kubelint: guarded-by(_lock)
+
+
+def demote(reason: str) -> None:
+    """Route every later cycle of the process to the lax round, with the
+    reason recorded (the scheduler's dispatch recovery); idempotent, the
+    first reason wins."""
+    global _demotion
+    with _lock:
+        if _demotion is None:
+            _demotion = reason
+
+
+def demotion() -> Optional[str]:
+    with _lock:
+        return _demotion
+
+
+def reset_demotion() -> None:
+    global _demotion
+    with _lock:
+        _demotion = None
 
 
 def unsupported_reason(cfg, intra_batch_topology: bool,
@@ -29,6 +60,9 @@ def unsupported_reason(cfg, intra_batch_topology: bool,
     with the lax round's placements; else a short reason.  A batch on
     the card costs one device->host read of its soft-constraint flags;
     a host (numpy) batch costs none."""
+    demoted = demotion()
+    if demoted is not None:
+        return "demoted:%s" % demoted
     if intra_batch_topology:
         return "intra-batch-topology"
     for name, _ in cfg.scores:

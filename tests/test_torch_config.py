@@ -18,7 +18,10 @@ JAX, PORT = PACKAGES
 CONFIG_FIELDS = ("percentage_of_nodes_to_score",
                  "pod_initial_backoff_seconds", "pod_max_backoff_seconds",
                  "disable_preemption", "extenders", "batch_size", "mode",
-                 "kernel_backend")
+                 "kernel_backend", "leader_election", "metrics_bind_address",
+                 "health_bind_address", "pipeline_cycles", "pipeline_depth",
+                 "dispatch_deadline_seconds", "bind_retries", "prewarm",
+                 "prewarm_ladder", "chain_cycles")
 
 
 def config_view(cfg):
@@ -294,12 +297,20 @@ def test_validation_initial_backoff_positive(seconds):
     {"pipelineDepth": 3},
 ])
 def test_serving_settings_refused(doc):
-    """The JAX package decodes the serving loop's settings; the port has
-    no reader for them until ROADMAP queue 1 item 9, so it refuses a
-    document that turns one on instead of ignoring it.  Left off, they
-    load in both packages."""
-    JAX.load.load_config(doc)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PORT.load.load_config(doc)
+    """The serving loop's settings (leader election, the metrics and
+    health addresses, the pipelined drain) decode in the port as in the
+    JAX package: the same fields, the same values, the same defaults for
+    the rest (the dispatch deadline, bind retries, prewarm).  The port
+    refused them until its serving loop existed; it now reads each."""
+    cfg = load_both(doc)
+    assert config_view(cfg) == config_view(JAX.load.load_config(doc))
     load_both({"leaderElection": {"leaderElect": False},
                "pipelineCycles": False})
+
+
+@pytest.mark.parametrize("depth", [0, -2])
+def test_serving_settings_validated(depth):
+    """pipelineDepth must be >= 1 in both packages, with the same
+    message."""
+    raises_both(lambda P: P.load.load_config({"pipelineDepth": depth}),
+                "pipelineDepth must be >= 1")

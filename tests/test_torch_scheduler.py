@@ -212,6 +212,30 @@ s.queue._clock = lambda: 1e12
 s.queue.flush_backoff_completed()
 out = s.schedule_pending()
 assert out[0].node == "n1", out
+# the serving surface: the pipelined drain, the REST store, the HTTP
+# server, leader election, the metrics and the entry point
+import kubetpu_torch.client.rest
+import kubetpu_torch.server
+import kubetpu_torch.utils.leaderelection
+from kubetpu_torch.__main__ import main
+store = ClusterStore()
+for n in hollow.make_nodes(6):
+    store.add(n)
+s = Scheduler(store, KubeSchedulerConfiguration(
+    profiles=[KubeSchedulerProfile()], mode="gang", kernel_backend="pallas",
+    batch_size=4, pipeline_cycles=True, pipeline_depth=3), device="cpu")
+for p in hollow.make_pods(12, prefix="pipe-"):
+    store.add(p)
+placed = 0
+for _ in range(20):
+    out = s.schedule_pending()
+    if not out:
+        break
+    placed += sum(1 for o in out if o.node)
+s.close()
+assert placed == 12, placed
+assert main(["--once", "--device", "cpu", "--hollow-nodes", "4",
+             "--hollow-pods", "6", "--mode", "gang"]) == 0
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "kubetpu" or m.startswith("kubetpu.")]
 assert not bad, bad
@@ -225,6 +249,19 @@ def test_port_imports_neither_jax_nor_reference():
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "ISOLATED" in out.stdout
+    # python -m kubetpu_torch itself loads neither
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "kubetpu_torch",
+         "--device", "cpu", "--once", "--hollow-nodes", "2",
+         "--hollow-pods", "2"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    loaded = [line.rsplit("|", 1)[-1].strip()
+              for line in out.stderr.splitlines()
+              if line.startswith("import time:")]
+    assert "kubetpu_torch.scheduler" in loaded
+    assert not [m for m in loaded
+                if m.split(".")[0] in ("jax", "jaxlib", "kubetpu")], loaded
 
 
 def test_port_sources_have_no_reference_imports():

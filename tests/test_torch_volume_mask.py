@@ -6,8 +6,9 @@ port: an autouse fixture points the module-level names they resolve (the
 API types, the store, NodeInfo and PodInfo, the plugins, the snapshot
 builder, build_volume_overlay and volume_mask, and the node and pod
 makers) at the port's, with the cluster on the CPU.  The fifth,
-test_pipelined_chain_survives_unsatisfiable_claim, drives the pipelined
-serving loop, which waits for ROADMAP queue 1 item 9.
+test_pipelined_chain_survives_unsatisfiable_claim, imports the JAX
+Scheduler in its body, so its twin is written out here against the
+port's pipelined serving loop.
 
 Beside them, on seeded worlds (kubetpu_torch/harness/volume_worlds.py,
 built in both packages' API types): the port's overlay equals the JAX
@@ -82,6 +83,53 @@ def test_port_volume_mask_multi_pv_zone_intersection():
 
 def test_port_unbound_claim_capacity_and_modes_prefilter():
     VM.test_unbound_claim_capacity_and_modes_prefilter()
+
+
+def test_port_pipelined_chain_survives_unsatisfiable_claim():
+    """An unbound claim no PV can satisfy fails before the dispatch, by
+    the device mask, not at the commit-time host re-check: a commit
+    failure there would discard the pipelined drain's speculative chain
+    and re-run the cycle."""
+    from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
+                                           KubeSchedulerProfile)
+    from kubetpu_torch.scheduler import Scheduler
+
+    store = tstore.ClusterStore()
+    for i in range(4):
+        store.add(port_mknode(name=f"n{i}"))
+    store.add(tapi.StorageClass(metadata=tapi.ObjectMeta(name="fast"),
+                                provisioner="kubernetes.io/aws-ebs"))
+    store.add(tapi.PersistentVolume(
+        metadata=tapi.ObjectMeta(name="pv-small"),
+        capacity={"storage": "1Gi"}, storage_class_name="fast"))
+    sched = Scheduler(store, config=KubeSchedulerConfiguration(
+        profiles=[KubeSchedulerProfile()], batch_size=8, mode="gang",
+        chain_cycles=True, pipeline_cycles=True), device="cpu")
+
+    def wave(tag, request):
+        store.add(tapi.PersistentVolumeClaim(
+            metadata=tapi.ObjectMeta(name=f"{tag}-c"),
+            storage_class_name="fast",
+            resources=tapi.ResourceRequirements(
+                requests={"storage": request})))
+        p = port_mkpod(name=tag)
+        p.spec.volumes = [tapi.Volume(name="v",
+                                      persistent_volume_claim=f"{tag}-c")]
+        store.add(p)
+
+    outcomes = []
+    wave("ok-0", "512Mi")
+    wave("big-0", "10Gi")   # no matchable PV: must fail pre-dispatch
+    for _ in range(6):
+        got = sched.schedule_pending(timeout=0.0)
+        if not got:
+            break
+        outcomes.extend(got)
+    by_name = {o.pod.metadata.name: o.node for o in outcomes}
+    assert by_name.get("ok-0"), "satisfiable pod must schedule"
+    assert not by_name.get("big-0"), "oversized claim must not schedule"
+    assert not sched._last_commit_failed
+    sched.close()
 
 
 def test_twins_run_through_the_port():

@@ -11,6 +11,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import multiprocessing
+import os
 import random
 from typing import NamedTuple
 
@@ -36,6 +37,28 @@ from kubetpu_torch.state.tensors import SnapshotBuilder as TSnapshotBuilder
 from kubetpu_torch.state.tensors import cluster_from_numpy
 
 FULL_FILTERS = jprog.DEFAULT_FILTER_PLUGINS
+
+# One intra-op thread for torch in every test process that imports this
+# module (each xdist worker collects it): the port's CPU tests run many
+# small ops, six workers with one torch thread per core each oversubscribe
+# the machine, and one thread gives the same bits (the port's reductions
+# are exact in any order, and a single thread is the canonical one).
+torch.set_num_threads(1)
+
+
+def no_persistent_jax_cache() -> None:
+    """Keep JAX's persistent compilation cache off in every test process
+    that imports this module.  A JAX Scheduler turns it on
+    (kubetpu/utils/compilation.py), and both of its disk paths have
+    crashed xdist workers here: writing an entry serializes the XLA:CPU
+    executable (jax compilation_cache.put_executable_and_time aborted),
+    and reading one back deserializes it (get_executable_and_time
+    segfaulted on a warm cache).  The tests compare in-process results,
+    so an in-process compile serves them the same."""
+    jax.config.update("jax_enable_compilation_cache", False)
+
+
+no_persistent_jax_cache()
 
 
 def _node(A, name, labels, cpu, mem, pods, taints, unschedulable):
@@ -376,8 +399,21 @@ def jax_process():
     it when the module ends, instead of accumulating in the test worker,
     and a fault inside XLA ends the child, not the test worker."""
     ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as ex:
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=ctx, initializer=_detach_stdio) as ex:
         yield ex
+
+
+def _detach_stdio() -> None:
+    """In a jax_process child: let go of the standard streams inherited
+    from the test worker.  An xdist worker talks to its controller over
+    its stdin and stdout; a child still holding them after the worker
+    died would keep the controller from ever seeing the worker go down,
+    and the run would hang."""
+    null = os.open(os.devnull, os.O_RDWR)
+    for fd in (0, 1, 2):
+        os.dup2(null, fd)
+    os.close(null)
 
 
 def drive(pkg, scenario, max_cycles=12, **sched_kw):
