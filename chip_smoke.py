@@ -99,10 +99,11 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
   seq_slice  SchedulingBasic5000Nodes under the default configuration: mode
              sequential (the replay, models/sequential.py), adaptive
              sampling (500 of 5,000 nodes per pod), batch 1,000.  Every
-             pod placed, no capacity violated; and the first 250 of the
-             1,000 pods drained on the card and with device="cpu" (a cut:
-             the CPU replay costs ~45 s per 1,000 pods): the same
-             placements and final start index (the CPU's time reported);
+             pod placed, no capacity violated; and the same world drained
+             with device="cpu" (in a child process started with the run,
+             since the CPU replay costs ~45 s per 1,000 pods): the same
+             placements of all 1,000 pods and the same final start index
+             (the CPU's time reported);
   seq_anti   SchedulingPodAntiAffinity5000Nodes (scheduler_perf
              config/performance-config.yaml:20-26): 5,000 nodes, 1,000
              init pods bound one per node on every fifth node (a cut: the
@@ -137,9 +138,9 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
   binpack    SchedulingBasic5000Nodes under a bin-packing profile (the
              default set plus RequestedToCapacityRatio with the plugin's
              default arguments and NodeResourceLimits): the sequential
-             replay on the card (every scan under "error"), its first 250
-             pods on the card and on the CPU (the same cut as seq_slice):
-             same placements and start index; launches and device ms per
+             replay on the card (every scan under "error"), held against
+             the CPU replay of the world (as seq_slice's): same
+             placements and start index; launches and device ms per
              scan step over a profiled window of 128 steps; the same world
              in gang mode under "pallas", routed to the lax round as
              "score:RequestedToCapacityRatio" (route checked);
@@ -204,18 +205,19 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              launches K1 as often as the synchronous drain, every launch
              recorded and held against the plain version; the depth-4
              ring reaches 3 parked cycles; per drain the seconds, stages,
-             host-exempt seconds, the serving thread's wait on the
-             dispatcher thread, cycles and re-runs.  vol_backlog (batch
+             host-exempt seconds, cycles and re-runs.  vol_backlog (batch
              1,024, so a volume batch finds cycles in flight and flushes
              them first) pipelined at depth 2 equals its synchronous
              drain.  Every drain runs on a frozen queue clock in passes
-             (serve_passes), and fails on any recovery or demotion.  One
-             injected dispatch fault (the backlog's 1,000-node world,
-             depth 2, the third auction raises on the dispatcher thread):
-             the recovery recorded with its reason and the pallas
-             demotion, the cycle's pods requeued, the younger cycle
-             re-run, every pod bound exactly once, four per node, no
-             capacity violated; then reset_demotion.  Scheduler.run and
+             (serve_passes).  Two
+             injected faults in the backlog's 1,000-node world: at depth
+             2 the third auction raises, and at depth 3 with a 2 s
+             deadline the first auction stalls 3 s; each recovery
+             recorded with its reason, no demotion (every cycle before
+             and after it on the kernel route), the cycle's pods
+             requeued, after the stall the younger cycle re-run, every
+             pod bound exactly once, four per node, no capacity
+             violated.  Scheduler.run and
              SchedulerServer on 5,000 hollow nodes with 5,000 pending
              pods and one that fits nowhere (depth 2, binding on the
              pool): every pod bound within a bound, /healthz, /metrics
@@ -250,7 +252,10 @@ dense [N, L] matvecs at the drain's own shape.  Likewise every gang
 auction on the card (each gang drain's and the reference checks') runs
 under "error" but for its two permitted reads, the exact-sum check
 before the rounds and the one flags read per round (GangRounds), and
-each auction's flag reads must equal its rounds.
+each auction's flag reads must equal its rounds.  Such an error, or any
+other of the kernel path, raises out of the scheduler (it is never
+recovered), and every drain of the smoke but the injected fault's fails
+on a recovered cycle or a demotion (check_no_recovery).
 
 The main path is the pallas drain of each of slice, backlog, fill,
 preempt, gang_anti, gang_spread and autoscaler, each sequential drain,
@@ -277,8 +282,10 @@ limit) and the kernels' JSON line; the last line is the contract's
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -385,6 +392,17 @@ def placements_of(store) -> dict:
     return {p.metadata.name: p.spec.node_name for p in store.list("Pod")}
 
 
+def check_no_recovery(sched, what) -> None:
+    """Fail on any cycle the scheduler recovered (its dispatch raised or
+    blew the deadline) and on a latched demotion: on the main path every
+    cycle runs to its commit on its own route."""
+    from kubetpu_torch.utils import pallas_backend as PB
+    if sched.recovery_log or PB.demotion() is not None:
+        raise AssertionError("%s: recovered %s, demotion %r"
+                             % (what, list(sched.recovery_log),
+                                PB.demotion()))
+
+
 def drain(store, pods, backend, batch_size, device, record=None,
           record_limit=None, profile=None, families=None, fresh=False,
           chain=True):
@@ -433,6 +451,8 @@ def drain(store, pods, backend, batch_size, device, record=None,
         if restore is not None:
             restore()
     sched.close()
+    check_no_recovery(sched, "drain %s %s" % (backend or "sequential",
+                                              device))
     if sched.preempt_wave_failures:
         raise AssertionError("drain: %d preemption waves failed"
                              % sched.preempt_wave_failures)
@@ -1214,40 +1234,57 @@ def phase_gang_spread() -> dict:
     return out
 
 
-# pods of the sequential card-vs-CPU comparisons (seq_slice, binpack): a
-# cut of the 1,000 measured pods, since the CPU replay at 5,000 nodes
-# costs ~45 s per 1,000 pods of the smoke's time limit
-SEQ_CPU_PODS = 250
+# The sequential card-vs-CPU comparisons (seq_slice, binpack) hold the
+# timed 1,000-pod card drain against the CPU replay of the same world.
+# That replay at 5,000 nodes takes ~45 s per 1,000 pods of CPU time, so
+# main() starts both in one spawned child at the start of the run, where
+# they run beside the card phases on CPU_REF_THREADS torch threads, and
+# each phase collects its own (CPU_REFS).
+CPU_REF_THREADS = 4
+CPU_REFS = {}
 
 
-def _seq_card_vs_cpu(what, profile=None) -> dict:
-    """The first SEQ_CPU_PODS of the 1,000 measured pods on 5,000 nodes
-    (one bound pod each) through the replay on the card and on the CPU:
-    the same placements and the same final start index."""
-    runs = {}
-    for device in ("cuda", "cpu"):
-        sched, placed, seconds, _ = drain(
-            hollow_store(5000, 1), pending_pods(1000, "measured")
-            [:SEQ_CPU_PODS], None, 1000, device, profile=profile)
-        runs[device] = (sched, placed, seconds)
-    (card, placed, _), (cpu, cplaced, cseconds) = runs["cuda"], runs["cpu"]
-    if cplaced != placed:
-        diff = [k for k in placed if placed[k] != cplaced.get(k)]
+def _seq_cpu_reference(what) -> dict:
+    """The replay of seq_slice's or binpack's world (5,000 nodes, one
+    bound pod each, the 1,000 measured pods) on the CPU: placements,
+    final start index, seconds and stages."""
+    import torch
+    torch.set_num_threads(CPU_REF_THREADS)
+    profile = binpack_profile() if what == "binpack" else None
+    sched, placed, seconds, _ = drain(
+        hollow_store(5000, 1), pending_pods(1000, "measured"), None, 1000,
+        "cpu", profile=profile)
+    return dict(placed=placed, next_start=sched._next_start_node_index,
+                seconds=seconds, stage_s=dict(sched.stage_s))
+
+
+def _seq_card_vs_cpu(what, card_placed, card_sched) -> dict:
+    """The timed card drain of ``what`` against the CPU replay of the
+    same world (from main()'s child, or run here when the phase runs
+    without main): the same placements of all 1,000 pods and the same
+    final start index."""
+    fut = CPU_REFS.pop(what, None)
+    t0 = time.perf_counter()
+    cpu = fut.result() if fut is not None else _seq_cpu_reference(what)
+    waited = time.perf_counter() - t0
+    if cpu["placed"] != card_placed:
+        diff = [k for k in card_placed
+                if card_placed[k] != cpu["placed"].get(k)]
         raise AssertionError("%s: %d placements differ card vs CPU"
                              % (what, len(diff)))
-    if cpu._next_start_node_index != card._next_start_node_index:
+    if cpu["next_start"] != card_sched._next_start_node_index:
         raise AssertionError("%s: start index differs card vs CPU" % what)
-    return dict(cpu_pods=SEQ_CPU_PODS, cpu_drain_s=cseconds,
-                cpu_stage_s=cpu.stage_s, matches_cpu=True)
+    return dict(cpu_pods=len(card_placed), cpu_drain_s=cpu["seconds"],
+                cpu_stage_s=cpu["stage_s"], cpu_wait_s=waited,
+                matches_cpu=True)
 
 
 def phase_seq_slice() -> dict:
-    """SchedulingBasic5000Nodes under the default configuration on the
-    card; its first SEQ_CPU_PODS pods on the card and on the CPU: same
-    placements, same final start index."""
-    _, _, out = _seq_drain("seq_slice", hollow_store(5000, 1),
-                           pending_pods(1000, "measured"), 1000)
-    out.update(_seq_card_vs_cpu("seq_slice"))
+    """SchedulingBasic5000Nodes under the default configuration, on the
+    card and on the CPU: same placements, same final start index."""
+    sched, placed, out = _seq_drain("seq_slice", hollow_store(5000, 1),
+                                    pending_pods(1000, "measured"), 1000)
+    out.update(_seq_card_vs_cpu("seq_slice", placed, sched))
     return out
 
 
@@ -1553,6 +1590,7 @@ def _preempt_drain(store, pods, backend, device, batch_size=None,
             restore()
         store.delete = orig_delete
     sched.close()
+    check_no_recovery(sched, "preempt drain %s %s" % (backend, device))
     noms = {p.metadata.name: p.status.nominated_node_name
             for p in store.list("Pod") if p.status.nominated_node_name}
     return (sched, placed, deleted, noms, seconds,
@@ -1933,6 +1971,7 @@ def resident_drain(n_nodes, batch, waves, backend, device, digest=False,
     store.delete = orig_delete
     sched.close()
     what = "resident %s %s" % (backend or "sequential", device)
+    check_no_recovery(sched, what)
     if sched.preempt_wave_failures:
         raise AssertionError("%s: a wave failed" % what)
     if capacity_violations(store):
@@ -2060,16 +2099,16 @@ def phase_autoscaler() -> dict:
 
 def phase_binpack() -> dict:
     """SchedulingBasic5000Nodes under the bin-packing profile: the
-    sequential replay on the card (every scan under "error"), and its
-    first SEQ_CPU_PODS pods on the card and on the CPU, the same
-    placements and start index; the replay's launches and
+    sequential replay on the card (every scan under "error"), held
+    against the CPU replay, the same placements and start index; the
+    replay's launches and
     device ms per step over a profiled window; and the same world in gang
     mode under "pallas", routed to the lax round for its
     RequestedToCapacityRatio score."""
-    _, _, out = _seq_drain("binpack", hollow_store(5000, 1),
-                           pending_pods(1000, "measured"), 1000,
-                           profile=binpack_profile())
-    out.update(_seq_card_vs_cpu("binpack", profile=binpack_profile()))
+    sched, placed, out = _seq_drain("binpack", hollow_store(5000, 1),
+                                    pending_pods(1000, "measured"), 1000,
+                                    profile=binpack_profile())
+    out.update(_seq_card_vs_cpu("binpack", placed, sched))
     out.update(window=_profiled_scan_window(
         hollow_store(5000, 1), pending_pods(1000, "measured"),
         sched_profile=binpack_profile()))
@@ -2140,6 +2179,7 @@ def points_drain(device, mode, terms, record=None):
         if restore is not None:
             restore()
     sched.close()
+    check_no_recovery(sched, "points %s %s" % (mode, device))
     placed = {p.metadata.name: p.spec.node_name for p in store.list("Pod")}
     return placed, PW.per_pod(calls), sorted(forgotten), sched.gang_backends
 
@@ -2255,11 +2295,9 @@ def serve_drain(store, pods, batch_size, depth, pipelined=True, record=None,
                 **cfg_kw):
     """One drain of ``pods`` through serve_sched and serve_passes, every
     K1 launch recorded (record).  Reports the drain's seconds, stages,
-    the host seconds exempted from the deadline (summed over cycles), the
-    serving thread's seconds blocked on the dispatcher thread, cycles,
-    rounds, the ring's high-water mark and the re-run cycles.  Fails on
-    any recovery or demotion."""
-    from kubetpu_torch.utils import pallas_backend as PB
+    the host seconds exempted from the deadline (summed over cycles),
+    cycles, rounds, the ring's high-water mark and the re-run cycles.
+    Fails on any recovery or demotion."""
     sched = serve_sched(store, batch_size, depth, pipelined, **cfg_kw)
     exempt = []
     commit = sched._commit_group
@@ -2280,18 +2318,13 @@ def serve_drain(store, pods, batch_size, depth, pipelined=True, record=None,
         if restore is not None:
             restore()
         sched.close()
-    if sched.recovery_log or PB.demotion() is not None:
-        raise AssertionError("serving drain (depth %d): recovered %s, "
-                             "demotion %r" % (depth,
-                                              list(sched.recovery_log),
-                                              PB.demotion()))
+    check_no_recovery(sched, "serving drain (depth %d)" % depth)
     if sched.preempt_wave_failures:
         raise AssertionError("serving drain: %d preemption waves failed"
                              % sched.preempt_wave_failures)
     stats = dict(depth=depth if pipelined else "sync", drain_s=seconds,
                  stage_s=dict(sched.stage_s),
                  host_exempt_s=sum(exempt),
-                 dispatch_wait_s=sched.dispatch_wait_s,
                  cycles=sched.cycle_count, rounds=sum(sched.gang_rounds),
                  routes=sorted({b for b, _ in sched.gang_backends}),
                  ring_high_water=sched._pipeline.ring.high_water,
@@ -2347,14 +2380,18 @@ def _serve_depths(what, make_world, batch_size, depths=SERVE_DEPTHS,
     return runs
 
 
-def _serve_fault(n_nodes=1000, depth=2, fail_at=3, batch_size=512):
+def _serve_fault(kind, fail_at, n_nodes=1000, batch_size=512):
     """A seeded 1,000-node pipelined drain (the backlog's world, batch
-    512) whose ``fail_at``-th dispatch raises on the dispatcher thread:
-    the recovery is recorded with its reason and demotes the process to
-    lax, the cycle's pods are requeued, the younger cycles (dispatched,
-    or prepared against the failed cycle's chain) are re-run; every pod
-    ends bound exactly once (a store that counts binds), four on every
-    node; no capacity violated.  Then reset_demotion."""
+    512) whose ``fail_at``-th auction fails.  kind "error": at depth 2,
+    it raises; kind "stall": at depth 3, with a 2 s deadline, it sleeps
+    3 s first, so its readback finds the deadline blown; the first cycle
+    stalls, since the second is dispatched on its chain and is in flight
+    at that readback.  The recovery is recorded with its reason and
+    nothing is demoted (every cycle, before and after it, on the kernel
+    route), the cycle's pods are requeued, after the stall the younger
+    cycle is re-run (``PipelinedExecutor.reruns``); every pod ends bound
+    exactly once (a store that counts binds), four on every node; no
+    capacity violated."""
     import kubetpu_torch.scheduler as S
     from kubetpu_torch.client.store import ClusterStore
     from kubetpu_torch.scheduler import capacity_violations
@@ -2373,19 +2410,25 @@ def _serve_fault(n_nodes=1000, depth=2, fail_at=3, batch_size=512):
         hollow_store(n_nodes, 3, varied=True),
         pending_pods(4 * n_nodes, "backlog", cpu_milli=900))
     store = CountingStore()
-    for kind in ("Node", "Pod"):
-        for obj in src_store.list(kind):
+    for kind_ in ("Node", "Pod"):
+        for obj in src_store.list(kind_):
             store.add(obj)
     orig, calls = S.run_auction, [0]
 
     def faulty(*args, **kw):
         calls[0] += 1
         if calls[0] == fail_at:
-            raise RuntimeError("injected dispatch fault")
+            if kind == "error":
+                raise RuntimeError("injected dispatch fault")
+            time.sleep(3.0)
         return orig(*args, **kw)
     S.run_auction = faulty
     try:
-        sched = serve_sched(store, batch_size, depth)
+        if kind == "error":
+            sched = serve_sched(store, batch_size, 2)
+        else:
+            sched = serve_sched(store, batch_size, 3,
+                                dispatch_deadline_seconds=2.0)
         reprepared = [0]
         reprepare = sched._pipeline._reprepare
 
@@ -2399,49 +2442,42 @@ def _serve_fault(n_nodes=1000, depth=2, fail_at=3, batch_size=512):
     finally:
         S.run_auction = orig
         sched.close()
-    try:
-        log_ = list(sched.recovery_log)
-        if (len(log_) != 1 or log_[0]["kind"] != "dispatch-error"
-                or log_[0]["demoted"] != ["pallas->lax"]
-                or "injected dispatch fault" not in log_[0]["reason"]):
-            raise AssertionError("fault: recovery log %s" % log_)
-        if not (PB.demotion() or "").startswith("dispatch-error"):
-            raise AssertionError("fault: demotion %r" % PB.demotion())
-        requeued = [o for o in outs if o.err and "dispatch recovered" in o.err]
-        if len(requeued) != log_[0]["pods"] or not requeued:
-            raise AssertionError("fault: %d pods requeued, the log says %d"
-                                 % (len(requeued), log_[0]["pods"]))
-        if reprepared[0] < 1:
-            raise AssertionError("fault: no younger cycle was re-run")
-        if len(store.bind_calls) != len(set(store.bind_calls)):
-            raise AssertionError("fault: a pod was bound twice")
-        bound = {p.metadata.name for p in store.list("Pod")
-                 if p.spec.node_name and p.metadata.name.startswith(
-                     "backlog")}
-        if bound != set(store.bind_calls):
-            raise AssertionError("fault: binds and bound pods differ")
-        per_node = {}
-        for p in store.list("Pod"):
-            if p.spec.node_name:
-                per_node[p.spec.node_name] = per_node.get(
-                    p.spec.node_name, 0) + 1
-        bad = capacity_violations(store)
-        if bad:
-            raise AssertionError("fault: capacity violated on %d nodes"
-                                 % len(bad))
-        # each node fits four 900m pods beside its 0-3 100m ones
-        if len(bound) != 4 * n_nodes:
-            raise AssertionError("fault: %d pods bound, %d expected"
-                                 % (len(bound), 4 * n_nodes))
-        routes = [b for b, _ in sched.gang_backends]
-        return dict(recovery=log_[0], requeued=len(requeued),
-                    reruns=sched._pipeline.reruns, reprepared=reprepared[0],
-                    bound=len(bound),
-                    binds=len(store.bind_calls), cycles=sched.cycle_count,
-                    routes_before=routes[:fail_at - 1],
-                    routes_after=sorted(set(routes[fail_at:])))
-    finally:
-        PB.reset_demotion()
+    want = {"error": ("dispatch-error", "injected dispatch fault"),
+            "stall": ("dispatch-deadline", "> deadline")}[kind]
+    log_ = list(sched.recovery_log)
+    if (len(log_) != 1 or log_[0]["kind"] != want[0]
+            or want[1] not in log_[0]["reason"]):
+        raise AssertionError("fault %s: recovery log %s" % (kind, log_))
+    if PB.demotion() is not None:
+        raise AssertionError("fault %s: demotion %r" % (kind, PB.demotion()))
+    routes = [b for b, _ in sched.gang_backends]
+    if set(routes) != {"pallas"}:
+        raise AssertionError("fault %s: routes %s"
+                             % (kind, sorted(set(routes))))
+    requeued = [o for o in outs if o.err and "dispatch recovered" in o.err]
+    if len(requeued) != log_[0]["pods"] or not requeued:
+        raise AssertionError("fault %s: %d pods requeued, the log says %d"
+                             % (kind, len(requeued), log_[0]["pods"]))
+    if kind == "stall" and sched._pipeline.reruns < 1:
+        raise AssertionError("fault stall: no younger cycle was re-run")
+    if len(store.bind_calls) != len(set(store.bind_calls)):
+        raise AssertionError("fault %s: a pod was bound twice" % kind)
+    bound = {p.metadata.name for p in store.list("Pod")
+             if p.spec.node_name and p.metadata.name.startswith("backlog")}
+    if bound != set(store.bind_calls):
+        raise AssertionError("fault %s: binds and bound pods differ" % kind)
+    bad = capacity_violations(store)
+    if bad:
+        raise AssertionError("fault %s: capacity violated on %d nodes"
+                             % (kind, len(bad)))
+    # each node fits four 900m pods beside its 0-3 100m ones
+    if len(bound) != 4 * n_nodes:
+        raise AssertionError("fault %s: %d pods bound, %d expected"
+                             % (kind, len(bound), 4 * n_nodes))
+    return dict(recovery=log_[0], requeued=len(requeued),
+                reruns=sched._pipeline.reruns, reprepared=reprepared[0],
+                bound=len(bound), binds=len(store.bind_calls),
+                cycles=sched.cycle_count, routes=sorted(set(routes)))
 
 
 def _http_get(port, path):
@@ -2467,7 +2503,6 @@ def _serve_run(n_nodes=5000, n_pods=5000, depth=2, timeout_s=300.0):
     from kubetpu_torch.harness import hollow
     from kubetpu_torch.scheduler import Scheduler, capacity_violations
     from kubetpu_torch.server import SchedulerServer
-    from kubetpu_torch.utils import pallas_backend as PB
     from kubetpu_torch.utils.metrics import SchedulerMetrics
     store = hollow_store(n_nodes, 0)
     metrics = SchedulerMetrics()
@@ -2526,12 +2561,9 @@ def _serve_run(n_nodes=5000, n_pods=5000, depth=2, timeout_s=300.0):
         close_s = time.perf_counter() - t1
     if close_s > 10.0 or sched._serve_thread is not None:
         raise AssertionError("served: close() took %.1f s" % close_s)
-    if sched.recovery_log or PB.demotion() is not None:
-        raise AssertionError("served: recovered %s"
-                             % list(sched.recovery_log))
+    check_no_recovery(sched, "served")
     return dict(bound=bound, seconds=seconds, prewarm_s=prewarm_s,
                 close_s=close_s, cycles=sched.cycle_count,
-                dispatch_wait_s=sched.dispatch_wait_s,
                 stage_s=dict(sched.stage_s), explained=explained,
                 ring_high_water=sched._pipeline.ring.high_water)
 
@@ -2642,8 +2674,9 @@ def _serve_rest(n_nodes=1000, n_pods=2000, timeout_s=120.0):
 def phase_serving() -> dict:
     """The serving loop on the card: the pipelined fill at every depth,
     twice each, against the synchronous drain; vol_backlog pipelined
-    (the host-filter flush path) against its synchronous drain; one
-    injected dispatch fault; Scheduler.run with SchedulerServer; the CLI;
+    (the host-filter flush path) against its synchronous drain; an
+    injected dispatch error and a stall past the deadline; Scheduler.run
+    with SchedulerServer; the CLI;
     the REST store in two processes."""
     from kubetpu_torch.ops import propose as PK
     launches = 0
@@ -2657,7 +2690,7 @@ def phase_serving() -> dict:
     launches += sum(r["launches"] for r in vol)
     recorded = [r["recorded"] for r in fill + vol if "recorded" in r]
     PK.propose.launches = 0
-    fault = _serve_fault()
+    fault = dict(error=_serve_fault("error", 3), stall=_serve_fault("stall", 1))
     served = _serve_run()
     cli = _serve_cli()
     rest = _serve_rest()
@@ -2784,6 +2817,8 @@ def volume_drain(store, pods, backend, batch_size, device, record=None,
         if restore is not None:
             restore()
     sched.close()
+    check_no_recovery(sched, "volume drain %s %s" % (backend or "sequential",
+                                                     device))
     if sched.preempt_wave_failures:
         raise AssertionError("volume drain: %d preemption waves failed"
                              % sched.preempt_wave_failures)
@@ -3247,11 +3282,21 @@ def main() -> int:
     log({"build_s": time.perf_counter() - t0,
          "nvcc_s": _build.build_seconds.get("propose")})
     results = {}
-    for ph in phases:
-        t = time.perf_counter()
-        results[ph] = globals()["phase_" + ph]()
-        results[ph]["phase_s"] = time.perf_counter() - t
-        log({"phase": ph, "card": card, **results[ph]})
+    refs = [ph for ph in ("seq_slice", "binpack") if ph in phases]
+    pool = (concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+        if refs else None)
+    try:
+        for ph in refs:
+            CPU_REFS[ph] = pool.submit(_seq_cpu_reference, ph)
+        for ph in phases:
+            t = time.perf_counter()
+            results[ph] = globals()["phase_" + ph]()
+            results[ph]["phase_s"] = time.perf_counter() - t
+            log({"phase": ph, "card": card, **results[ph]})
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
     if {"kernel", *MAIN_PATHS} <= set(phases):
         # the pallas drain of each main path, counted on its own
         by_path = {ph: (results[ph]["pallas"]["launches"]

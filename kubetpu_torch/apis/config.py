@@ -7,8 +7,8 @@ kubetpu/apis/config.py.  YAML decoding, defaulting and validation live in
 apis/load.py.  The JAX package's serving-runtime knobs are here with its
 defaults (leader election, the metrics and health addresses, the dispatch
 deadline, bind retries, prewarm, the pipelined drain); meshes are not
-ported (ROADMAP queue 1 item 10), and ``prewarm_ladder`` is decoded but
-has no torch reader (ROADMAP item 11).
+ported (ROADMAP queue 1 item 10), and the XLA bucket ladder
+``prewarm_ladder`` has no torch counterpart (ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -123,9 +123,9 @@ class KubeSchedulerConfiguration:
     # instead of a refresh; any store event the chain does not account for
     # breaks it (scheduler.py).  The JAX package's default, as here
     chain_cycles: bool = True
-    # a cycle whose dispatch raises is recovered: the backend demotes one
-    # rung (pallas -> lax, utils/pallas_backend.demote), the residents are
-    # dropped and the pods requeued (Scheduler._recover_cycle).  A cycle
+    # a cycle whose dispatch raises is recovered: the residents are
+    # dropped and the pods requeued (Scheduler._recover_cycle); an error
+    # of the kernel path raises instead (ops/_build.kernel_fault).  A cycle
     # whose dispatch-to-readback wall time, less host work on other
     # cycles, exceeds this many seconds is recovered the same way; 0 (the
     # default) turns the deadline off.  Env override:
@@ -139,13 +139,9 @@ class KubeSchedulerConfiguration:
     # Scheduler.run builds or loads the CUDA kernels and runs one dry
     # cycle before serving, so the first served cycle pays no nvcc
     prewarm: bool = True
-    # the JAX package's pod-bucket compile ladder; eager torch compiles
-    # nothing per shape, so the port decodes it and never reads it
-    prewarm_ladder: int = 2
     # gang mode with chain_cycles: schedule_pending runs the depth-k
-    # pipelined executor (pipeline.py): cycle k's auction runs on a
-    # dispatcher thread while the serving thread commits k-1 and
-    # prepares k+1; outcomes lag up to pipeline_depth - 1 cycles.
+    # pipelined executor (pipeline.py): up to pipeline_depth - 1
+    # dispatched cycles stay uncommitted, and outcomes lag as many.
     # Placements equal the synchronous drain's at every depth
     pipeline_cycles: bool = False
     # the most cycles in flight at once; 1 = synchronous.  Env override:

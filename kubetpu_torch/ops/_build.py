@@ -20,12 +20,34 @@ import threading
 import time
 from typing import Dict, Optional
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false", "-shared",
                            "-Xcompiler", "-fPIC"]
+
+
+class KernelError(RuntimeError):
+    """A kernel that did not build, load or launch.  The scheduler never
+    recovers a cycle from it (kernel_fault): it raises."""
+
+
+def kernel_fault(e: BaseException) -> bool:
+    """True for an error of the kernel path, which no recovery may hide:
+    a failed build, load or launch of a kernel (KernelError), a broken
+    invariant (AssertionError) or a CUDA runtime error (a sticky device
+    fault, or a host sync the sync debug mode refuses).  The scheduler's
+    cycle then raises.  A CUDA out-of-memory is not one: it is
+    recovered."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return False
+    if isinstance(e, (KernelError, AssertionError)):
+        return True
+    return isinstance(e, RuntimeError) and "CUDA" in str(e)
+
 
 _lock = threading.Lock()
 _propose_lib: Optional[ctypes.CDLL] = None
@@ -57,8 +79,8 @@ def nvcc_path() -> str:
     cand = os.path.join(home, "bin", "nvcc")
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
-                       "with the CUDA toolkit (set CUDA_HOME)")
+    raise KernelError("nvcc not found: the CUDA kernels build on a machine "
+                      "with the CUDA toolkit (set CUDA_HOME)")
 
 
 def _lib_path(name: str) -> str:
@@ -84,8 +106,8 @@ def build(name: str) -> str:
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError("nvcc failed for %s:\n%s\n%s"
-                           % (name, res.stdout, res.stderr))
+        raise KernelError("nvcc failed for %s:\n%s\n%s"
+                          % (name, res.stdout, res.stderr))
     os.replace(tmp, out)
     build_seconds[name] = time.perf_counter() - t0
     return out
@@ -97,7 +119,11 @@ def load_propose() -> ctypes.CDLL:
     with _lock:
         if _propose_lib is None:
             _compile_events += 1
-            lib = ctypes.CDLL(build("propose"))
+            path = build("propose")
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise KernelError("cannot load %s: %s" % (path, e)) from e
             p = ctypes.c_void_p
             lib.propose_launch.argtypes = [p] * 19
             lib.propose_launch.restype = ctypes.c_int

@@ -391,7 +391,7 @@ def bind_propose(bundle, rows, live, req, nz, ports_used):
     counts it; the staged tensors stay alive in its closure.  The kernel
     reads the bundle's rows ``rows`` itself, and the round's carries as
     the auction keeps them: no copy is made here."""
-    from ._build import load_propose
+    from ._build import KernelError, load_propose
     lib = load_propose()
     L: Layout = bundle["layout"]
     planes = bundle["planes"]
@@ -433,8 +433,8 @@ def bind_propose(bundle, rows, live, req, nz, ports_used):
     def launch():
         rc = lib.propose_launch(*argv)
         if rc != 0:
-            raise RuntimeError("propose kernel launch failed: %s"
-                               % lib.propose_error_string(rc).decode())
+            raise KernelError("propose kernel launch failed: %s"
+                              % lib.propose_error_string(rc).decode())
         propose.launches += 1
 
     launch.keep = (layout, ptrs)

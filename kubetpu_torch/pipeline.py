@@ -12,15 +12,14 @@ against the previous cycle's speculative chained cluster or the
 committed cache, never a state that can diverge.
 
 The port's auction is not asynchronous: it reads a progress flag on the
-host once per round (models/gang.py, ``GangResult.syncs``), so a call
-returns only when the auction is done.  So a dispatch here runs on ONE
-dispatcher thread (``Scheduler._dispatch_group(..., background=True)``):
-the serving thread goes on to commit older cycles while it runs, and
-``_readback_guarded`` waits on its future, then on the packed copy.  A
-prepare waits for the last dispatch before it reads the chain that
-dispatch leaves (``Scheduler._await_dispatch``), so the order of every
-chain read and drop is the reference's program order.  All device work
-stays on the one default stream; no tensor crosses streams.
+host once per round (models/gang.py, ``GangResult.syncs``), so
+``_dispatch_group`` returns only when the auction's last round is done,
+with the packed copy to pinned memory still in flight.  The dispatch runs
+inline on the serving thread, so every chain read and drop keeps the
+reference's program order; what overlaps the older cycle's commit is that
+copy.  A device-side round loop (ROADMAP queue 2) is what would give the
+ring device work to overlap.  All device work stays on the one default
+stream; no tensor crosses streams.
 
 The correctness machinery, as in the reference:
 
@@ -31,9 +30,11 @@ The correctness machinery, as in the reference:
 * DEADLINE EXEMPTION per ring slot: commit loops and readbacks of OTHER
   cycles land inside a younger cycle's dispatch->readback window and are
   folded into its ``host_exempt_s``, and parked think time between calls
-  too, so host work at depth never demotes a healthy card.
+  too, so host work at depth never recovers a healthy cycle.  So is a
+  younger cycle's dispatch, which here runs its whole auction on the
+  serving thread inside every older slot's window.
 * CHAIN-BREAK RECOVERY BY SCATTER: when cycle j's readback recovers
-  (dispatch error, deadline) or its commit fails, every YOUNGER in-flight
+  (a blown deadline) or its commit fails, every YOUNGER in-flight
   cycle was dispatched against placements that never materialized: each
   is discarded and re-prepared against a fresh snapshot over the pods
   that survived its first prepare; no pod is lost, none binds twice.
@@ -55,6 +56,7 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 from .framework.types import wallclock
+from .ops._build import kernel_fault
 
 PIPELINE_DEPTH_ENV = "KUBETPU_PIPELINE_DEPTH"
 DEFAULT_PIPELINE_DEPTH = 2
@@ -283,7 +285,7 @@ class PipelinedExecutor:
                 packed_oldest, rec_prev = s._readback_guarded(*oldest)
                 ring.exempt(wallclock() - t0)
                 if rec_prev is not None:
-                    # the oldest's dispatch errored or blew its deadline:
+                    # the oldest's dispatch blew its deadline:
                     # it was recovered (pods requeued, residents
                     # invalidated) — every younger in-flight cycle AND
                     # the just-prepared k descend from its chain, so all
@@ -297,18 +299,24 @@ class PipelinedExecutor:
                         ring.park(wallclock())
                         return returned
             res = None
+            t_disp = wallclock()
             with prep.trace.stage(
                     "dispatch",
                     pipelined=oldest is not None or len(ring) > 0):
                 try:
                     res = s._dispatch_group(
                         prep,
-                        extra_uncommitted=self._uncommitted_pods(oldest),
-                        background=True)
-                except Exception as e:  # device fault at the dispatch
-                    # seam: recover k (requeue), still commit the ring
-                    returned += s._recover_cycle(prep, repr(e),
-                                                 "dispatch-error")
+                        extra_uncommitted=self._uncommitted_pods(oldest))
+                except Exception as e:  # fault at the dispatch seam:
+                    # recover k (requeue), still commit the ring
+                    if oldest is not None and kernel_fault(e):
+                        # k's error propagates: the oldest, read back
+                        # already, commits first, so no pod of it is lost
+                        self._commit_entry(oldest[0], packed_oldest)
+                    returned += s._recover_dispatch_error(prep, e)
+            # k's auction ran on this thread: another cycle's time inside
+            # every in-flight slot's window
+            ring.exempt(wallclock() - t_disp)
             if res is None:
                 prep.trace.finish(recovered="dispatch-error")
                 if oldest is not None:
@@ -345,10 +353,9 @@ class PipelinedExecutor:
                         return returned
                     with prep.trace.stage("dispatch"):
                         try:
-                            res = s._dispatch_group(prep, background=True)
+                            res = s._dispatch_group(prep)
                         except Exception as e:
-                            returned += s._recover_cycle(
-                                prep, repr(e), "dispatch-error")
+                            returned += s._recover_dispatch_error(prep, e)
                             prep.trace.finish(recovered="dispatch-error")
                             if s.metrics and returned:
                                 s.metrics.observe_cycle(
@@ -398,9 +405,8 @@ class PipelinedExecutor:
 
     def _finish_inflight(self, prep, res) -> List:
         """Readback + commit one detached in-flight cycle.  A pre-commit
-        recovery (dispatch error surfacing at the readback, or a blown
-        deadline) or a commit failure re-runs every younger in-flight
-        cycle by scatter."""
+        recovery (a blown deadline) or a commit failure re-runs every
+        younger in-flight cycle by scatter."""
         s = self.sched
         t0 = wallclock()
         packed, rec = s._readback_guarded(prep, res)
@@ -465,21 +471,27 @@ class PipelinedExecutor:
         can double-bind.  The rare path; depth resumes on the next pop."""
         s = self.sched
         outs: List = []
-        for prep_i, _res in entries:
+        for i, (prep_i, _res) in enumerate(entries):
             self.reruns += 1
-            new_prep, early = self._reprepare(prep_i)
-            outs += early
-            if new_prep is None:
-                continue
-            with new_prep.trace.stage("dispatch", rerun=True):
-                try:
-                    res = s._dispatch_group(new_prep)
-                except Exception as e:
-                    outs += s._recover_cycle(new_prep, repr(e),
-                                             "dispatch-error")
-                    new_prep.trace.finish(recovered="dispatch-error")
+            try:
+                new_prep, early = self._reprepare(prep_i)
+                outs += early
+                if new_prep is None:
                     continue
-            outs += s._finish_group(new_prep, res)
+                with new_prep.trace.stage("dispatch", rerun=True):
+                    try:
+                        res = s._dispatch_group(new_prep)
+                    except Exception as e:
+                        outs += s._recover_dispatch_error(new_prep, e)
+                        new_prep.trace.finish(recovered="dispatch-error")
+                        continue
+                outs += s._finish_group(new_prep, res)
+            except BaseException:
+                # a kernel fault propagates: the discarded cycles not
+                # re-run yet go back to the queue
+                for prep_j, _ in entries[i + 1:]:
+                    s._requeue_unsettled(prep_j.live)
+                raise
         return outs
 
     # --------------------------------------------------------------- helpers

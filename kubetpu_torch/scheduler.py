@@ -54,11 +54,13 @@ the dispatch), ``_dispatch_group`` (the device program, the packed copy
 and the next cycle's chain), ``_readback_guarded`` (the one readback,
 with the dispatch deadline) and ``_commit_group``.  The synchronous drain
 runs them in order.  With ``pipeline_cycles`` in gang mode the depth-k
-executor (pipeline.py) runs the dispatch on a dispatcher thread, so cycle
-k's auction overlaps k-1's commit and k+1's prepare, with the same
-placements.  A cycle whose dispatch raises, or blows
-``dispatch_deadline_seconds``, is recovered before anything of it commits
-(``_recover_cycle``).  ``run`` serves on a thread that never dies.
+executor (pipeline.py) keeps up to depth - 1 dispatched cycles
+uncommitted, with the same placements.  A cycle whose dispatch raises, or
+blows ``dispatch_deadline_seconds``, is recovered before anything of it
+commits (``_recover_cycle``: its pods requeue, the chain and the resident
+drop, the kernel route stays).  An error of the kernel path itself is
+never recovered and raises (``ops/_build.kernel_fault``).  ``run`` serves
+on a thread that never dies.
 
 The resident cluster: each profile keeps one device-resident cluster
 (state/delta.py DeltaTensorizer), brought up to date each cycle by a
@@ -80,8 +82,7 @@ import os
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future, ThreadPoolExecutor
-from concurrent.futures import wait as futures_wait
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -101,7 +102,7 @@ from .models.batch import (PodBatchBuilder, batch_to_device, build_nominated,
                            nominated_to_device, take_rows)
 from .models.gang import materialize_assigned, run_auction
 from .models.sequential import schedule_sequential
-from .ops._build import compile_events, load_propose
+from .ops._build import compile_events, kernel_fault, load_propose
 from .pipeline import PipelinedExecutor, depth_from_env
 from .plugins.intree import DefaultPreemption, new_in_tree_registry
 from .preemption import CycleContext, Preemptor
@@ -296,14 +297,9 @@ class Scheduler:
         self.recovery_log: deque = deque(maxlen=256)
         self._deadline_grace = 0
         self._last_commit_failed = False
-        # the depth-k pipelined executor (pipeline.py) and its dispatcher
-        # thread (made at the first pipelined dispatch), the dispatch it
-        # ran last, and the serving thread's seconds blocked on it
+        # the depth-k pipelined executor (pipeline.py)
         self._pipeline = PipelinedExecutor(
             self, depth_from_env(self.config.pipeline_depth or 2))
-        self._dispatcher: Optional[ThreadPoolExecutor] = None
-        self._dispatch_future: Optional[Future] = None
-        self.dispatch_wait_s = 0.0
         self._stop = threading.Event()
         self._serve_thread: Optional[threading.Thread] = None
         self._closed = False
@@ -631,8 +627,8 @@ class Scheduler:
         with prep.trace.stage("dispatch"):
             try:
                 res = self._dispatch_group(prep)
-            except Exception as e:   # device fault: recover, never lose
-                out = self._recover_cycle(prep, repr(e), "dispatch-error")
+            except Exception as e:   # recover, never lose a pod
+                out = self._recover_dispatch_error(prep, e)
                 prep.trace.finish(recovered="dispatch-error")
                 return outcomes + out
         return outcomes + self._finish_group(prep, res)
@@ -780,35 +776,19 @@ class Scheduler:
         return prep, outcomes
 
     def _dispatch_group(self, prep: "PreparedCycle",
-                        extra_uncommitted: int = 0,
-                        background: bool = False) -> Future:
+                        extra_uncommitted: int = 0):
         """reference: kubetpu/scheduler.py:1024 — the device half of a
         cycle: the mode's program, the packed readback's copy to the host
         and, in gang mode, the chained cluster of the next cycle.  Returns
-        a future of (packed host copy, copy event).  background: run it on
-        the dispatcher thread (the pipelined drain) and return at once;
-        then an error surfaces at the readback, where _readback_guarded
-        recovers it.  extra_uncommitted: pods of earlier cycles whose
-        commits have not landed (the chain's bucket guard)."""
+        (packed host copy, copy event).  The port's auction reads a flag
+        on the host once per round, so this returns when its last round
+        is done; only the packed copy is left in flight.
+        extra_uncommitted: pods of earlier cycles whose commits have not
+        landed (the chain's bucket guard)."""
         prep.dispatch_t0 = wallclock()
         if self._dispatch_deadline > 0:
             prep.compile_snap = compile_events()
-        # the chain's bucket guard reads the cache HERE, on the serving
-        # thread, before any later commit lands (as the reference reads it
-        # at its dispatch)
         fresh_pods = self.cache.pod_count() + extra_uncommitted
-        if not background:
-            fut: Future = Future()
-            fut.set_result(self._dispatch_body(prep, fresh_pods))
-            return fut
-        if self._dispatcher is None:
-            self._dispatcher = ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="dispatcher")
-        fut = self._dispatcher.submit(self._dispatch_body, prep, fresh_pods)
-        self._dispatch_future = fut
-        return fut
-
-    def _dispatch_body(self, prep: "PreparedCycle", fresh_pods: int):
         t = time.perf_counter()
         if self.config.mode == "gang":
             backend = self._gang_backend(prep.cfg, prep.needs_topo,
@@ -840,35 +820,19 @@ class Scheduler:
             self._stage("auction", t)
         return packed
 
-    def _await_dispatch(self) -> None:
-        """Wait until the dispatcher thread is idle: what the serving
-        thread does next (read or drop the chain, recover) must follow
-        the dispatch it issued last, as in the reference's program
-        order.  An error stays in its future for the readback."""
-        fut = self._dispatch_future
-        if fut is not None and not fut.done():
-            t0 = time.perf_counter()
-            futures_wait([fut])
-            self.dispatch_wait_s += time.perf_counter() - t0
-
-    def _readback_group(self, prep: "PreparedCycle", fut: Future
-                        ) -> np.ndarray:
+    @staticmethod
+    def _readback_group(res) -> np.ndarray:
         """reference: kubetpu/scheduler.py:1381 — the cycle's ONE
-        device->host readback: wait for the dispatch, then for the packed
-        [3B+1] copy.  Raises what the dispatch raised."""
-        t0 = wallclock()
-        if not fut.done():
-            futures_wait([fut])
-            self.dispatch_wait_s += wallclock() - t0
-        host, event = fut.result()
+        device->host readback: wait for the packed [3B+1] copy."""
+        host, event = res
         if event is not None:
             event.synchronize()
         return host.numpy()
 
-    def _readback_guarded(self, prep: "PreparedCycle", fut: Future):
+    def _readback_guarded(self, prep: "PreparedCycle", res):
         """reference: kubetpu/scheduler.py:1300 — (packed, None) on
-        success; (None, recovery outcomes) when the dispatch raised, or
-        when its dispatch-to-readback wall time, less the host seconds
+        success; (None, recovery outcomes) when the cycle's
+        dispatch-to-readback wall time, less the host seconds
         spent on other cycles in that window, exceeded the deadline.  A
         cycle during which a kernel library was built or loaded or a CUDA
         graph captured is exempt (legitimate, bounded first-use work),
@@ -877,12 +841,7 @@ class Scheduler:
             # time parked in the in-flight ring is caller think time
             prep.host_exempt_s += wallclock() - prep.parked_t
             prep.parked_t = 0.0
-        try:
-            packed = self._readback_group(prep, fut)
-        except Exception as e:
-            out = self._recover_cycle(prep, repr(e), "dispatch-error")
-            prep.trace.finish(recovered="dispatch-error")
-            return None, out
+        packed = self._readback_group(res)
         dl = self._dispatch_deadline
         if dl > 0 and prep.dispatch_t0:
             if self._deadline_grace > 0:
@@ -900,10 +859,10 @@ class Scheduler:
                     return None, out
         return packed, None
 
-    def _finish_group(self, prep: "PreparedCycle", fut: Future
+    def _finish_group(self, prep: "PreparedCycle", res
                       ) -> List[ScheduleOutcome]:
         """reference: kubetpu/scheduler.py:1347 — readback and commit."""
-        packed, recovered = self._readback_guarded(prep, fut)
+        packed, recovered = self._readback_guarded(prep, res)
         if packed is None:
             # the cycle never happened as far as state goes: its pods are
             # requeued and its residents dropped; a later pipelined cycle
@@ -964,10 +923,6 @@ class Scheduler:
         # landed; the per-pod PostFilter below reads its verdicts.  Only
         # when DefaultPreemption is the first PostFilter plugin
         wave_pods = [live[i].pod for i in failed if not unres[i]]
-        if wave_pods:
-            # preemption may capture a CUDA graph, which no other thread
-            # may launch work beside
-            self._await_dispatch()
         pf = fwk.post_filter_plugins
         if (wave_pods and self.preemptor is not None and pf
                 and isinstance(pf[0], DefaultPreemption)):
@@ -1002,7 +957,6 @@ class Scheduler:
         # pod's usage) and every pipelined cycle dispatched against it
         self._last_commit_failed = commit_failed
         if commit_failed and self.config.mode == "gang":
-            self._await_dispatch()
             self._drop_chain()
         self.preempt_stats.append(dict(cycle_ctx.stats))
         self._stage("preempt", t)
@@ -1019,11 +973,6 @@ class Scheduler:
         (builder, cluster, pod uid per existing-pod row, chained?, stage
         clock); the refresh's host work counts as tensorize and its device
         copies as upload."""
-        # the chain of the last dispatch, once it is there (the wait is
-        # dispatch_wait_s, not tensorize)
-        t_wait = time.perf_counter()
-        self._await_dispatch()
-        t += time.perf_counter() - t_wait
         with self._chain_lock:
             chain = self._chain
         use_chain = (chain is not None and chain["seq"] == chain_seq0
@@ -1101,24 +1050,31 @@ class Scheduler:
 
     # ------------------------------------------------------------- recovery
 
+    def _recover_dispatch_error(self, prep: "PreparedCycle",
+                                e: Exception) -> List[ScheduleOutcome]:
+        """A dispatch that raised: recover the cycle, unless the error is
+        the kernel path's own (kernel_fault); then the cycle's pods go
+        back to the queue and the error propagates."""
+        if kernel_fault(e):
+            self._requeue_unsettled(prep.live)
+            raise e
+        return self._recover_cycle(prep, repr(e), "dispatch-error")
+
     def _recover_cycle(self, prep: "PreparedCycle", reason: str,
                        kind: str) -> List[ScheduleOutcome]:
         """reference: kubetpu/scheduler.py:1225 — the recovery of a cycle
         whose dispatch raised or blew its deadline (kind
         "dispatch-error" / "dispatch-deadline"), before anything of it
-        committed: demote the backend one rung (pallas -> lax,
-        process-wide, utils/pallas_backend.demote), drop the chain and
-        the profile's resident (the next cycle resyncs), and requeue the
-        cycle's pods through backoff; the next two cycles are exempt from
-        the deadline.  Never raises."""
+        committed: drop the chain and the profile's resident (the next
+        cycle resyncs), and requeue the cycle's pods through backoff; the
+        next two cycles are exempt from the deadline.  Unlike the
+        reference, the kernel route is kept: the port never hands a
+        cycle to the plain round because the kernel path failed
+        (utils/pallas_backend.demote is the operator's alone).  Never
+        raises."""
         logging.getLogger("kubetpu_torch").warning(
             "cycle recovery (%s): %s; %d pods requeued", kind, reason,
             len(prep.live))
-        demoted = []
-        if self.config.kernel_backend == "pallas" and PB.demotion() is None:
-            PB.demote("%s: %s" % (kind, reason[:200]))
-            demoted.append("pallas->lax")
-        self._await_dispatch()
         with self._chain_lock:
             self._chain = None
             self._chain_seq += 1
@@ -1136,7 +1092,7 @@ class Scheduler:
         self._deadline_grace = 2
         self.recovery_log.append(
             {"kind": kind, "reason": reason, "pods": len(prep.live),
-             "demoted": demoted, "cycle": self.cycle_count})
+             "cycle": self.cycle_count})
         if self.metrics is not None:
             self.metrics.recoveries.inc(kind)
         err = f"dispatch recovered ({kind}): pod requeued"
@@ -1614,7 +1570,7 @@ class Scheduler:
         """reference: kubetpu/scheduler.py:2787 — idempotent: stop the
         serving loop and join it (bounded), then flush the pipeline (only
         if the loop has ended, so the flush never races a cycle), then
-        close the queue, the cache, the dispatcher and the bind pool."""
+        close the queue, the cache and the bind pool."""
         if self._closed:
             return
         self._closed = True
@@ -1634,8 +1590,6 @@ class Scheduler:
                     "pipeline flush at close failed", exc_info=True)
         self.queue.close()
         self.cache.close()
-        if self._dispatcher is not None:
-            self._dispatcher.shutdown(wait=not serve_loop_live)
         if self._bind_pool is not None:
             self._bind_pool.shutdown(wait=False)
 

@@ -278,7 +278,7 @@ class SchedulerMetrics:
         # self-healing runtime (utils/chaos.py + the recovery machinery):
         # faults the armed chaos registry injected, by point, and the
         # recoveries the runtime performed — dispatch-error /
-        # dispatch-deadline demotions, bind retries, anti-entropy
+        # dispatch-deadline recoveries, bind retries, anti-entropy
         # verify resyncs, aot artifact fallbacks
         self.faults_injected = r(Counter(
             f"{p}_faults_injected_total",

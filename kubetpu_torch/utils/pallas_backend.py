@@ -12,10 +12,11 @@ round.  The decision is made before the auction from what the batch
 holds, and the caller records it.  It is not a fallback: on CUDA tensors
 the kernel builds and launches, or raises.
 
-The one exception is the recovery rung (kubetpu/utils/pallas_backend.py
-:97-115): after a cycle's dispatch raised or blew its deadline, the
-scheduler's ``_recover_cycle`` calls ``demote`` with the reason, and every
-later cycle of the process routes lax until ``reset_demotion``.
+``demote`` (kubetpu/utils/pallas_backend.py:97-115) routes every later
+cycle of the process lax, with its reason, until ``reset_demotion``.  In
+the port it is the operator's switch alone: the scheduler's cycle
+recovery never calls it, so a failing kernel raises instead of handing
+its work to the plain round.
 """
 
 from __future__ import annotations
@@ -29,14 +30,14 @@ import torch
 from ..ops.propose import SUPPORTED_SCORES
 
 _lock = threading.Lock()
-# the recovery rung's latch: the first reason wins, process-wide
+# the operator's demotion latch: the first reason wins, process-wide
 _demotion: Optional[str] = None   # kubelint: guarded-by(_lock)
 
 
 def demote(reason: str) -> None:
     """Route every later cycle of the process to the lax round, with the
-    reason recorded (the scheduler's dispatch recovery); idempotent, the
-    first reason wins."""
+    reason recorded (an operator's choice; nothing in the port calls it);
+    idempotent, the first reason wins."""
     global _demotion
     with _lock:
         if _demotion is None:

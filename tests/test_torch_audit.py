@@ -23,6 +23,8 @@ from tests.test_torch_profiles import plugin_world
 from tests.torch_port_util import (assert_same, build_jax, build_jax_seq,
                                    carry, drive, jax_process, packages,
                                    port_cfg)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 
 @pytest.fixture(autouse=True)

@@ -28,6 +28,8 @@ from tests.torch_port_util import (assert_same, build_jax, carry,
                                    framework_packages, jax_process,
                                    new_scheduler, outcome_view, packages,
                                    drive)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 
 @pytest.fixture(autouse=True)

@@ -12,6 +12,8 @@ import dataclasses
 import pytest
 
 from tests.torch_port_util import framework_packages
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 PACKAGES = framework_packages()
 JAX, PORT = PACKAGES
@@ -21,7 +23,7 @@ CONFIG_FIELDS = ("percentage_of_nodes_to_score",
                  "kernel_backend", "leader_election", "metrics_bind_address",
                  "health_bind_address", "pipeline_cycles", "pipeline_depth",
                  "dispatch_deadline_seconds", "bind_retries", "prewarm",
-                 "prewarm_ladder", "chain_cycles")
+                 "chain_cycles")
 
 
 def config_view(cfg):

@@ -20,6 +20,8 @@ from kubetpu_torch.state import tensors as tensors_mod
 from kubetpu_torch.state.cache import SchedulerCache, Snapshot
 from kubetpu_torch.state.delta import DeltaTensorizer
 from kubetpu_torch.state.tensors import SnapshotBuilder, _densify_ids
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 NODE_AXIS_AND_VOCAB = [
     "allocatable", "requested", "nonzero_requested", "node_valid",

@@ -10,6 +10,8 @@ and the recorded call sequence.
 """
 from tests.torch_port_util import (framework_packages, new_scheduler,
                                    outcome_view)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 PACKAGES = framework_packages()
 POINTS = ("pre_filter", "filter", "post_filter", "score", "reserve",

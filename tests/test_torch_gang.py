@@ -15,6 +15,8 @@ from kubetpu.models import gang as jgang
 from kubetpu_torch.models import gang as tgang
 from tests.torch_port_util import (assert_same, build_jax, carry,
                                    jax_gumbel, port_cfg)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 CASES = [
     # seed, nodes, pods, residual_window

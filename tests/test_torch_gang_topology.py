@@ -39,6 +39,8 @@ from kubetpu_torch.utils import pallas_backend as TPB
 from tests.torch_port_util import (assert_same, build_jax, build_jax_from,
                                    build_jax_seq, build_port_from, carry,
                                    churned, jax_gumbel, port_cfg)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 SEEDS = [0, 1, 2, 3]
 

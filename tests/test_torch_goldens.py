@@ -29,6 +29,8 @@ import tests.test_goldens_filtering as GF
 import tests.test_goldens_plugins as GP
 import tests.test_goldens_selectorspread as GS
 from tests.torch_port_util import _port_world, port_run_cluster, to_port
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 
 def port_spread_scores(nodes, existing, pod, failed_names=()):

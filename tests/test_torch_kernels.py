@@ -16,6 +16,8 @@ from kubetpu_torch.ops import kernels as TK
 from kubetpu_torch.models import programs as tprog
 from kubetpu.models import programs as jprog
 from tests.torch_port_util import assert_same, build_jax, carry, port_cfg
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 SEEDS = [0, 1, 2]
 

@@ -9,6 +9,8 @@ import threading
 
 from kubetpu_torch.utils.leaderelection import (FileLock, InMemoryLock,
                                                 LeaderElector)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 
 def _elector(lock, identity, clock, events):

@@ -10,6 +10,8 @@ import sys
 import time
 
 import pytest
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

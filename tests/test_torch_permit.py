@@ -13,6 +13,8 @@ import time
 
 from tests.torch_port_util import (framework_packages, new_scheduler,
                                    outcome_view)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 PACKAGES = framework_packages()
 NAME = "TestPermit"

@@ -27,6 +27,8 @@ from kubetpu_torch.pipeline import (GATHER_WINDOW_S, InflightRing,
                                     PipelinedExecutor, depth_from_env)
 from kubetpu_torch.scheduler import Scheduler
 from tests.torch_port_util import jax_process
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 CHILD_TIMEOUT = 600.0
 

@@ -22,6 +22,8 @@ from tests.harness import run_cluster
 from tests.torch_port_util import (assert_same, framework_packages,
                                    new_scheduler, outcome_view,
                                    port_run_cluster)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 PACKAGES = framework_packages()
 

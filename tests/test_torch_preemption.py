@@ -27,6 +27,8 @@ import kubetpu.preemption as jpre
 import kubetpu_torch.preemption as tpre
 from kubetpu_torch.harness import preempt_worlds as PW
 from tests.torch_port_util import drive, packages
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 MODES = ["sequential", "gang"]
 

@@ -37,6 +37,8 @@ from kubetpu_torch.models.batch import batch_from_numpy, nominated_from_numpy
 from kubetpu_torch.state.tensors import cluster_from_numpy
 from tests.torch_port_util import (assert_same, jax_whatif_reprieve_mapped,
                                    port_cfg, to_numpy_tree)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 MIB = float(2 ** 20)
 

@@ -8,6 +8,8 @@ check (it counts XLA's compiles) has no counterpart."""
 import pytest
 
 from tests.test_torch_preemption import MODES, run_both
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 
 def _victims(store, H, node, n, prio=0, cpu=1500, prefix=None):

@@ -10,6 +10,8 @@ import pytest
 
 import kubetpu_torch.preemption as tpre
 from tests.test_torch_preemption import MODES, check_world
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -22,6 +22,8 @@ import torch
 import kubetpu.models.programs  # noqa: F401  (pins threefry_partitionable)
 from kubetpu_torch.utils import prng
 from kubetpu_torch.utils.xla_math import fma_f32, xla_log_f32
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 SEEDS = [0, 1, 7, 12345, 2**31 - 1, 2**32 - 1]
 

@@ -53,6 +53,8 @@ from kubetpu_torch.utils import pallas_backend as TPB
 from kubetpu_torch.utils import prng
 from tests.torch_port_util import (_infos, assert_same, build_jax, carry,
                                    drive, jax_gumbel, packages, port_cfg)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 
 @pytest.fixture(autouse=True)

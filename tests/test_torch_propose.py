@@ -22,6 +22,8 @@ from kubetpu_torch.models.programs import ProgramConfig as TConfig
 from kubetpu_torch.ops import propose as TPK
 from tests.torch_port_util import (assert_same, build_jax, jax_gumbel,
                                    port_cfg)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 
 def _port_bundle(jbundle, cfg, has_bias):

@@ -16,6 +16,8 @@ from kubetpu_torch.client.rest import APIServer, RestClusterStore
 from kubetpu_torch.client.store import ClusterStore, Conflict, NotFound
 from kubetpu_torch.harness import hollow
 from kubetpu_torch.scheduler import Scheduler
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 
 @pytest.fixture()

@@ -24,6 +24,8 @@ import kubetpu_torch.apis.config as tconf
 import kubetpu_torch.client.store as tstore
 import kubetpu_torch.harness.hollow as thollow
 import kubetpu_torch.scheduler as tsched
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

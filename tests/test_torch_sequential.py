@@ -32,6 +32,8 @@ from kubetpu_torch.models import sequential as tseq
 from kubetpu_torch.ops import kernels as tK
 from tests.torch_port_util import (assert_same, build_jax_seq, carry,
                                    jax_gumbel, port_cfg)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "goldens",
                            "placements.json")

@@ -1,6 +1,6 @@
 """The port's serving runtime on the CPU: cycle recovery, the dispatch
-deadline, the pallas demotion, the bind retry ladder, and
-``Scheduler.run`` served through ``SchedulerServer``.
+deadline, the kernel route kept through a recovery, the bind retry
+ladder, and ``Scheduler.run`` served through ``SchedulerServer``.
 
 Twins of tests/test_chaos.py's dispatch error, stall past the deadline,
 first-compile exemption, pallas demotion, pipelined dispatch error,
@@ -10,24 +10,33 @@ which is not ported (ROADMAP queue 1 item 11); here each fault is
 injected by monkeypatching the port's own seam: the scheduler module's
 ``run_auction`` (the auction the dispatch runs), ``Scheduler.
 _dispatch_group`` and the store's ``bind``.  Every recovery must lose no
-pod and bind none twice.  Every wait is bounded."""
+pod and bind none twice.  Where the JAX package demotes pallas to lax on
+a recovery, the port keeps the kernel route, and an error of the kernel
+path (a failed build or launch, a CUDA error, a broken invariant) is not
+recovered at all: it raises.  Every wait is bounded."""
+import importlib.util
 import json
+import os
 import time
 import urllib.error
 import urllib.request
 
 import pytest
+import torch
 
+import kubetpu_torch.models.gang as tgang
 import kubetpu_torch.scheduler as tsched
 from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
                                        KubeSchedulerProfile)
 from kubetpu_torch.client.store import ClusterStore
 from kubetpu_torch.harness import hollow
-from kubetpu_torch.ops._build import note_compile_event
+from kubetpu_torch.ops._build import KernelError, note_compile_event
 from kubetpu_torch.scheduler import Scheduler, capacity_violations
 from kubetpu_torch.server import SchedulerServer
 from kubetpu_torch.utils import pallas_backend as PB
 from kubetpu_torch.utils.metrics import SchedulerMetrics
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 
 @pytest.fixture(autouse=True)
@@ -201,10 +210,11 @@ def test_env_deadline_overrides_config(monkeypatch):
     sched.close()
 
 
-def test_dispatch_error_demotes_pallas_backend(monkeypatch):
-    """A pallas-routed cycle that takes a dispatch fault demotes the
-    process to the lax round with a recorded reason; later cycles run
-    lax and still place."""
+def test_dispatch_error_keeps_pallas_route(monkeypatch):
+    """A pallas-routed cycle that takes a dispatch fault is recovered
+    without a demotion: the retry runs the kernel route again and
+    places every pod.  (The JAX package demotes to lax here; the port
+    never hands a cycle to the plain round because of a fault.)"""
     store = ClusterStore()
     for n in hollow.make_nodes(3):
         store.add(n)
@@ -215,24 +225,167 @@ def test_dispatch_error_demotes_pallas_backend(monkeypatch):
             store.add(p)
         outs = _drain(sched)
         assert len(_placed(outs)) == 4
-        assert PB.demotion() is not None
-        assert PB.demotion().startswith("dispatch-error")
-        assert sched.recovery_log[0]["demoted"] == ["pallas->lax"]
-        assert PB.unsupported_reason(None, False).startswith("demoted:")
-        # the first cycle was routed to the kernel, the retry to lax
-        assert sched.gang_backends[0] == ("pallas", None)
-        assert sched.gang_backends[-1][0] == "lax"
-        assert sched.gang_backends[-1][1].startswith("demoted:")
+        assert [e["kind"] for e in sched.recovery_log] == ["dispatch-error"]
+        assert "demoted" not in sched.recovery_log[0]
+        assert PB.demotion() is None
+        assert sched.gang_backends == [("pallas", None)] * len(
+            sched.gang_backends)
+        assert len(sched.gang_backends) >= 2
     finally:
         sched.close()
 
 
+def test_operator_demotion_routes_lax_until_reset():
+    """``demote`` is the operator's switch: every later cycle of the
+    process runs lax with the reason recorded, until ``reset_demotion``."""
+    store = ClusterStore()
+    for n in hollow.make_nodes(3):
+        store.add(n)
+    sched = _sched(store, batch_size=4, kernel_backend="pallas")
+    try:
+        PB.demote("operator: kernel under investigation")
+        for p in hollow.make_pods(4, prefix="o-", group_labels=0):
+            store.add(p)
+        assert len(_placed(_drain(sched))) == 4
+        assert sched.gang_backends[-1] == (
+            "lax", "demoted:operator: kernel under investigation")
+        PB.reset_demotion()
+        for p in hollow.make_pods(4, prefix="r-", group_labels=0):
+            store.add(p)
+        assert len(_placed(_drain(sched))) == 4
+        assert sched.gang_backends[-1] == ("pallas", None)
+        assert not sched.recovery_log
+    finally:
+        sched.close()
+
+
+KERNEL_FAULTS = {
+    "launch": KernelError("propose kernel launch failed: invalid argument"),
+    "build": KernelError("nvcc failed for propose"),
+    # chip_smoke's GangRounds: the auction synced on the host beyond its
+    # one flags read per round (the sync debug mode's error), or the
+    # reads, syncs and rounds disagree
+    "sync-debug": RuntimeError("called a synchronizing CUDA operation"),
+    "rounds": AssertionError("gang auction: 3 flag reads, 2 syncs, 2 rounds"),
+    "sticky": RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered"),
+}
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+@pytest.mark.parametrize("fault", sorted(KERNEL_FAULTS))
+def test_kernel_fault_raises_and_loses_no_pod(monkeypatch, fault,
+                                              pipelined):
+    """An error of the kernel path in the second auction is never
+    recovered: schedule_pending raises it, nothing is recorded as a
+    recovery and no demotion latches.  No pod is lost: the first cycle's
+    pods bind (pipelined at depth 2, that cycle is read back but not yet
+    committed when the second dispatch raises, and commits first), the
+    faulted cycle's go back to the queue, and a drain afterwards binds
+    every pod exactly once on the kernel route."""
+    store = CountingStore()
+    for n in hollow.make_nodes(3):
+        store.add(n)
+    kw = dict(chain_cycles=True, pipeline_cycles=True,
+              pipeline_depth=2) if pipelined else {}
+    sched = _sched(store, batch_size=4, kernel_backend="pallas", **kw)
+    try:
+        orig = tgang._gang_program
+        calls = [0]
+
+        def faulty(*a, **k):
+            calls[0] += 1
+            if calls[0] == 2:
+                raise KERNEL_FAULTS[fault]
+            return orig(*a, **k)
+        monkeypatch.setattr(tgang, "_gang_program", faulty)
+        for p in hollow.make_pods(12, prefix="k-", group_labels=0):
+            store.add(p)
+        with pytest.raises(type(KERNEL_FAULTS[fault])) as info:
+            for _ in range(8):
+                sched.schedule_pending(timeout=0.0)
+        assert info.value is KERNEL_FAULTS[fault]
+        assert calls[0] == 2
+        assert not sched.recovery_log
+        assert PB.demotion() is None
+        assert len(store.bind_calls) == 4
+        _drain(sched)
+        sched.flush_pipeline()
+        bound = sorted(p.metadata.name for p in store.list("Pod")
+                       if p.spec.node_name)
+        assert bound == sorted(f"k-{i}" for i in range(12))
+        assert sorted(store.bind_calls) == bound
+        assert {b for b, _ in sched.gang_backends} == {"pallas"}
+        assert capacity_violations(store) == []
+    finally:
+        sched.close()
+
+
+def test_out_of_memory_is_recovered(monkeypatch):
+    """A CUDA out-of-memory at the dispatch is not a kernel fault: the
+    cycle is recovered and its pods place on the retry."""
+    store = CountingStore()
+    for n in hollow.make_nodes(3):
+        store.add(n)
+    sched = _sched(store, batch_size=4, kernel_backend="pallas")
+    try:
+        _fail_auction(monkeypatch, exc=torch.cuda.OutOfMemoryError(
+            "CUDA out of memory. Tried to allocate 2.00 GiB"))
+        for p in hollow.make_pods(4, prefix="m-", group_labels=0):
+            store.add(p)
+        placed = _placed(_drain(sched))
+        assert len(placed) == 4
+        assert sorted(store.bind_calls) == sorted(placed)
+        assert [e["kind"] for e in sched.recovery_log] == ["dispatch-error"]
+        assert PB.demotion() is None
+    finally:
+        sched.close()
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_module", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("fault", ["sync-debug", "recovered"])
+def test_chip_smoke_drain_fails_on_fault(monkeypatch, fault):
+    """chip_smoke.py's drains fail the run on a fault of the auction: a
+    sync-debug error raised inside it (as GangRounds raises on the card)
+    propagates out of the drain, and a fault the scheduler did recover
+    still fails the drain, by its recovery log."""
+    cs = _chip_smoke()
+    store = ClusterStore()
+    for n in hollow.make_nodes(4):
+        store.add(n)
+    pods = hollow.make_pods(8, prefix="cs-", group_labels=0)
+    if fault == "sync-debug":
+        orig = tgang._gang_program
+        armed = [True]
+
+        def faulty(*a, **k):
+            if armed[0]:
+                armed[0] = False
+                raise KERNEL_FAULTS["sync-debug"]
+            return orig(*a, **k)
+        monkeypatch.setattr(tgang, "_gang_program", faulty)
+        with pytest.raises(RuntimeError, match="synchronizing CUDA"):
+            cs.drain(store, pods, "pallas", 4, "cpu")
+    else:
+        _fail_auction(monkeypatch)
+        with pytest.raises(AssertionError, match="recover"):
+            cs.drain(store, pods, "pallas", 4, "cpu")
+    assert PB.demotion() is None
+
+
 @pytest.mark.parametrize("seam", ["auction", "dispatch"])
 def test_pipelined_dispatch_error_loses_no_pods(monkeypatch, seam):
-    """The pipelined drain: a fault on the dispatcher thread (surfacing
-    at the readback) or in the dispatch call itself requeues and places
-    everything, with no double binds, and the younger in-flight cycles
-    are re-run."""
+    """The pipelined drain: a fault in the auction or in the dispatch
+    call itself requeues and places everything, with no double binds,
+    and the younger in-flight cycles are re-run."""
     store = CountingStore()
     for n in hollow.make_nodes(3):
         store.add(n)
@@ -246,7 +399,7 @@ def test_pipelined_dispatch_error_loses_no_pods(monkeypatch, seam):
             left = [1]
 
             def faulty(prep, *a, **kw):
-                if left[0] and kw.get("background"):
+                if left[0] and "extra_uncommitted" in kw:
                     left[0] -= 1
                     raise RuntimeError("dispatch refused")
                 return orig(prep, *a, **kw)

@@ -11,6 +11,8 @@ from kubetpu_torch.models.batch import batch_to_device
 from kubetpu_torch.state.tensors import ClusterTensors
 from tests.torch_port_util import (assert_same, build_jax, build_port,
                                    carry, to_numpy_tree)
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 WORLDS = [(0, 12, 9), (1, 37, 20), (2, 64, 48)]
 

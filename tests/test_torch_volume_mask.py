@@ -34,6 +34,8 @@ from kubetpu.state.tensors import SnapshotBuilder as JSnapshotBuilder
 from kubetpu_torch.harness import volume_worlds as VW
 from kubetpu_torch.state.tensors import SnapshotBuilder as TSnapshotBuilder
 from tests.test_torch_volume_plugins import port_mknode, port_mkpod
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 ENABLED = set(jvs.DEVICE_COVERED_PLUGINS)
 

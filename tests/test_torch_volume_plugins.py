@@ -35,6 +35,8 @@ from kubetpu.client.store import ClusterStore as JStore
 from kubetpu.framework.interface import CycleState as JCycleState
 from kubetpu_torch.harness import volume_worlds as VW
 from tests.torch_port_util import to_port
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 
 def port_mknode(*args, **kw):

@@ -28,6 +28,8 @@ import kubetpu.harness.perf as jperf
 import kubetpu_torch.harness.perf as tperf
 from kubetpu_torch.harness import volume_worlds as VW
 from tests.torch_port_util import drive, packages
+from tests.torch_port_util import (  # noqa: F401 (autouse fixtures)
+    port_test_settings, release_jax_programs)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

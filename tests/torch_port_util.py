@@ -18,7 +18,9 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
+from jax._src import compilation_cache as jax_compilation_cache
 
 import kubetpu.api.types as japi
 import kubetpu_torch.api.types as tapi
@@ -38,27 +40,67 @@ from kubetpu_torch.state.tensors import cluster_from_numpy
 
 FULL_FILTERS = jprog.DEFAULT_FILTER_PLUGINS
 
-# One intra-op thread for torch in every test process that imports this
-# module (each xdist worker collects it): the port's CPU tests run many
-# small ops, six workers with one torch thread per core each oversubscribe
-# the machine, and one thread gives the same bits (the port's reductions
-# are exact in any order, and a single thread is the canonical one).
-torch.set_num_threads(1)
+@pytest.fixture(scope="module", autouse=True)
+def port_test_settings():
+    """The settings of every test module of the port (each imports this
+    fixture), restored when the module's tests end, so the JAX package's
+    own tests run in a worker as they would without the port's:
+
+    * one intra-op thread for torch: the port's CPU tests run many small
+      ops, and six xdist workers with one torch thread per core each
+      oversubscribe the machine; one thread gives the same bits (the
+      port's reductions are exact in any order);
+    * JAX's persistent compilation cache off.  A JAX Scheduler turns it
+      on (kubetpu/utils/compilation.py), and both of its disk paths have
+      crashed xdist workers under the port's in-process JAX drives:
+      writing an entry serializes the XLA:CPU executable (jax
+      compilation_cache.put_executable_and_time aborted), reading one
+      back deserializes it (get_executable_and_time segfaulted on a warm
+      cache).  The tests compare in-process results, which an in-process
+      compile serves the same.  JAX decides once per process whether the
+      cache is used; ``reset_cache`` makes it decide again, on entry and
+      on exit;
+    * on entry and at exit, JAX's compiled programs released
+      (``jax.clear_caches``; see release_jax_programs)."""
+    threads = torch.get_num_threads()
+    enabled = jax.config.jax_enable_compilation_cache
+    jax.clear_caches()
+    _set_port_settings(1, False)
+    yield
+    jax.clear_caches()
+    _set_port_settings(threads, enabled)
 
 
-def no_persistent_jax_cache() -> None:
-    """Keep JAX's persistent compilation cache off in every test process
-    that imports this module.  A JAX Scheduler turns it on
-    (kubetpu/utils/compilation.py), and both of its disk paths have
-    crashed xdist workers here: writing an entry serializes the XLA:CPU
-    executable (jax compilation_cache.put_executable_and_time aborted),
-    and reading one back deserializes it (get_executable_and_time
-    segfaulted on a warm cache).  The tests compare in-process results,
-    so an in-process compile serves them the same."""
-    jax.config.update("jax_enable_compilation_cache", False)
+# Each XLA:CPU executable holds memory mappings of its own, and the JAX
+# drives of the port's tests compile many (``drive`` re-jits the auction
+# per drive): two of these modules in one process reach ~38,000 mappings,
+# and a worker past the kernel's limit (vm.max_map_count, 65,530 here)
+# segfaults inside its next XLA compile.
+MAPPINGS_SOFT_LIMIT = 30000
 
 
-no_persistent_jax_cache()
+def _mappings() -> int:
+    try:
+        with open("/proc/self/maps", "rb") as fh:
+            return sum(1 for _ in fh)
+    except OSError:
+        return 0
+
+
+@pytest.fixture(autouse=True)
+def release_jax_programs():
+    """After each test of the port's modules (each imports this fixture):
+    release JAX's compiled programs once the process holds more than
+    MAPPINGS_SOFT_LIMIT memory mappings, whoever compiled them."""
+    yield
+    if _mappings() > MAPPINGS_SOFT_LIMIT:
+        jax.clear_caches()
+
+
+def _set_port_settings(threads: int, jax_cache: bool) -> None:
+    torch.set_num_threads(threads)
+    jax.config.update("jax_enable_compilation_cache", jax_cache)
+    jax_compilation_cache.reset_cache()
 
 
 def _node(A, name, labels, cpu, mem, pods, taints, unschedulable):
@@ -400,16 +442,18 @@ def jax_process():
     and a fault inside XLA ends the child, not the test worker."""
     ctx = multiprocessing.get_context("spawn")
     with concurrent.futures.ProcessPoolExecutor(
-            1, mp_context=ctx, initializer=_detach_stdio) as ex:
+            1, mp_context=ctx, initializer=_child_init) as ex:
         yield ex
 
 
-def _detach_stdio() -> None:
-    """In a jax_process child: let go of the standard streams inherited
+def _child_init() -> None:
+    """In a jax_process child: the port's test settings
+    (port_test_settings), and let go of the standard streams inherited
     from the test worker.  An xdist worker talks to its controller over
     its stdin and stdout; a child still holding them after the worker
     died would keep the controller from ever seeing the worker go down,
     and the run would hang."""
+    _set_port_settings(1, False)
     null = os.open(os.devnull, os.O_RDWR)
     for fd in (0, 1, 2):
         os.dup2(null, fd)
