@@ -228,6 +228,38 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              1,000 hollow nodes and 2,000 pods through APIServer, ``python
              -m kubetpu_torch --api-server URL --once`` schedules them,
              and this process's store sees every binding;
+  measure    scheduler_perf's runner and the recorders (harness/perf.py,
+             utils/trace.py, utils/slo.py, utils/telemetry.py):
+             Preemption (config/performance-config.yaml:158-162: 500
+             nodes, 2,000 fillers, 500 preemptors) through run_workload
+             in this process with the flight recorder (an 8-cycle ring,
+             so it sheds), the SLO tracker and the telemetry ring armed:
+             the FlightRecorder item's cycles are the ring's and its
+             cycles plus drops every committed record, every pod bound or
+             evicted, every evicted pod a filler deleted once, no capacity
+             overcommitted, no recovery or demotion; the backlog's world
+             drained under "pallas" disarmed and then with the three
+             recorders armed: the same placements and K1 launches, every
+             launch held against the plain version, every auction under
+             GangRounds, and /debug/flightz?format=chrome answering with
+             one root span per cycle; then SustainedLoadRunner on 5,000
+             hollow nodes (poisson_stream at 200 pods/s for 20 s, seed
+             11, mean dwell 10 s, the departures after 20 s not fired;
+             gang under "pallas", batch 256, a 2 s telemetry window,
+             settle 30 s): every offered pod bound, departed or pending,
+             none bound twice, completed_frac >= 0.95, no recovery or
+             demotion, K1 launched and every launch held against the
+             plain version (the steady verdict, offered and completed
+             rates, behind_max_s and K1's launches reported); last, on
+             its own, ``python -m kubetpu_torch.harness.perf --config
+             config/performance-config.yaml --only
+             SchedulingBasic5000Nodes`` (5,000 nodes, 5,000 init pods,
+             1,000 measured; no cut) in a child process: it exits 0 with
+             every measured pod bound (pods/s, SchedulerStats and the
+             four latency histograms reported).  A fault that a serving
+             loop (Scheduler.run under run_workload, the sustained run,
+             the serving phase's run, the CLI's) logs and goes on past
+             fails the phase (LoggedFaults; the CLI's stderr);
   profile    the slice and backlog (pallas) drains once more under
              torch.profiler, and the fill's first 5 of 20 cycles (5,000
              fillers: a cut, the whole drain's trace costs ~1 min):
@@ -260,15 +292,17 @@ on a recovered cycle or a demotion (check_no_recovery).
 The main path is the pallas drain of each of slice, backlog, fill,
 preempt, gang_anti, gang_spread and autoscaler, each sequential drain,
 binpack's card drains, points' card drains, the card drains of volumes,
-resident's card drains and serving's fill and vol_backlog drains: the
+resident's card drains, serving's fill and vol_backlog drains and
+measure's sustained run and parity drains: the
 kernel launch count is zeroed just before each and read just after it,
 and reported per path.  The slice never launches the kernel (above), nor do the
 term-bearing gang drains (routed to the lax round, as the JAX package
 routes them) or the sequential replay (no propose step: the JAX
 package's scan reaches no Pallas kernel), nor does binpack (its scores
 route to lax); in the backlog, fill, autoscaler, term-free points and
-vol_backlog drains and resident's 5,000-node gang drain every launch's
-inputs and outputs are recorded (the fill's, autoscaler's, vol_backlog's
+vol_backlog drains, resident's 5,000-node gang drain and measure's
+parity drains and sustained run every launch's inputs and outputs are
+recorded (the fill's, autoscaler's, vol_backlog's
 and the preempt drain's first 16)
 and, after the drain, the outputs are held bitwise against the plain
 version on the same inputs, and the kernel is timed on the widest
@@ -294,11 +328,11 @@ import time
 ALL_PHASES = ("reference", "kernel", "slice", "backlog", "fill",
               "preempt", "seq_slice", "seq_anti", "seq_spread", "gang_anti",
               "gang_spread", "autoscaler", "binpack", "points", "volumes",
-              "resident", "serving", "profile")
+              "resident", "serving", "measure", "profile")
 MAIN_PATHS = ("slice", "backlog", "fill", "preempt", "seq_slice",
               "seq_anti", "seq_spread", "gang_anti", "gang_spread",
               "autoscaler", "binpack", "points", "volumes", "resident",
-              "serving")
+              "serving", "measure")
 FILL_NODES = 5000             # Preemption5000Nodes: 5,000 nodes,
 FILL_PODS = 4 * FILL_NODES    # 20,000 init pods (four 900m pods fill a node)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -401,6 +435,51 @@ def check_no_recovery(sched, what) -> None:
         raise AssertionError("%s: recovered %s, demotion %r"
                              % (what, list(sched.recovery_log),
                                 PB.demotion()))
+
+
+# what the port logs at WARNING or above: the serving loop logs and goes on
+# past a cycle that raised, and so the scheduler past a failed prewarm,
+# preemption wave or pipeline flush, and after a cycle recovery
+PORT_FAULT_LINES = ("scheduling cycle raised", "prewarm failed",
+                    "preemption wave failed", "cycle recovery (",
+                    "pipeline flush at close failed", "Traceback")
+
+
+class LoggedFaults:
+    """Collects every record of WARNING or above that the port logs (the
+    "kubetpu_torch" logger and its children) while open, and raises on
+    exit if there was one: a fault that a serving loop (Scheduler.run,
+    run_workload, SustainedLoadRunner) logged and went on past fails the
+    phase as if it had been raised."""
+
+    def __init__(self, what):
+        self.what = what
+        self.records = []
+
+    def __enter__(self):
+        import logging
+        records = self.records
+
+        class Collect(logging.Handler):
+            def emit(self, record):
+                records.append(record)
+        self._handler = Collect(logging.WARNING)
+        logging.getLogger("kubetpu_torch").addHandler(self._handler)
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        import logging
+        logging.getLogger("kubetpu_torch").removeHandler(self._handler)
+        if not self.records:
+            return False
+        fmt = logging.Formatter("%(name)s %(levelname)s %(message)s")
+        for r in self.records[:3]:
+            print(fmt.format(r), file=sys.stderr)
+        if exc_type is None:
+            raise AssertionError("%s: the port logged %d faults; the first:"
+                                 "\n%s" % (self.what, len(self.records),
+                                           fmt.format(self.records[0])))
+        return False
 
 
 def drain(store, pods, backend, batch_size, device, record=None,
@@ -1628,11 +1707,11 @@ def phase_preempt(n_nodes=FILL_NODES, device="cuda") -> dict:
         decisions.append(d)
         return orig_record(log, d)
 
-    def audit_spy(cycle_ctx, failed, host_ok):
+    def audit_spy(sched, cycle_ctx, failed, host_ok):
         audit_rows.append((len(failed), len(cycle_ctx.row_of)))
-        return orig_audit(cycle_ctx, failed, host_ok)
+        return orig_audit(sched, cycle_ctx, failed, host_ok)
     DecisionLog.record = spy
-    Scheduler._audit_failures = staticmethod(audit_spy)
+    Scheduler._audit_failures = audit_spy
     PK.propose.launches = 0          # this path starts: zero the count
     try:
         with DeviceTimed(PR, "whatif_wave") as wave_t, \
@@ -1643,7 +1722,7 @@ def phase_preempt(n_nodes=FILL_NODES, device="cuda") -> dict:
                 record_limit=16)
     finally:
         DecisionLog.record = orig_record
-        Scheduler._audit_failures = staticmethod(orig_audit)
+        Scheduler._audit_failures = orig_audit
     launches = PK.propose.launches
     # the decision audit of the first cycle: every failed preemptor is
     # attributed to NodeResourcesFit
@@ -2691,7 +2770,8 @@ def phase_serving() -> dict:
     recorded = [r["recorded"] for r in fill + vol if "recorded" in r]
     PK.propose.launches = 0
     fault = dict(error=_serve_fault("error", 3), stall=_serve_fault("stall", 1))
-    served = _serve_run()
+    with LoggedFaults("served"):
+        served = _serve_run()
     cli = _serve_cli()
     rest = _serve_rest()
     return dict(launches=launches, fill=fill, vol_backlog=vol, fault=fault,
@@ -3246,6 +3326,384 @@ def _profiled_audit(n_nodes=FILL_NODES, n_pods=1000):
                 device_kernels=sum(e.count for e in rows), top=_top(rows))
 
 
+# ---------------------------------------------------------------------------
+# measure: scheduler_perf's runner and the recorders
+
+
+MEASURE_SUSTAINED = dict(rate=200.0, duration_s=20.0, seed=11,
+                         mean_dwell_s=10.0)
+
+
+def _arm_recorders(arm, flight_capacity=64, window_s=2.0):
+    """Arm (fresh) or disarm the flight recorder, the SLO tracker and the
+    load-telemetry ring together."""
+    from kubetpu_torch.utils import slo, telemetry, trace
+    trace.disarm_flight_recorder()
+    slo.disarm_slo_tracker()
+    telemetry.disarm_telemetry()
+    if arm:
+        trace.arm_flight_recorder(capacity=flight_capacity)
+        slo.arm_slo_tracker()
+        telemetry.arm_telemetry(window_s=window_s)
+
+
+def _start_perf_cli(name="SchedulingBasic5000Nodes",
+                    config="config/performance-config.yaml", device="cuda"):
+    """Start ``python -m kubetpu_torch.harness.perf --config
+    config/performance-config.yaml --only SchedulingBasic5000Nodes`` as a
+    child process on the card (5,000 nodes, 5,000 init pods, 1,000
+    measured pods; no cut), its output to files in a temporary directory
+    of the checkout.  (Another workload, YAML and device only for a CPU
+    rehearsal.)"""
+    import os
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    tmp = tempfile.TemporaryDirectory(dir=root)
+    out = os.path.join(tmp.name, "perf.json")
+    with open(os.path.join(tmp.name, "stdout"), "w") as so, \
+            open(os.path.join(tmp.name, "stderr"), "w") as se:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kubetpu_torch.harness.perf", "--config",
+             os.path.join(root, config), "--only", name, "--out", out,
+             "--verbose", "--device", device],
+            cwd=root, env=env, stdout=so, stderr=se)
+    return dict(proc=proc, tmp=tmp, out=out, name=name,
+                config=os.path.join(root, config), t0=time.time())
+
+
+def _finish_perf_cli(cli, timeout_s=600):
+    """Wait for the perf CLI: exit 0, no Incomplete or Error label on its
+    SchedulingThroughput, every measured pod bound (its verbose line); its
+    pods/s, SchedulerStats and the four latency histograms reported."""
+    import os
+    from kubetpu_torch.harness.perf import load_workloads
+    proc, tmp, name = cli["proc"], cli["tmp"], cli["name"]
+    try:
+        try:
+            rc = proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+        with open(os.path.join(tmp.name, "stdout")) as fh:
+            stdout = fh.read()
+        with open(os.path.join(tmp.name, "stderr")) as fh:
+            stderr = fh.read()
+        if rc != 0:
+            raise AssertionError("perf CLI: exit %d\n%s"
+                                 % (rc, stderr[-3000:]))
+        faults = [ln for ln in stderr.splitlines()
+                  if any(f in ln for f in PORT_FAULT_LINES)]
+        if faults:
+            raise AssertionError("perf CLI: the port logged faults:\n%s"
+                                 % stderr[-3000:])
+        with open(cli["out"]) as fh:
+            doc = json.load(fh)
+        # start to the last write of --out (just before the child exits)
+        seconds = os.path.getmtime(cli["out"]) - cli["t0"]
+    finally:
+        tmp.cleanup()
+    items = {it["labels"]["Metric"]: it for it in doc["dataItems"]
+             if it["labels"]["Name"] == name}
+    tp = items["SchedulingThroughput"]
+    if set(tp["labels"]) != {"Name", "Metric"}:
+        raise AssertionError("perf CLI: %s" % tp["labels"])
+    n = [w.num_pods_to_schedule for w in load_workloads(cli["config"])
+         if w.name == name][0]
+    if "  %s: %d/%d scheduled" % (name, n, n) not in stdout.splitlines():
+        raise AssertionError("perf CLI: not every measured pod bound:\n%s"
+                             % stdout[:2000])
+    return dict(process_s=seconds, pods_per_s=tp["data"],
+                scheduler_stats=items["SchedulerStats"]["data"],
+                latency_s={m: items[m]["data"] for m in (
+                    "scheduling_algorithm_duration_seconds",
+                    "binding_duration_seconds",
+                    "e2e_scheduling_duration_seconds",
+                    "pod_scheduling_duration_seconds")})
+
+
+def _measure_preemption(device="cuda", name="Preemption",
+                        config="config/performance-config.yaml",
+                        flight_capacity=8):
+    """scheduler_perf's Preemption (500 nodes, 2,000 low-priority fillers,
+    500 preemptors of 600m) through run_workload in this process on the
+    card, the three recorders armed (the flight ring at 8 cycles, so it
+    sheds): the FlightRecorder item's cycles are the ring's, and its
+    cycles plus its drops every record committed; every pod bound or
+    evicted, every evicted pod a filler deleted once, no capacity
+    overcommitted, no recovery, no demotion."""
+    from kubetpu_torch.client.store import ClusterStore
+    from kubetpu_torch.harness import perf as P
+    from kubetpu_torch.scheduler import Scheduler, capacity_violations
+    from kubetpu_torch.utils import slo, telemetry, trace
+    w = [x for x in P.load_workloads(config) if x.name == name][0]
+    made, deleted, committed = [], {}, [0]
+    orig_delete = ClusterStore.delete
+    orig_commit = trace.FlightRecorder.commit_cycle
+
+    class Captured(Scheduler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    def delete(store, obj, *a, **kw):
+        if getattr(obj, "kind", "") == "Pod":
+            key = obj.metadata.name
+            deleted[key] = deleted.get(key, 0) + 1
+        return orig_delete(store, obj, *a, **kw)
+
+    def commit(fr, rec):
+        committed[0] += 1
+        return orig_commit(fr, rec)
+
+    _arm_recorders(True, flight_capacity=flight_capacity)
+    P.Scheduler, ClusterStore.delete = Captured, delete
+    trace.FlightRecorder.commit_cycle = commit
+    t0 = time.perf_counter()
+    try:
+        with LoggedFaults("preemption"):
+            items = P.run_workload(w, device=device)
+        fr = trace.flight_recorder()
+        held, dropped = len(fr.cycles()), fr.dropped()
+        slo_doc = slo.tracker().to_dict()
+        load = telemetry.ring().digest()
+    finally:
+        P.Scheduler, ClusterStore.delete = Scheduler, orig_delete
+        trace.FlightRecorder.commit_cycle = orig_commit
+        _arm_recorders(False)
+    seconds = time.perf_counter() - t0
+    by = {it.labels["Metric"]: it for it in items}
+    if set(by["SchedulingThroughput"].labels) != {"Name", "Metric"}:
+        raise AssertionError("preemption: %s"
+                             % by["SchedulingThroughput"].labels)
+    rec = by["FlightRecorder"].data
+    if not (rec["Cycles"] == held
+            and rec["Cycles"] + rec["Dropped"] == committed[0]
+            and rec["Dropped"] == dropped > 0):
+        raise AssertionError("preemption: FlightRecorder %s, the ring held "
+                             "%d and dropped %d of %d records"
+                             % (rec, held, dropped, committed[0]))
+    (sched,) = made
+    store = sched.store
+    pods = {p.metadata.name: p for p in store.list("Pod")}
+    lost = [n for n in ["init-%d" % i for i in range(w.num_init_pods)]
+            + ["measured-%d" % i for i in range(w.num_pods_to_schedule)]
+            if not (n in pods and pods[n].spec.node_name) and n not in deleted]
+    twice = [n for n, k in deleted.items() if k > 1]
+    not_filler = [n for n in deleted if not n.startswith("init-")]
+    if lost or twice or not_filler or capacity_violations(store):
+        raise AssertionError("preemption: lost %s, deleted twice %s, "
+                             "evicted non-fillers %s, capacity %s"
+                             % (lost[:5], twice[:5], not_filler[:5],
+                                capacity_violations(store)[:5]))
+    check_no_recovery(sched, "preemption")
+    return dict(seconds=seconds, evictions=len(deleted),
+                pods_per_s=by["SchedulingThroughput"].data,
+                scheduler_stats=by["SchedulerStats"].data,
+                flight_recorder=rec, committed_records=committed[0],
+                slo_pods=slo_doc["pods"],
+                slo_e2e_s=slo_doc["stages"]["e2e"],
+                slo_shares=slo_doc["shares"], load_windows=load["windows"])
+
+
+def _measure_sustained(n_nodes=5000, device="cuda", stream=None):
+    """SustainedLoadRunner on 5,000 hollow nodes: poisson_stream(200
+    pods/s, 20 s, seed 11, mean dwell 10 s) fired open-loop at a serving
+    scheduler (gang under "pallas", batch 256, the pool binder), the SLO
+    tracker and a 2 s telemetry window armed.  The stream's departures
+    that fall after its 20 s window are not fired (a cut: with them the
+    injector would run ~70 s).  Gates on correctness only: every offered
+    pod bound, departed or pending, none bound twice, completed_frac >=
+    0.95, no recovery, no demotion, nothing the port logged as a fault
+    (the serving loop logs a cycle that raised and goes on); on the card
+    K1 launched, and every launch recorded and held to the plain
+    version."""
+    from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
+                                           KubeSchedulerProfile)
+    from kubetpu_torch.harness import hollow
+    from kubetpu_torch.harness.perf import SustainedLoadRunner
+    from kubetpu_torch.ops import propose as PK
+    from kubetpu_torch.scheduler import Scheduler, capacity_violations
+    from kubetpu_torch.utils import telemetry
+    from kubetpu_torch.utils.trace import wallclock
+    kw = stream or MEASURE_SUSTAINED
+    events = [e for e in hollow.poisson_stream(**kw)
+              if e["t"] < kw["duration_s"]]
+    store = hollow_store(n_nodes, 0)
+    binds = {}
+
+    def on_pod(event, old, new):
+        if (event == "update" and new.spec.node_name
+                and not old.spec.node_name):
+            binds[new.metadata.name] = binds.get(new.metadata.name, 0) + 1
+    store.subscribe("Pod", on_pod)
+    _arm_recorders(True)
+    with LoggedFaults("sustained"):
+        sched = Scheduler(store, config=KubeSchedulerConfiguration(
+            profiles=[KubeSchedulerProfile()], batch_size=256, mode="gang",
+            kernel_backend="pallas"), device=device, async_binding=True)
+        record, restore = [], None
+        try:
+            sched.run()
+            restore = _record_launches(record, None)
+            PK.propose.launches = 0      # this path starts: zero the count
+            t_inject = wallclock()
+            res = SustainedLoadRunner(store, sched, events, kw["duration_s"],
+                                      settle_s=30.0).run()
+            launches = PK.propose.launches
+            ring = telemetry.ring()
+            windows = ring.windows()
+            # the slope test over the windows opened while the stream was
+            # injecting (the ring's own verdict also sees the settle's empty
+            # windows, which form a flat all-zero tail)
+            k = sum(1 for w in windows
+                    if w["t0"] < t_inject + kw["duration_s"])
+            p99s = ring.e2e_p99_series()[:k]
+            span = telemetry.steady_state_span(p99s)
+            injecting = dict(windows=k, steady=None)
+            if span is not None:
+                injecting["steady"] = dict(
+                    start=span[0], windows=span[1],
+                    p99_s=ring.steady_quantile(*span, 0.99),
+                    p50_s=ring.steady_quantile(*span, 0.5))
+        finally:
+            sched.close()
+            if restore is not None:
+                restore()
+            _arm_recorders(False)
+    recorded = None
+    if device == "cuda":
+        if not launches or len(record) != launches:
+            raise AssertionError("sustained: %d K1 launches, %d recorded"
+                                 % (launches, len(record)))
+        recorded = check_recorded(record, "measure sustained")
+    added = [e["pod"].metadata.name for e in events if e["kind"] == "add"]
+    departed = {e["pod"].metadata.name for e in events
+                if e["kind"] == "delete"}
+    pods = {p.metadata.name: p for p in store.list("Pod")}
+    lost = [n for n in added if n not in pods and n not in departed]
+    twice = [n for n, k in binds.items() if k > 1]
+    if lost or twice or capacity_violations(store):
+        raise AssertionError("sustained: lost %s, bound twice %s"
+                             % (lost[:5], twice[:5]))
+    if res["completed_frac"] < 0.95:
+        raise AssertionError("sustained: completed_frac %s" % res)
+    check_no_recovery(sched, "sustained")
+    load = res["load"]
+    if load.get("demotions", 0):
+        raise AssertionError("sustained: demotions %s" % load)
+    steady = load.get("steady") or {}
+    return dict(offered=res["offered"], offered_rate=res["offered_rate"],
+                completed=res["completed"],
+                completed_rate=res["completed_rate"],
+                completed_frac=res["completed_frac"],
+                departures=res["deletes"],
+                behind_max_s=res["behind_max_s"],
+                pending=sum(1 for n in added
+                            if n in pods and not pods[n].spec.node_name),
+                steady_windows=steady.get("windows"),
+                steady_e2e_p99_s=steady.get("p99_s"),
+                steady_e2e_p50_s=steady.get("p50_s"),
+                injecting=injecting,
+                windows=load["windows"], worst_window=load["worst_window"],
+                cycles=sched.cycle_count, launches=launches,
+                recorded=recorded,
+                routes=sorted({b for b, _ in sched.gang_backends}),
+                window_e2e_p99_s=p99s)
+
+
+def _measure_parity(device="cuda", world=None):
+    """The backlog's world (1,000 nodes x 4,096 pods) drained under
+    "pallas" twice, disarmed and then armed (the flight recorder, the SLO
+    tracker and the telemetry ring): the same placements and K1 launch
+    counts both times, every launch recorded and
+    held to the plain version, every auction under GangRounds (sync debug
+    mode "error"); armed, /debug/flightz?format=chrome parses with one
+    root span per cycle."""
+    from kubetpu_torch.ops import propose as PK
+    from kubetpu_torch.server import SchedulerServer
+    runs = []
+    for armed in (False, True):
+        _arm_recorders(armed)
+        record = []
+        try:
+            store, pods = (world or backlog_world)()
+            PK.propose.launches = 0      # this path starts: zero the count
+            sched, placed, seconds, rounds = drain(
+                store, pods, "pallas", 4096, device, record=record)
+            launches = PK.propose.launches
+            run = dict(armed=armed, placed=placed, launches=launches,
+                       seconds=seconds, rounds=rounds,
+                       cycles=sched.cycle_count,
+                       recorded=check_recorded(record, "measure parity"))
+            if armed:
+                server = SchedulerServer(sched, port=0)
+                port = server.start()
+                try:
+                    code, body = _http_get(port,
+                                           "/debug/flightz?format=chrome")
+                finally:
+                    server.stop()
+                doc = json.loads(body)
+                roots = [e for e in doc["traceEvents"]
+                         if e["ph"] == "X" and e["name"] == "Scheduling"]
+                if (code != 200 or len(roots) != sched.cycle_count
+                        or any(e["args"]["parent_id"] for e in roots)):
+                    raise AssertionError(
+                        "parity: flightz %d, %d root spans for %d cycles"
+                        % (code, len(roots), sched.cycle_count))
+                run["chrome_events"] = len(doc["traceEvents"])
+        finally:
+            _arm_recorders(False)
+        runs.append(run)
+    first = runs[0]
+    for r in runs[1:]:
+        if (r["placed"] != first["placed"]
+                or r["launches"] != first["launches"]):
+            raise AssertionError("parity: armed and disarmed drains differ "
+                                 "(%d vs %d launches)"
+                                 % (r["launches"], first["launches"]))
+    for r in runs:
+        r.pop("placed")
+    return runs
+
+
+def phase_measure() -> dict:
+    """scheduler_perf's runner and the recorders on the card, one run
+    after another (none shares the host or the card with another):
+    Preemption through run_workload with the recorders armed, the
+    armed-vs-disarmed parity drains, the open-loop sustained run (whose
+    settle waits out its 30 s for the pods that departed unbound), then
+    the perf CLI on SchedulingBasic5000Nodes in a child process.  K1's
+    main path here: the parity drains and the sustained run."""
+    import torch
+    stamps = {}
+    t = time.perf_counter()
+    preemption = _measure_preemption()
+    stamps["preemption_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    parity = _measure_parity()
+    stamps["parity_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sustained = _measure_sustained()
+    stamps["sustained_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cli = _finish_perf_cli(_start_perf_cli())
+    stamps["cli_s"] = time.perf_counter() - t
+    recorded = [r["recorded"] for r in parity] + [sustained["recorded"]]
+    return dict(launches=(sustained["launches"]
+                          + sum(r["launches"] for r in parity)),
+                cli=cli, preemption=preemption, sustained=sustained,
+                parity=parity, stamps=stamps,
+                recorded=dict(checked=sum(r["checked"] for r in recorded),
+                              max_abs_err=max(r["max_abs_err"]
+                                              for r in recorded),
+                              real_launch=recorded[0]["real_launch"]))
+
+
 def phase_profile() -> dict:
     return dict(
         slice=_profiled_drain(hollow_store(5000, 1),
@@ -3318,6 +3776,7 @@ def main() -> int:
         recorded.append(vol_backlog)
         recorded.append(results["resident"]["recorded"])
         recorded.append(results["serving"]["recorded"])
+        recorded.append(results["measure"]["recorded"])
         log({"kernels": [{
             "name": "propose", "route": "cuda",
             "source": "kubetpu_torch/ops/csrc/propose.cu",
@@ -3338,7 +3797,9 @@ def main() -> int:
             "resident_real_launch":
                 results["resident"]["recorded"]["real_launch"],
             "serving_real_launch":
-                results["serving"]["recorded"]["real_launch"]}]})
+                results["serving"]["recorded"]["real_launch"],
+            "measure_real_launch":
+                results["measure"]["recorded"]["real_launch"]}]})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

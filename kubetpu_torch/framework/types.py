@@ -12,24 +12,15 @@ incremental snapshotting (reference: types.go:208).  The tensor snapshot
 from __future__ import annotations
 
 import itertools
-import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
 
 from ..api import types as api
+from ..utils.trace import wallclock
 from ..api.resource import (DEFAULT_MEMORY_REQUEST, DEFAULT_MILLI_CPU_REQUEST,
                             Resource)
 
 _generation = itertools.count(1)
-
-# time.time()-compatible stamp that never runs backwards: a wall-clock
-# epoch taken once, advanced by the monotonic perf counter
-_WALL_EPOCH = time.time() - time.perf_counter()
-
-
-def wallclock() -> float:
-    """Timestamp whose differences are durations (never runs backwards)."""
-    return _WALL_EPOCH + time.perf_counter()
 
 
 def next_generation() -> int:
@@ -207,6 +198,14 @@ class QueuedPodInfo:
     # scheduler.go:515 podSchedulingCycle := SchedulingQueue.SchedulingCycle()
     # is read at pop time, not at failure time)
     scheduling_cycle: int = 0
+    # when the pod was popped into its current cycle: stamped by the
+    # queue ONLY while the SLO tracker (utils/slo.py) is armed; 0.0 means
+    # "never stamped" and the SLO layer skips the pod
+    pop_timestamp: float = 0.0
+    # the SLO layer already recorded an "unresolvable" vector for this
+    # pod: requeued pods retry, and re-recording every failing cycle
+    # would multi-count the pod in the sketches
+    slo_unres_observed: bool = False
 
 
 # ---------------------------------------------------------------------------

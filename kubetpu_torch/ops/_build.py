@@ -22,6 +22,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ..utils import trace as _utrace
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -114,12 +116,17 @@ def build(name: str) -> str:
 
 
 def load_propose() -> ctypes.CDLL:
-    """The propose kernel's library, built at first use."""
+    """The propose kernel's library, built at first use.  The build or
+    load is an instant event on the flight record of the cycle open on
+    this thread (the counterpart of an XLA compile; no-op disarmed)."""
     global _propose_lib, _compile_events
     with _lock:
         if _propose_lib is None:
             _compile_events += 1
             path = build("propose")
+            _utrace.note_compile_event(
+                "propose", "%s (nvcc %.3f s)" % (
+                    os.path.basename(path), build_seconds["propose"]))
             try:
                 lib = ctypes.CDLL(path)
             except OSError as e:

@@ -39,9 +39,11 @@ The correctness machinery, as in the reference:
   is discarded and re-prepared against a fresh snapshot over the pods
   that survived its first prepare; no pod is lost, none binds twice.
 
-The flight recorder's ring-slot tag and the reference's northstar gate
-wait for ROADMAP queue 1 item 11; the stage calls on ``prep.trace`` are
-the recorder's call sites (utils/trace.py).
+Each cycle's flight record (utils/trace.py) carries the ring slot it
+parked in and the pipeline depth (``ring_slot``, ``pipeline_depth``), as
+the JAX executor tags it; the per-slot host-exempt seconds above are also
+what the SLO tracker subtracts from a pod's ``dispatch`` stage, so
+overlapped host work is not counted once per in-flight cycle.
 
 Threading: the executor is owned by the serving thread; the ring is
 lock-guarded so ``flush_pipeline``/``close`` after a join see one
@@ -363,6 +365,13 @@ class PipelinedExecutor:
                                     wallclock() - cycle_start)
                             ring.park(wallclock())
                             return returned
+            # ring-slot tag: which pipeline slot this cycle parked in
+            # (0 = dispatched straight behind the commit)
+            prep.ring_slot = len(ring)
+            rec = prep.trace.rec
+            if rec is not None:
+                rec.meta["ring_slot"] = prep.ring_slot
+                rec.meta["pipeline_depth"] = self.depth
             if ring.capacity == 0:
                 # depth 1: fully synchronous — the cycle commits before
                 # the next pop (no parking, outcomes never lag)
@@ -415,6 +424,7 @@ class PipelinedExecutor:
             # recovered pre-commit: nothing was reserved or bound; the
             # younger in-flight cycles were built on its chain/residents
             s._last_commit_failed = True
+            s._sync_flight_dropped()
             outs = list(rec or [])
             if len(self.ring):
                 outs += self._rerun_discarded(self.ring.detach_all())
@@ -439,7 +449,7 @@ class PipelinedExecutor:
                 s._requeue_unsettled(prep.live)
                 raise
         failed = s._last_commit_failed
-        prep.trace.finish()
+        s._finish_trace(prep)
         dt = wallclock() - t0
         self.ring.exempt(dt)
         if exempt_prep is not None:

@@ -45,6 +45,7 @@ package's documented deviation (its README, "Preemption"), kept as it is.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,6 +60,7 @@ from .models.batch import (PodBatchBuilder, batch_to_device, build_nominated,
 from .ops._build import note_compile_event
 from .state.tensors import MIB, CH_PODS, SnapshotBuilder, resource_to_channels
 from .utils.intern import pow2_bucket
+from .utils.trace import flight_span
 
 
 class Victims:
@@ -897,9 +899,17 @@ class Preemptor:
 
         def up(x):
             return torch.from_numpy(x).to(dev)
-        packed = cycle.read(programs.whatif_wave(   # ONE read for the wave
-            cluster, static_ok, batch.req, up(cand_rows), up(cand_valid),
-            nom_dev, up(tab_req), up(tab_valid), up(cand_idx)))
+        # a span under the scheduler's open preemption-wave span (no-op
+        # while the flight recorder is disarmed)
+        with flight_span("whatif-readback", pods=B) as sp:
+            t_dev = time.perf_counter()
+            packed = cycle.read(programs.whatif_wave(   # ONE read: the wave
+                cluster, static_ok, batch.req, up(cand_rows), up(cand_valid),
+                nom_dev, up(tab_req), up(tab_valid), up(cand_idx)))
+            if sp is not None:
+                # the wave's device-wait attribution
+                sp.args["device_wait_s"] = round(
+                    time.perf_counter() - t_dev, 6)
 
         # pickOneNode metrics, vectorized over the whole [B, C, K] block
         # (generic_scheduler.go:729 criteria 1-5; criterion 6 = first in

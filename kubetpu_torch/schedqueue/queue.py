@@ -29,6 +29,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from ..api import types as api
 from ..framework.types import QueuedPodInfo, pod_with_affinity, wallclock
+from ..utils import slo as uslo
 from .heap import Heap
 
 DEFAULT_POD_INITIAL_BACKOFF = 1.0   # reference: scheduler.go:205
@@ -220,6 +221,10 @@ class SchedulingQueue(PodNominator):
             qp.attempts += 1
             self.scheduling_cycle += 1
             qp.scheduling_cycle = self.scheduling_cycle
+            if uslo.tracker() is not None:
+                # SLO queue_wait boundary; disarmed this is one module
+                # attribute read: no clock call, no lock
+                qp.pop_timestamp = self._clock()
             return qp
 
     def pop_batch(self, max_batch: int,
@@ -249,11 +254,15 @@ class SchedulingQueue(PodNominator):
                     lambda: len(self.active_q) >= max_batch - len(out),
                     timeout=gather)
         with self._cond:
+            # one clock read for the whole drained batch (SLO armed only)
+            pop_t = self._clock() if uslo.tracker() is not None else 0.0
             while len(out) < max_batch and len(self.active_q) > 0:
                 qp = self.active_q.pop()
                 qp.attempts += 1
                 self.scheduling_cycle += 1
                 qp.scheduling_cycle = self.scheduling_cycle
+                if pop_t:
+                    qp.pop_timestamp = pop_t
                 out.append(qp)
         return out
 

@@ -46,8 +46,14 @@ Placements do not depend on this setting.  A bind that fails with a
 transport error retries on the pod backoff ladder (``bind_retries``),
 each attempt first asking the store whether the bind landed.  Refused, a
 ROADMAP queue 1 item: extenders (item 8); deferred: the JAX runtime's
-journal/chaos/devstats/AOT/SLO utilities and its flight recorder (item
-11; ``utils/trace.py`` keeps the recorder's call sites).
+journal, chaos, devstats and AOT utilities (item 11).
+
+The recorders (each disarmed by default, one module attribute read per
+seam then): the flight recorder (utils/trace.py: one ``Trace`` per
+prepared cycle, its stages and per-pod bind spans), the per-pod SLO
+tracker (utils/slo.py: ``_slo_prefix`` and ``_slo_observe_terminal``)
+and the load-telemetry ring (utils/telemetry.py, ticked at the top of
+``schedule_pending``).
 
 A cycle has the reference's seams: ``_prepare_group`` (host work up to
 the dispatch), ``_dispatch_group`` (the device program, the packed copy
@@ -76,6 +82,7 @@ change breaks it.  Every pod's decision lands in ``decisions``
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import os
@@ -113,10 +120,13 @@ from .state.delta import DeltaTensorizer
 from .state.tensors import SnapshotBuilder, vocab_signature
 from .utils import pallas_backend as PB
 from .utils import prng
+from .utils import slo as uslo
+from .utils import telemetry as utelemetry
+from .utils import trace as utrace
 from .utils.decisions import DecisionLog, PodDecision
 from .utils.device import DeviceLike, resolve_device
 from .utils.intern import pow2_bucket
-from .utils.trace import NO_TRACE
+from .utils.trace import Trace
 
 
 @dataclass
@@ -165,8 +175,21 @@ class PreparedCycle:
     # schedule_pending calls: both are exempt from the deadline
     host_exempt_s: float = 0.0
     parked_t: float = 0.0
-    # the flight recorder's stand-in (utils/trace.py)
-    trace: object = NO_TRACE
+    # the cycle's flight-recorder handle (utils/trace.py)
+    trace: Optional[Trace] = None
+    # the packed readback's end and its wait (the SLO device stage)
+    readback_done_t: float = 0.0
+    device_wait: float = 0.0
+    # the pipeline slot this cycle parked in (0 = dispatched straight
+    # behind the commit) and the round its auction ran ("pallas"/"lax")
+    ring_slot: int = 0
+    kernel_backend: str = "lax"
+
+
+# the CycleState key under which a committed pod's bind cycle finds the
+# cycle's flight record and the pod's SLO prefix (written only while a
+# recorder is armed)
+RECORDERS_KEY = "kubetpu_torch/recorders"
 
 
 def _copy_to_host(packed: torch.Tensor):
@@ -194,6 +217,12 @@ class Scheduler:
                  config: Optional[KubeSchedulerConfiguration] = None,
                  registry=None, device: DeviceLike = None,
                  async_binding: bool = False, seed: int = 0, metrics=None):
+        # KUBETPU_SLO / KUBETPU_TELEMETRY arm those recorders (the flight
+        # recorder's KUBETPU_FLIGHT is read once, at the package's
+        # import); disarmed (the default) every seam is one attribute
+        # read and the hot path takes zero new locks
+        uslo.maybe_arm_from_env()
+        utelemetry.maybe_arm_from_env()
         self.device = resolve_device(device)
         self.store = store
         self.metrics = metrics
@@ -253,6 +282,16 @@ class Scheduler:
         # per-cycle diagnostics (the benchmark surface); the gang lists
         # stay empty in sequential mode
         self.cycle_count = 0
+        # the last gang cycle's auction rounds, and the seconds blocked on
+        # the packed readbacks, summed (the telemetry ring and the perf
+        # harness read both)
+        self.last_gang_rounds = 0
+        self.device_wait_s = 0.0
+        # flight-recorder drops already folded into the metric (serving
+        # thread only)
+        self._flight_dropped_seen = 0
+        # the last _cluster_for refresh's DeltaStats (None when chained)
+        self._last_refresh = None
         self.gang_rounds: List[int] = []
         self.gang_syncs: List[int] = []
         # (backend, reason) per gang cycle: the round the auction ran
@@ -436,6 +475,11 @@ class Scheduler:
         ``pipeline_cycles`` in gang mode with the chain on, the depth-k
         executor runs instead (pipeline.py): outcomes lag up to depth - 1
         cycles, and ``flush_pipeline`` returns the rest."""
+        # telemetry tick seam: disarmed this is ONE attribute read; armed,
+        # one float compare, and a roll once per window
+        tel = utelemetry.ring()
+        if tel is not None:
+            tel.maybe_tick(self)
         max_batch = max_batch or self.config.batch_size
         self._settled = set()
         if (self.config.pipeline_cycles and self.config.mode == "gang"
@@ -645,6 +689,12 @@ class Scheduler:
         pipelined cycle, whose cluster the delta scatter must not update
         in place (None: the executor's ring)."""
         t = time.perf_counter()
+        # queue depths ride the cycle record; the read takes the queue's
+        # lock, so it is gated on the recorder being armed
+        depths = (self.queue.depths()
+                  if utrace.flight_recorder() is not None else None)
+        trace = Trace("Scheduling", profile=fwk.profile_name,
+                      pods=len(qpods), queue_depths=depths)
         # the event sequence BEFORE the snapshot: a chain is reusable only
         # if no event landed since the state it embeds
         with self._chain_lock:
@@ -652,6 +702,7 @@ class Scheduler:
         self.cache.update_snapshot(self.snapshot)
         node_infos = self.snapshot.node_info_list
         n_nodes = len(node_infos)
+        trace.step("Snapshotting scheduler cache and node infos done")
         if self.metrics:
             self.metrics.cache_size.set(n_nodes, "nodes")
             self.metrics.cache_size.set(self.cache.pod_count(), "pods")
@@ -681,6 +732,7 @@ class Scheduler:
             live.append(qp)
         if not live:
             self._stage("snapshot", t)
+            trace.finish()
             return None, outcomes
         if n_nodes == 0:
             for qp in live:
@@ -689,6 +741,7 @@ class Scheduler:
                                            state=states[qp.pod.uid]))
                 self._record_decision(qp.pod, "unschedulable",
                                       message="0/0 nodes are available")
+            trace.finish()
             return None, outcomes
         spread_sels = [self.store.default_spread_selector(qp.pod)
                        for qp in live]
@@ -705,6 +758,18 @@ class Scheduler:
             uncommitted = self._pipeline.inflight_preps()
         builder, cluster, pod_uids, used_chain, t = self._cluster_for(
             fwk, node_infos, pinfos + nom_pinfos, chain_seq0, uncommitted, t)
+        dstats = self._last_refresh
+        if trace.rec is not None and dstats is not None:
+            # the refresh's spans, dirty rows and resync on the record
+            rec = trace.rec
+            for name, st0, st1 in dstats.spans:
+                rec.record_span(name, st0, st1, parent_id=trace.span_id,
+                                delta_rows=dstats.delta_rows)
+            rec.meta["delta_rows"] = dstats.delta_rows
+            rec.meta["resync"] = dstats.resync
+            if dstats.resync:
+                rec.event("resync", parent_id=trace.span_id,
+                          reason=dstats.reason)
         hbatch = PodBatchBuilder(builder.table).build(
             pinfos, spread_selectors=spread_sels)
         t = self._stage("tensorize", t)
@@ -713,6 +778,9 @@ class Scheduler:
         table = builder.table
         B = batch.valid.shape[0]
         N = cluster.allocatable.shape[0]
+        if trace.rec is not None:
+            # the pod-axis bucket this cycle dispatches in
+            trace.rec.meta["pod_bucket"] = int(cluster.pod_valid.shape[0])
         # one walk of the host filters' relevance per pod, shared by the
         # host-filter loop and the commit-time re-check (the pipelined
         # drain walks it first, for its serialize decision)
@@ -764,6 +832,7 @@ class Scheduler:
         # chain's (neither is the snapshot's node-walk order)
         cycle_ctx.pod_rows = {uid: i for i, uid in enumerate(pod_uids)
                               if uid}
+        trace.step("Tensorizing snapshot and pod batch done")
         prep = PreparedCycle(
             fwk=fwk, chain_seq0=chain_seq0, node_infos=node_infos,
             states=states, live=live, pinfos=pinfos, builder=builder,
@@ -772,7 +841,7 @@ class Scheduler:
             cfg=cfg, cycle_ctx=cycle_ctx,
             needs_topo=self._needs_topo(live, spread_sels),
             used_chain=used_chain, pod_uids=pod_uids,
-            host_reject=host_reject, relevance=relevance)
+            host_reject=host_reject, relevance=relevance, trace=trace)
         return prep, outcomes
 
     def _dispatch_group(self, prep: "PreparedCycle",
@@ -794,6 +863,7 @@ class Scheduler:
             backend = self._gang_backend(prep.cfg, prep.needs_topo,
                                          prep.hbatch)
             self.gang_backends.append(backend)
+            prep.kernel_backend = backend[0]
             res = run_auction(prep.cluster, prep.batch, prep.cfg,
                               self._next_rng(), host_ok=prep.host_ok,
                               score_bias=prep.score_bias,
@@ -820,13 +890,23 @@ class Scheduler:
             self._stage("auction", t)
         return packed
 
-    @staticmethod
-    def _readback_group(res) -> np.ndarray:
+    def _readback_group(self, prep: "PreparedCycle", res) -> np.ndarray:
         """reference: kubetpu/scheduler.py:1381 — the cycle's ONE
-        device->host readback: wait for the packed [3B+1] copy."""
+        device->host readback: wait for the packed [3B+1] copy.  The wait
+        is the cycle's device-wait (``device_wait_s``, the readback span's
+        ``device_wait_s`` and the SLO device stage)."""
         host, event = res
-        if event is not None:
-            event.synchronize()
+        with prep.trace.stage("packed-readback") as sp:
+            t_dev = wallclock()
+            if event is not None:
+                event.synchronize()
+            t_done = wallclock()
+            wait = t_done - t_dev
+            prep.readback_done_t = t_done
+            prep.device_wait = wait
+            if sp is not None:
+                sp.args["device_wait_s"] = round(wait, 6)
+        self.device_wait_s += wait
         return host.numpy()
 
     def _readback_guarded(self, prep: "PreparedCycle", res):
@@ -841,7 +921,7 @@ class Scheduler:
             # time parked in the in-flight ring is caller think time
             prep.host_exempt_s += wallclock() - prep.parked_t
             prep.parked_t = 0.0
-        packed = self._readback_group(res)
+        packed = self._readback_group(prep, res)
         dl = self._dispatch_deadline
         if dl > 0 and prep.dispatch_t0:
             if self._deadline_grace > 0:
@@ -868,11 +948,39 @@ class Scheduler:
             # requeued and its residents dropped; a later pipelined cycle
             # dispatched against its chain must re-run too
             self._last_commit_failed = True
+            self._sync_flight_dropped()
             return recovered
         with prep.trace.stage("commit"):
             out = self._commit_group(prep, packed)
-        prep.trace.finish()
+        self._finish_trace(prep)
         return out
+
+    def _finish_trace(self, prep: "PreparedCycle") -> None:
+        """reference: kubetpu/scheduler.py:1359-1369 — commit a committed
+        cycle's flight record (gang: with its auction rounds and the round
+        it ran) and fold the recorder's drops into the metric."""
+        if self.config.mode == "gang":
+            prep.trace.finish(auction_rounds=self.last_gang_rounds,
+                              kernel_backend=prep.kernel_backend)
+        else:
+            prep.trace.finish()
+        self._sync_flight_dropped()
+
+    def _sync_flight_dropped(self) -> None:
+        """reference: kubetpu/scheduler.py:1782 — fold new flight-recorder
+        ring drops into the monotonic metric counter (serving thread
+        only, so the seen-count needs no lock); disarmed this is one
+        attribute read."""
+        fr = utrace.flight_recorder()
+        if fr is None or self.metrics is None:
+            return
+        dropped = fr.dropped()
+        if dropped > self._flight_dropped_seen:
+            self.metrics.flight_recorder_dropped.inc(
+                amount=dropped - self._flight_dropped_seen)
+        if dropped != self._flight_dropped_seen:
+            # < happens when the ring was cleared or re-armed mid-run
+            self._flight_dropped_seen = dropped
 
     def _commit_group(self, prep: "PreparedCycle", packed: np.ndarray
                       ) -> List[ScheduleOutcome]:
@@ -882,18 +990,33 @@ class Scheduler:
         t = time.perf_counter()
         fwk, live, states, pinfos = (prep.fwk, prep.live, prep.states,
                                      prep.pinfos)
-        node_infos, cycle_ctx = prep.node_infos, prep.cycle_ctx
+        node_infos, cycle_ctx, trace = prep.node_infos, prep.cycle_ctx, \
+            prep.trace
         n_nodes = len(node_infos)
         B = prep.batch.valid.shape[0]
         self.cycle_count += 1
         if self.config.mode == "gang":
-            self.gang_rounds.append(int(packed[3 * B]))
+            self.last_gang_rounds = int(packed[3 * B])
+            self.gang_rounds.append(self.last_gang_rounds)
             self.gang_syncs.append(prep.syncs)
         else:
             self._next_start_node_index = int(packed[3 * B])
         chosen = packed[:B][:len(live)].tolist()
         n_feas = packed[B:2 * B][:len(live)].tolist()
         unres = (packed[2 * B:3 * B][:len(live)] != 0).tolist()
+        trace.step("Computing predicates and priorities on device done")
+        flight = trace.rec
+        # per-pod latency SLO (utils/slo.py): one tracker read per cycle;
+        # disarmed, no stage vector is built and no clock is read
+        slo_trk = uslo.tracker()
+        slo_host_dispatch = 0.0
+        if slo_trk is not None and prep.dispatch_t0:
+            # the host share of the dispatch->readback window, less the
+            # window's host-exempt share (other ring slots' commits and
+            # readbacks, pipelined parking), as the JAX package splits it
+            slo_host_dispatch = max(prep.readback_done_t - prep.dispatch_t0
+                                    - prep.device_wait
+                                    - prep.host_exempt_s, 0.0)
         outcomes: List[Optional[ScheduleOutcome]] = []
         failed = []
         commit_failed = False
@@ -902,7 +1025,13 @@ class Scheduler:
                 outcomes.append(None)
                 failed.append(i)
                 continue
-            outcome = self._commit(fwk, qp, states[qp.pod.uid], pinfos[i],
+            state = states[qp.pod.uid]
+            slo = (self._slo_prefix(qp, prep, slo_host_dispatch, flight)
+                   if slo_trk is not None and qp.pop_timestamp else None)
+            if flight is not None or slo is not None:
+                # the bind cycle's recorder handles ride the pod's state
+                state.write(RECORDERS_KEY, (flight, slo))
+            outcome = self._commit(fwk, qp, state, pinfos[i],
                                    node_infos[chosen[i]].node_name,
                                    n_feas[i], prep.host_relevant[qp.pod.uid])
             if outcome.node:
@@ -927,7 +1056,8 @@ class Scheduler:
         if (wave_pods and self.preemptor is not None and pf
                 and isinstance(pf[0], DefaultPreemption)):
             try:
-                self.preemptor.preempt_wave(fwk, cycle_ctx, wave_pods)
+                with trace.stage("preemption-wave", pods=len(wave_pods)):
+                    self.preemptor.preempt_wave(fwk, cycle_ctx, wave_pods)
             except Exception:
                 # as the JAX scheduler: the wave's pods are then served one
                 # by one through the PostFilter; counted, so a run can
@@ -937,7 +1067,7 @@ class Scheduler:
                     "preemption wave failed; per-pod fallback",
                     exc_info=True)
         audit_rows = (self._audit_rows(cycle_ctx, [live[i] for i in failed],
-                                       prep.host_ok, wave_pods)
+                                       prep.host_ok, wave_pods, trace)
                       if failed and self.decisions.enabled else {})
         # failures requeue after every commit has landed, as the JAX
         # scheduler defers them: the queue's move-request cycle then
@@ -953,6 +1083,16 @@ class Scheduler:
                 nominated_node=qp.pod.status.nominated_node_name or "",
                 host_reasons=prep.host_reject.get(qp.pod.uid),
                 **audit_rows.get(qp.pod.uid, {}))
+            if (slo_trk is not None and unres[i] and qp.pop_timestamp
+                    and not qp.slo_unres_observed):
+                # terminally unresolvable this cycle: record the vector
+                # now (there is no bind stage to wait for), once per pod
+                # (the requeued pod retries every cluster event)
+                qp.slo_unres_observed = True
+                self._slo_observe_terminal(
+                    slo_trk,
+                    self._slo_prefix(qp, prep, slo_host_dispatch, flight),
+                    qp, "unresolvable")
         # a failed commit invalidates the chain (its cluster carries the
         # pod's usage) and every pipelined cycle dispatched against it
         self._last_commit_failed = commit_failed
@@ -960,7 +1100,53 @@ class Scheduler:
             self._drop_chain()
         self.preempt_stats.append(dict(cycle_ctx.stats))
         self._stage("preempt", t)
+        trace.step("Committing placements done")
+        trace.log_if_long()
         return outcomes
+
+    @staticmethod
+    def _slo_prefix(qp: QueuedPodInfo, prep: "PreparedCycle",
+                    host_dispatch: float, flight) -> Dict[str, float]:
+        """reference: kubetpu/scheduler.py:1602 — the cycle-side half of a
+        pod's per-stage latency vector (utils/slo.py):
+        queue_wait/backoff/cycle_wait/dispatch/device, plus the
+        underscore keys the terminal observer pops (the readback anchor
+        of the commit stage and the flight-recorder cycle seq the
+        exemplar links to).  Called only with the tracker armed and a
+        stamped pop time."""
+        return {
+            "queue_wait": max(qp.pop_timestamp - qp.timestamp, 0.0),
+            "backoff": max(qp.timestamp - qp.initial_attempt_timestamp,
+                           0.0),
+            "cycle_wait": max((prep.dispatch_t0 or qp.pop_timestamp)
+                              - qp.pop_timestamp, 0.0),
+            "dispatch": host_dispatch,
+            "device": prep.device_wait,
+            "_readback_done_t": prep.readback_done_t,
+            "_flight_seq": float(flight.seq) if flight is not None else 0.0,
+        }
+
+    def _slo_observe_terminal(self, trk, prefix: Dict[str, float],
+                              qp: QueuedPodInfo, outcome: str,
+                              bind_start: Optional[float] = None) -> None:
+        """reference: kubetpu/scheduler.py:1625 — complete a pod's
+        cycle-side stage vector with the terminal stages (commit:
+        readback -> bind start, or -> now for failures; bind, when one
+        ran; e2e) and record it."""
+        now = wallclock()
+        stages = dict(prefix)
+        seq = stages.pop("_flight_seq", 0)
+        rb = stages.pop("_readback_done_t", 0.0)
+        end = bind_start if bind_start is not None else now
+        stages["commit"] = max(end - rb, 0.0)
+        if bind_start is not None:
+            stages["bind"] = max(now - bind_start, 0.0)
+        stages["e2e"] = now - qp.initial_attempt_timestamp
+        pod = qp.pod
+        trk.observe_pod(stages, pod=pod.metadata.name,
+                        namespace=pod.namespace, uid=pod.uid,
+                        outcome=outcome, attempts=qp.attempts,
+                        cycle=self.cycle_count, flight_seq=int(seq))
 
     def _cluster_for(self, fwk: Framework, node_infos, pending, chain_seq0,
                      uncommitted, t: float):
@@ -972,7 +1158,8 @@ class Scheduler:
         only while no cycle in ``uncommitted`` reads it.  Returns
         (builder, cluster, pod uid per existing-pod row, chained?, stage
         clock); the refresh's host work counts as tensorize and its device
-        copies as upload."""
+        copies as upload.  ``_last_refresh`` keeps the refresh's
+        DeltaStats (None for a chained cycle) for the flight record."""
         with self._chain_lock:
             chain = self._chain
         use_chain = (chain is not None and chain["seq"] == chain_seq0
@@ -985,6 +1172,7 @@ class Scheduler:
                 chain["caps"]
         if use_chain:
             self.cluster_sources.append("chain")
+            self._last_refresh = None
             return (chain["builder"], chain["cluster"], chain["pod_uids"],
                     True, t)
         delta = self._delta.get(fwk.profile_name)
@@ -999,6 +1187,7 @@ class Scheduler:
         now = time.perf_counter()
         self.stage_s["upload"] += delta.upload_s
         self.stage_s["tensorize"] += now - t - delta.upload_s
+        self._last_refresh = dstats
         if dstats.resync:
             self.resync_count += 1
             self.cluster_sources.append(dstats.reason)
@@ -1095,6 +1284,11 @@ class Scheduler:
              "cycle": self.cycle_count})
         if self.metrics is not None:
             self.metrics.recoveries.inc(kind)
+        if prep.trace.rec is not None:
+            # the incident instant on the cycle's record (the port never
+            # demotes, so it is always a "dispatch-recovery")
+            prep.trace.rec.event("dispatch-recovery", kind=kind,
+                                 reason=reason[:256], demoted="")
         err = f"dispatch recovered ({kind}): pod requeued"
         return [ScheduleOutcome(pod=qp.pod, node="", err=err)
                 for qp in prep.live]
@@ -1233,53 +1427,77 @@ class Scheduler:
     def _bind_cycle(self, fwk: Framework, qp: QueuedPodInfo,
                     state: CycleState, assumed: api.Pod, node_name: str,
                     settled: Optional[set] = None) -> Optional[str]:
-        """reference: kubetpu/scheduler.py:2150-2227 (scheduler.go:628-687):
+        """reference: kubetpu/scheduler.py:2121-2227 (scheduler.go:628-687):
         WaitOnPermit, PreBind, Bind, PostBind; each failure forgets the
         assumed pod, runs Unreserve and requeues the pod.  Returns the
         failure's message, or None once bound.  settled: the cycle's set
         of pods with an outcome, which the pod joins once bound or
-        requeued (None on the binder pool, which settled it at submit)."""
-        pod = qp.pod
-        failed = None
-        bind_start = wallclock()
-        try:
-            for run, what in ((lambda: fwk.wait_on_permit(pod),
-                               "permit rejected"),
-                              (lambda: fwk.run_pre_bind_plugins(state, pod,
-                                                                node_name),
-                               "prebind failed"),
-                              (lambda: self._bind_with_retries(
-                                  fwk, state, pod, node_name),
-                               "bind failed")):
-                st = run()
-                if not st.is_success():
-                    failed = st.message()
-                    break
-            else:
-                self.cache.finish_binding(assumed)
-        except BaseException:
-            # a plugin raised before the bind: the assume goes, and the
-            # pod is requeued (here on the pool; by schedule_pending's
-            # recovery in the cycle)
-            self._unassume(fwk, state, pod, assumed, node_name)
-            if settled is None:
-                self._record_failure(qp, "bind cycle raised")
-            raise
-        if failed is not None:
-            self._unassume(fwk, state, pod, assumed, node_name)
-            self._record_failure(qp, failed)
-        if settled is not None:
-            settled.add(pod.uid)
-        if failed is not None:
-            return failed or what
-        fwk.run_post_bind_plugins(state, pod, node_name)
-        if self.metrics:
-            now = wallclock()
-            self.metrics.binding_duration.observe(now - bind_start)
-            self.metrics.pod_scheduled(
-                qp.attempts, now - qp.initial_attempt_timestamp,
-                now - qp.timestamp)
-        return None
+        requeued (None on the binder pool, which settled it at submit).
+        Runs under a "bind" span on the cycle's flight record (from
+        whichever thread runs it; capped per record) when the recorder is
+        armed; the pod's SLO prefix, when the tracker is armed, is
+        completed once the pod is bound.  Both ride the pod's CycleState
+        (RECORDERS_KEY); disarmed this reads two module attributes."""
+        flight = slo = None
+        if (utrace.flight_recorder() is not None
+                or uslo.tracker() is not None):
+            try:
+                flight, slo = state.read(RECORDERS_KEY)
+            except KeyError:
+                pass
+        with (flight.span("bind", pod=qp.pod.metadata.name, node=node_name)
+              if flight is not None else utrace._NULL_SPAN):
+            pod = qp.pod
+            failed = None
+            # the bind's start (after PreBind, as the JAX scheduler stamps it):
+            # binding_duration and the SLO commit/bind split read it
+            bind_start = 0.0
+
+            def bind() -> Status:
+                nonlocal bind_start
+                bind_start = wallclock()
+                return self._bind_with_retries(fwk, state, pod, node_name)
+            try:
+                for run, what in ((lambda: fwk.wait_on_permit(pod),
+                                   "permit rejected"),
+                                  (lambda: fwk.run_pre_bind_plugins(state, pod,
+                                                                    node_name),
+                                   "prebind failed"),
+                                  (bind, "bind failed")):
+                    st = run()
+                    if not st.is_success():
+                        failed = st.message()
+                        break
+                else:
+                    self.cache.finish_binding(assumed)
+            except BaseException:
+                # a plugin raised before the bind: the assume goes, and the
+                # pod is requeued (here on the pool; by schedule_pending's
+                # recovery in the cycle)
+                self._unassume(fwk, state, pod, assumed, node_name)
+                if settled is None:
+                    self._record_failure(qp, "bind cycle raised")
+                raise
+            if failed is not None:
+                self._unassume(fwk, state, pod, assumed, node_name)
+                self._record_failure(qp, failed)
+            if settled is not None:
+                settled.add(pod.uid)
+            if failed is not None:
+                return failed or what
+            fwk.run_post_bind_plugins(state, pod, node_name)
+            if self.metrics:
+                now = wallclock()
+                self.metrics.binding_duration.observe(now - bind_start)
+                self.metrics.pod_scheduled(
+                    qp.attempts, now - qp.initial_attempt_timestamp,
+                    now - qp.timestamp)
+            if slo is not None:
+                trk = uslo.tracker()
+                if trk is not None:
+                    self._slo_observe_terminal(trk, slo, qp, "bound",
+                                               bind_start=bind_start)
+            return None
 
     def _bind_with_retries(self, fwk: Framework, state: CycleState,
                            pod: api.Pod, node_name: str) -> Status:
@@ -1424,7 +1642,7 @@ class Scheduler:
             outcome=outcome, cycle=self.cycle_count, **kw))
 
     def _audit_rows(self, cycle_ctx: CycleContext, failed, host_ok,
-                    wave_pods) -> Dict[str, Dict]:
+                    wave_pods, trace: Trace) -> Dict[str, Dict]:
         """reference: kubetpu/scheduler.py:1521-1546 — the failed pods'
         audit rows, with the retry-churn dedup: a persistent unschedulable
         tail fails with the same pod set against the same state every
@@ -1435,12 +1653,12 @@ class Scheduler:
         if (cached is not None and cached[0] == uids
                 and cycle_ctx.commits == 0 and not wave_pods):
             return cached[1]
-        rows = self._audit_failures(cycle_ctx, failed, host_ok)
+        with trace.stage("decision-audit", pods=len(failed)):
+            rows = self._audit_failures(cycle_ctx, failed, host_ok)
         self._audit_cache = (uids, rows)
         return rows
 
-    @staticmethod
-    def _audit_failures(cycle_ctx: CycleContext, failed,
+    def _audit_failures(self, cycle_ctx: CycleContext, failed,
                         host_ok) -> Dict[str, Dict]:
         """reference: kubetpu/scheduler.py:2324-2392 — per-plugin
         attribution for the cycle's failed pods: ONE explain_verdicts
@@ -1448,7 +1666,11 @@ class Scheduler:
         cluster.  Every row of the program is its pod's alone, so it runs
         on the failed rows only (gathered when they are fewer than the
         batch), where the reference runs the whole batch.  Returns uid ->
-        PodDecision keyword arguments.  A failure of the program raises."""
+        PodDecision keyword arguments, and bumps
+        scheduler_framework_rejections_total{plugin} for each pod's
+        blocking plugins (where none blocks alone, joint infeasibility,
+        the plugin that fails the most nodes).  A failure of the program
+        raises."""
         batch = cycle_ctx.batch
         rows = [cycle_ctx.row_of[qp.pod.uid] for qp in failed]
         if len(rows) < batch.batch_cap:
@@ -1469,16 +1691,23 @@ class Scheduler:
         node_infos = cycle_ctx.node_infos
         out: Dict[str, Dict] = {}
         for qp, row in zip(failed, rows):
-            info: Dict[str, object] = {
-                "rejections": {filters[f]: counts[f][row]
-                               for f in range(F) if counts[f][row]},
-                "blocking": [filters[f] for f in range(F)
-                             if blocking[f][row]]}
+            rej = {filters[f]: counts[f][row]
+                   for f in range(F) if counts[f][row]}
+            blk = [filters[f] for f in range(F) if blocking[f][row]]
+            info: Dict[str, object] = {"rejections": rej, "blocking": blk}
             if not no_feas[row] and best_node[row] >= 0:
                 # feasible at cycle start, lost to in-batch contention:
                 # the node it would have scored best on
                 info["best_node"] = node_infos[best_node[row]].node_name
                 info["best_score"] = best_score[row] / programs.SCORE_SCALE
+            if self.metrics is not None:
+                attributed = blk
+                if not attributed and no_feas[row] and rej:
+                    # no single filter blocks alone (joint infeasibility):
+                    # the one failing the most nodes
+                    attributed = [max(rej, key=rej.get)]
+                for plugin in attributed:
+                    self.metrics.framework_rejections.inc(plugin)
             out[qp.pod.uid] = info
         return out
 
@@ -1519,15 +1748,28 @@ class Scheduler:
                 api.LABEL_HOSTNAME), 0),
             plugin_args=fwk.tensor_plugin_args(builder.table))
         rng = prng.PRNGKey(0, device=self.device)
-        if self.config.mode == "gang":
-            res = run_auction(cluster, batch, cfg, rng,
-                              intra_batch_topology=False,
-                              kernel_backend=self.config.kernel_backend)
-        else:
-            res = schedule_sequential(
-                cluster, batch, cfg, rng,
-                hard_pod_affinity_weight=float(fwk.hard_pod_affinity_weight))
-        res.packed.cpu()
+        # the prewarm gets a cycle record of its own (it runs outside any
+        # scheduling cycle): one "prewarm" span with its bucket and seconds
+        fr = utrace.flight_recorder()
+        fr_rec = fr.begin_cycle("prewarm") if fr is not None else None
+        t0 = wallclock()
+        with (fr_rec.span("prewarm", mode="dry-run") if fr_rec is not None
+              else contextlib.nullcontext()) as sp:
+            if self.config.mode == "gang":
+                res = run_auction(cluster, batch, cfg, rng,
+                                  intra_batch_topology=False,
+                                  kernel_backend=self.config.kernel_backend)
+            else:
+                res = schedule_sequential(
+                    cluster, batch, cfg, rng,
+                    hard_pod_affinity_weight=float(
+                        fwk.hard_pod_affinity_weight))
+            res.packed.cpu()
+            if sp is not None:
+                sp.args["bucket"] = int(cluster.pod_valid.shape[0])
+                sp.args["seconds"] = round(wallclock() - t0, 4)
+        if fr_rec is not None:
+            fr.commit_cycle(fr_rec)
         return True
 
     def run(self) -> Optional[threading.Thread]:

@@ -46,7 +46,6 @@ cycle's tensors past the next refresh must clone them;
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -55,6 +54,7 @@ import torch
 from ..api import types as api
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.intern import pow2_bucket
+from ..utils.trace import wallclock
 from .tensors import (ClusterDelta, HostClusterArrays, SnapshotBuilder,
                       _terms_to_device, clear_pod_row, fill_node_row,
                       fill_pod_row, gather_delta, pod_has_terms,
@@ -238,15 +238,15 @@ class DeltaTensorizer:
         if self.cycles_since_verify < self.verify_interval:
             return (), None
         self.cycles_since_verify = 0
-        tv = time.perf_counter()
+        tv = wallclock()
         ok = self.verify()
-        span = (("verify", tv, time.perf_counter()),)
+        span = (("verify", tv, wallclock()),)
         if ok:
             return span, None
         # the mirror is the source of truth: the repair is a full resync
         _cluster, stats = self._resync(node_infos, names,
                                        "verify-divergence",
-                                       time.perf_counter(), pending)
+                                       wallclock(), pending)
         return span, stats._replace(spans=span + stats.spans)
 
     # ------------------------------------------------------------- refresh
@@ -258,7 +258,7 @@ class DeltaTensorizer:
         vocab-growth check sees them (and a compacting resync re-interns
         them into its fresh table).  donate=False leaves the previous
         cluster's tensors untouched (apply_cluster_delta clones)."""
-        t0 = time.perf_counter()
+        t0 = wallclock()
         self.upload_s = 0.0
         if pending:
             self.builder.intern_pending(pending)
@@ -380,9 +380,9 @@ class DeltaTensorizer:
 
         term_span = ()
         if terms_dirty:
-            t_terms = time.perf_counter()
+            t_terms = wallclock()
             self._refresh_terms(node_infos)
-            term_span = (("delta-terms", t_terms, time.perf_counter()),)
+            term_span = (("delta-terms", t_terms, wallclock()),)
 
         pod_rows = sorted(touched_pods)
         if grown:
@@ -390,19 +390,19 @@ class DeltaTensorizer:
             # updated) mirror, no build() walk
             self.cycles_since_resync = 0
             self.resync_count += 1
-            t_build = time.perf_counter()
+            t_build = wallclock()
             self._upload()
             return self.cluster, DeltaStats(
                 len(node_rows) + len(pod_rows), True, "pod-axis-growth",
                 (("delta-build", t0, t_build),) + term_span
-                + (("resync", t_build, time.perf_counter()),))
+                + (("resync", t_build, wallclock()),))
         delta = gather_delta(self.host, node_rows, pod_rows)
-        t_build = time.perf_counter()
+        t_build = wallclock()
         self.cluster = self._apply(delta, donate=donate,
                                    replace_terms=terms_dirty)
         self.cycles_since_resync += 1
         spans = ((("delta-build", t0, t_build),) + term_span
-                 + (("delta-apply", t_build, time.perf_counter()),))
+                 + (("delta-apply", t_build, wallclock()),))
         vspan, vstats = self._verify_tick(node_infos, names, pending)
         if vstats is not None:
             return self.cluster, vstats._replace(spans=spans
@@ -445,7 +445,7 @@ class DeltaTensorizer:
         self.resync_count += 1
         self._upload()
         return self.cluster, DeltaStats(
-            0, True, reason, (("resync", t0, time.perf_counter()),))
+            0, True, reason, (("resync", t0, wallclock()),))
 
     def _grow_pod_axis(self, needed: int) -> None:
         """Pad the mirror's pod-axis arrays to the next pow2 bucket with
@@ -464,9 +464,9 @@ class DeltaTensorizer:
     def _upload(self) -> None:
         """Full host->device copy of the mirror (resync, pod-axis
         growth)."""
-        t = time.perf_counter()
+        t = wallclock()
         self.cluster = self.host.to_device(self.device)
-        self.upload_s += time.perf_counter() - t
+        self.upload_s += wallclock() - t
 
     def _refresh_terms(self, node_infos) -> None:
         """Term-only rebuild: walk the term OWNERS, recompile the
@@ -493,7 +493,7 @@ class DeltaTensorizer:
     def _apply(self, delta: ClusterDelta, donate: bool,
                replace_terms: bool = False):
         from ..models import programs
-        t = time.perf_counter()
+        t = wallclock()
         cluster = self.cluster
         if replace_terms:
             a = self.host.arrays
@@ -502,5 +502,5 @@ class DeltaTensorizer:
                                               self.device),
                 score_terms=_terms_to_device(a["score_terms"], self.device))
         out = programs.apply_cluster_delta(cluster, delta, donate=donate)
-        self.upload_s += time.perf_counter() - t
+        self.upload_s += wallclock() - t
         return out

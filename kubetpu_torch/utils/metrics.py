@@ -11,12 +11,13 @@ queue_incoming_pods_total :212, scheduler_cache_size :230; queue-depth
 gauges via the async MetricRecorder (metric_recorder.go) plumbed into the
 heaps (scheduling_queue.go:230-235).
 
-A copy of kubetpu/utils/metrics.py without its SLO and telemetry
-exporters (those layers are not ported: ROADMAP queue 1 item 11).  The
-port's scheduler feeds the cycle, recovery, binding, attempt, cache-size
-and queue series where the JAX scheduler does; the framework's per-point
-durations, the journal, chaos and flight-recorder series stay at zero
-until item 11.
+A copy of kubetpu/utils/metrics.py, with its two live exporters: the
+armed SLO tracker's per-stage histograms and the armed telemetry ring's
+window series (each renders nothing while its recorder is disarmed).
+The port's scheduler feeds the cycle, recovery, binding, attempt,
+cache-size, queue, rejection-attribution and flight-recorder series
+where the JAX scheduler does; the framework's per-point durations, the
+journal and chaos series stay at zero (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -157,6 +158,103 @@ def _fmt(names, values) -> str:
     pairs = ",".join(f'{n}="{_escape_label(v)}"'
                      for n, v in zip(names, values))
     return "{" + pairs + "}"
+
+
+class SloStageHistograms:
+    """LIVE exporter: renders the armed SLO tracker's per-stage
+    log-ladder sketches (utils/slo.py) as real Prometheus histograms on
+    /metrics (besides /debug/slo).  The slo.py
+    ladder maps directly onto histogram ``le`` edges: slo counts are
+    PER-BUCKET (searchsorted-left, ``v <= edges[i]`` lands in slot i),
+    so the cumulative count at ``le=edges[i]`` is ``cumsum(counts[:i+1])``
+    and the overflow slot folds into ``+Inf`` only.  Disarmed (the
+    default) the exporter contributes zero lines — /metrics output is
+    byte-identical to the pre-SLO exposition, the same degrade-to-
+    nothing contract every armed layer keeps."""
+
+    name = "scheduler_pod_stage_duration_seconds"
+
+    def expose(self) -> List[str]:
+        from . import slo as _slo
+        trk = _slo.tracker()
+        if trk is None:
+            return []
+        from .slo import BUCKET_EDGES
+        snap = trk.counts_snapshot()
+        out = [f"# HELP {self.name} Per-pod stage latency from the armed "
+               "SLO tracker's log-ladder sketches (KUBETPU_SLO).",
+               f"# TYPE {self.name} histogram"]
+        for stage in sorted(snap["stages"]):
+            counts = snap["stages"][stage]["counts"]
+            cum = counts.cumsum()
+            total = int(cum[-1])
+            for i, edge in enumerate(BUCKET_EDGES):
+                lb = _fmt(("stage", "le"), (stage, repr(float(edge))))
+                out.append(f"{self.name}_bucket{lb} {int(cum[i])}")
+            lb = _fmt(("stage", "le"), (stage, "+Inf"))
+            out.append(f"{self.name}_bucket{lb} {total}")
+            lab = _fmt(("stage",), (stage,))
+            out.append(f"{self.name}_sum{lab} "
+                       f"{snap['stages'][stage]['sum_s']}")
+            out.append(f"{self.name}_count{lab} {total}")
+        return out
+
+
+class TelemetryWindowMetrics:
+    """LIVE exporter for the sustained-load telemetry ring
+    (utils/telemetry.py): windows-rolled/dropped counters plus the
+    last CLOSED window's headline numbers as gauges — the per-window
+    series Prometheus actually wants (scrape-to-scrape deltas of a
+    counter, point-in-time gauges), while the full per-window history
+    stays on /debug/loadz.  Disarmed: zero lines, like every armed
+    layer."""
+
+    prefix = "scheduler_load"
+
+    def expose(self) -> List[str]:
+        from . import telemetry as _telemetry
+        tel = _telemetry.ring()
+        if tel is None:
+            return []
+        wins = tel.windows()
+        p = self.prefix
+        out = [f"# HELP {p}_windows_total Telemetry windows rolled since "
+               "arming (KUBETPU_TELEMETRY).",
+               f"# TYPE {p}_windows_total counter",
+               f"{p}_windows_total {wins[-1]['seq'] if wins else 0}",
+               f"# HELP {p}_windows_dropped_total Telemetry windows "
+               "evicted from the bounded ring.",
+               f"# TYPE {p}_windows_dropped_total counter",
+               f"{p}_windows_dropped_total {tel.dropped()}"]
+        if not wins:
+            return out
+        last = wins[-1]
+        gauges = [
+            ("window_pods", "Terminal pods in the last closed window.",
+             last.get("pods", 0)),
+            ("window_e2e_p99_seconds",
+             "Windowed e2e p99 of the last closed window.",
+             last.get("stages", {}).get("e2e", {}).get("p99_s", 0.0)),
+            ("window_cycles", "Scheduling cycles in the last closed "
+             "window.", last.get("cycles", 0)),
+            ("window_demotions", "Recovery-ladder demotions in the last "
+             "closed window.", last.get("demotions", 0)),
+            ("window_recoveries", "Recovery-ladder events in the last "
+             "closed window.", last.get("recoveries", 0)),
+        ]
+        for suffix, help_, v in gauges:
+            out.append(f"# HELP {p}_{suffix} {_escape_help(help_)}")
+            out.append(f"# TYPE {p}_{suffix} gauge")
+            out.append(f"{p}_{suffix} {v}")
+        depths = last.get("queue_depths") or {}
+        if depths:
+            out.append(f"# HELP {p}_window_queue_depth Queue depths at "
+                       "the last window roll, by queue.")
+            out.append(f"# TYPE {p}_window_queue_depth gauge")
+            for q in sorted(depths):
+                lb = _fmt(("queue",), (q,))
+                out.append(f"{p}_window_queue_depth{lb} {depths[q]}")
+        return out
 
 
 class Registry:
@@ -302,6 +400,11 @@ class SchedulerMetrics:
             f"{p}_journal_dropped_total",
             "Journal records dropped: write failures plus size-cap "
             "evictions."))
+        # live exporters: the armed SLO sketches as real histograms and
+        # the telemetry ring's last-window series; both render at scrape
+        # time from the armed layer and contribute ZERO lines disarmed
+        self.slo_histograms = r(SloStageHistograms())
+        self.telemetry_windows = r(TelemetryWindowMetrics())
 
     # hooks consumed by queue/scheduler ------------------------------------
 
