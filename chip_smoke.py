@@ -200,7 +200,8 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              REST store).  The fill (Preemption5000Nodes' init phase,
              5,000 nodes, 20,000 fillers, gang under "pallas", batch
              1,000, chain on) drained synchronously and pipelined at
-             depths 1, 2 and 4, twice each, with the dispatch deadline
+             depths 1, 2 and 4, once each (twice before the extenders
+             and chaos phases joined the run's time limit), with the dispatch deadline
              armed (10 s): every drain binds the same pod -> node map,
              launches K1 as often as the synchronous drain, every launch
              recorded and held against the plain version; the depth-4
@@ -228,6 +229,48 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              1,000 hollow nodes and 2,000 pods through APIServer, ``python
              -m kubetpu_torch --api-server URL --once`` schedules them,
              and this process's store sees every binding;
+  extenders  HTTP extenders (kubetpu_torch/extender.py, the Scheduler's
+             extender path): SchedulingBasic5000Nodes (5,000 nodes, one
+             bound pod each, its 1,000 measured pods) under the
+             default configuration with an in-process fake extender on
+             127.0.0.1 (harness/extender_worlds.py: its filter drops every
+             node whose index is a multiple of 4, its prioritize scores
+             crc32(pod/node) % 11, its bind binds through the store):
+             every pod its own cycle, scored on the card and placed on the
+             host; all 1,000 bound, none on a filtered node, each bound by
+             the extender, one Scheduled Event each.  Eight pairs of
+             cycles spread over the drain (EXT_REPLAY_AT: 0-1, 142-143,
+             ..., 998-999) are replayed on the CPU, each from the card's
+             state before it (the pods of the earlier cycles bound where
+             the card bound them, the tie-break counter as the card's;
+             the CPU's filter-and-score at N = P = 8,192 costs seconds per
+             pod): the same nodes and PodDecisions, their extenders maps
+             included, and the same counters after each cycle.  And
+             scheduler_perf's Preemption (:158-162: 500 nodes packed with
+             2,000 fillers bound directly, 500 preemptors) with a
+             preemptVerb extender that keeps only the even-indexed
+             candidates, card against the whole CPU drain: the same
+             victims in order, nominations, placements and decisions;
+             preemption_attempts_total and the preemption_victims count
+             and sum equal to the drain's own tallies, one Preempted
+             Event per eviction.  Reports cycles, seconds, stages and
+             extender round trips per pod;
+  chaos      fault injection (utils/chaos.py), armed through
+             KUBETPU_CHAOS as an operator arms it: the backlog's world
+             (1,000 nodes x 4,096 pods, gang under "pallas", batch 512,
+             the chain on) with KUBETPU_VERIFY_INTERVAL=1 and
+             "seed=42,dispatch:error:n=1,delta:corrupt:n=1,bind:error:n=1":
+             every armed point fired, faults_injected equal to the fire
+             counts, recovery_log holding dispatch-error and
+             verify-resync and nothing else, one bind retry counted (with
+             its BindRetried Event), every pod bound exactly once, the
+             kernel route kept, every K1 launch recorded and held bitwise
+             to the plain version; and REST in two processes (the
+             serving phase's 1,000 nodes x 2,000 pods served here; the
+             scheduler in a child process armed with
+             "seed=42,rest:error:n=2,watch:error:n=2"): both points fired
+             twice, every pod bound exactly once on the server, no
+             recovery logged;
   measure    scheduler_perf's runner and the recorders (harness/perf.py,
              utils/trace.py, utils/slo.py, utils/telemetry.py):
              Preemption (config/performance-config.yaml:158-162: 500
@@ -276,6 +319,11 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              profiler: its host dispatch time, stream time, kernel busy
              time and top kernels;
 
+Every drain records Events (utils/events.py) into its store: the fill's
+drains hold one Scheduled Event per filler, the preempt drain one
+Preempted Event per eviction, with preemption_attempts_total and the
+preemption_victims count and sum equal to the drain's own tallies.
+
 Every sequential scan (the reference check's and each seq_* drain's) runs
 under torch.cuda.set_sync_debug_mode("error"): a host sync inside the
 step fails the smoke.  The scans' wall time per step (enqueue, and until
@@ -292,21 +340,38 @@ on a recovered cycle or a demotion (check_no_recovery).
 The main path is the pallas drain of each of slice, backlog, fill,
 preempt, gang_anti, gang_spread and autoscaler, each sequential drain,
 binpack's card drains, points' card drains, the card drains of volumes,
-resident's card drains, serving's fill and vol_backlog drains and
+resident's card drains, serving's fill and vol_backlog drains,
+extenders' 5,000-node card drain, chaos' backlog drain and
 measure's sustained run and parity drains: the
 kernel launch count is zeroed just before each and read just after it,
 and reported per path.  The slice never launches the kernel (above), nor do the
 term-bearing gang drains (routed to the lax round, as the JAX package
 routes them) or the sequential replay (no propose step: the JAX
 package's scan reaches no Pallas kernel), nor does binpack (its scores
-route to lax); in the backlog, fill, autoscaler, term-free points and
-vol_backlog drains, resident's 5,000-node gang drain and measure's
-parity drains and sustained run every launch's inputs and outputs are
+route to lax), nor does the extender path (it scores with one
+filter-and-score program and selects on the host, as the JAX package
+does); in the backlog, fill, autoscaler, term-free points and
+vol_backlog drains, resident's 5,000-node gang drain, chaos' backlog
+drain and measure's parity drains and sustained run every launch's
+inputs and outputs are
 recorded (the fill's, autoscaler's, vol_backlog's
 and the preempt drain's first 16)
 and, after the drain, the outputs are held bitwise against the plain
 version on the same inputs, and the kernel is timed on the widest
 recorded launch's real inputs.
+
+Phases run in ALL_PHASES' order, the kernel phase first and alone.
+Once it is done, main() starts two spawned children, and stops both
+before it returns: the reference child (CPU_REF_THREADS torch threads)
+runs the CPU halves of the card-vs-CPU drains (reference's two
+preemption drains, volumes' 500-node and vol_backlog drains,
+seq_slice's, binpack's and resident's 1,000-node drains, the extender
+drains' CPU side), and the card child runs the extenders phase's two
+card drains, beside the reference, points and volumes phases; each
+phase collects its own results.  The smaller CPU references
+(reference's auctions and replay, points' drains), and a child's job of
+a phase called without main(), run in this process on CPU_REF_THREADS
+torch threads (cpu_threads); the card phases keep torch's default.
 
 The second-to-last lines print the card (nvidia-smi's name and power
 limit) and the kernels' JSON line; the last line is the contract's
@@ -325,14 +390,18 @@ import subprocess
 import sys
 import time
 
-ALL_PHASES = ("reference", "kernel", "slice", "backlog", "fill",
-              "preempt", "seq_slice", "seq_anti", "seq_spread", "gang_anti",
-              "gang_spread", "autoscaler", "binpack", "points", "volumes",
-              "resident", "serving", "measure", "profile")
+# the kernel phase first (its times have the card to themselves); then the
+# phases the card child's extender drains run beside (reference, points,
+# volumes: card-vs-CPU checks); the extenders phase collects those drains
+ALL_PHASES = ("kernel", "reference", "points", "volumes", "slice",
+              "backlog", "fill", "preempt", "seq_slice", "seq_anti",
+              "seq_spread", "gang_anti", "gang_spread", "autoscaler",
+              "binpack", "resident", "serving", "extenders", "chaos",
+              "measure", "profile")
 MAIN_PATHS = ("slice", "backlog", "fill", "preempt", "seq_slice",
               "seq_anti", "seq_spread", "gang_anti", "gang_spread",
               "autoscaler", "binpack", "points", "volumes", "resident",
-              "serving", "measure")
+              "serving", "extenders", "chaos", "measure")
 FILL_NODES = 5000             # Preemption5000Nodes: 5,000 nodes,
 FILL_PODS = 4 * FILL_NODES    # 20,000 init pods (four 900m pods fill a node)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -377,6 +446,26 @@ def hollow_store(n_nodes, existing_per_node, zones=8, init_labels=10,
                                         "group": "init"})
             p.spec.node_name = n.name
             store.add(p)
+    return store
+
+
+def counting_store(src=None):
+    """A ClusterStore holding ``src``'s nodes and pods that counts bind
+    calls per pod: the no-double-bind oracle."""
+    from kubetpu_torch.client.store import ClusterStore
+
+    class CountingStore(ClusterStore):
+        def __init__(self):
+            super().__init__()
+            self.bind_calls = []
+
+        def bind(self, pod, node_name):
+            self.bind_calls.append(pod.metadata.name)
+            super().bind(pod, node_name)
+    store = CountingStore()
+    for kind in ("Node", "Pod"):
+        for obj in (src.list(kind) if src is not None else ()):
+            store.add(obj)
     return store
 
 
@@ -873,7 +962,8 @@ def _same_gang_result(cpu, card, what) -> None:
 def _gang_card_vs_cpu(run, what) -> tuple:
     """run(device) on the CPU and on the card (under GangRounds): the
     results, equal on every field, and the card run's sync check."""
-    cpu = run("cpu")
+    with cpu_threads():
+        cpu = run("cpu")
     with GangRounds() as rounds:
         card = run("cuda")
     _same_gang_result(cpu, card, what)
@@ -998,7 +1088,8 @@ def _seq_reference() -> dict:
                                      rng.to(dev), start_index=37,
                                      gumbel=gumbel.to(dev))
     t0 = time.perf_counter()
-    cpu = run("cpu")
+    with cpu_threads():
+        cpu = run("cpu")
     cpu_s = time.perf_counter() - t0
     with SeqScans() as scans:
         t0 = time.perf_counter()
@@ -1313,22 +1404,54 @@ def phase_gang_spread() -> dict:
     return out
 
 
-# The sequential card-vs-CPU comparisons (seq_slice, binpack) hold the
-# timed 1,000-pod card drain against the CPU replay of the same world.
-# That replay at 5,000 nodes takes ~45 s per 1,000 pods of CPU time, so
-# main() starts both in one spawned child at the start of the run, where
-# they run beside the card phases on CPU_REF_THREADS torch threads, and
-# each phase collects its own (CPU_REFS).
+# The card-vs-CPU phases hold a card drain against the same drain on the
+# CPU, which at 5,000 nodes takes tens of seconds to minutes of CPU time.
+# main() runs those CPU drains in one spawned child (the reference child,
+# CPU_REF_THREADS torch threads) beside the card phases, and the extender
+# path's card drains in a second child on the card (CARD_JOBS); each phase
+# collects its own jobs from CHILD_JOBS.  A phase run without main() runs
+# them in process.
 CPU_REF_THREADS = 4
-CPU_REFS = {}
+CHILD_JOBS = {}
+
+
+@contextlib.contextmanager
+def cpu_threads():
+    """This process's torch threads at CPU_REF_THREADS while a CPU
+    reference runs here, beside the reference child's; restored after."""
+    import torch
+    before = torch.get_num_threads()
+    torch.set_num_threads(CPU_REF_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def _ref_child_init() -> None:
+    import torch
+    torch.set_num_threads(CPU_REF_THREADS)
+
+
+def child_result(job, fn, *args):
+    """``job``'s result from main()'s children, or fn(*args) run here
+    (CPU references on CPU_REF_THREADS threads); and the seconds this
+    process waited for it."""
+    fut = CHILD_JOBS.get(job)
+    CHILD_JOBS[job] = None           # collected
+    t0 = time.perf_counter()
+    if fut is not None:
+        out = fut.result()
+    else:
+        with cpu_threads():
+            out = fn(*args)
+    return out, time.perf_counter() - t0
 
 
 def _seq_cpu_reference(what) -> dict:
     """The replay of seq_slice's or binpack's world (5,000 nodes, one
     bound pod each, the 1,000 measured pods) on the CPU: placements,
     final start index, seconds and stages."""
-    import torch
-    torch.set_num_threads(CPU_REF_THREADS)
     profile = binpack_profile() if what == "binpack" else None
     sched, placed, seconds, _ = drain(
         hollow_store(5000, 1), pending_pods(1000, "measured"), None, 1000,
@@ -1339,13 +1462,9 @@ def _seq_cpu_reference(what) -> dict:
 
 def _seq_card_vs_cpu(what, card_placed, card_sched) -> dict:
     """The timed card drain of ``what`` against the CPU replay of the
-    same world (from main()'s child, or run here when the phase runs
-    without main): the same placements of all 1,000 pods and the same
-    final start index."""
-    fut = CPU_REFS.pop(what, None)
-    t0 = time.perf_counter()
-    cpu = fut.result() if fut is not None else _seq_cpu_reference(what)
-    waited = time.perf_counter() - t0
+    same world: the same placements of all 1,000 pods and the same final
+    start index."""
+    cpu, waited = child_result(what, _seq_cpu_reference, what)
     if cpu["placed"] != card_placed:
         diff = [k for k in card_placed
                 if card_placed[k] != cpu["placed"].get(k)]
@@ -1532,6 +1651,9 @@ def phase_fill() -> dict:
         if len(per_node) != FILL_NODES or set(per_node.values()) != {4}:
             raise AssertionError("fill: nodes not packed four each (%s)"
                                  % backend)
+        out[backend]["scheduled_events"] = check_scheduled_events(
+            store, [p.metadata.name for p in store.list("Pod")],
+            "fill %s" % backend)
     return out
 
 
@@ -1597,7 +1719,8 @@ class DeviceTimed:
 
 def _preempt_drain(store, pods, backend, device, batch_size=None,
                    parked=(), record=None, record_limit=None, fresh=False,
-                   max_cycles=None):
+                   max_cycles=None, extenders=(), metrics=None,
+                   on_sched=None):
     """Drain ``pods`` through the failure path: gang under ``backend``, or
     the default configuration with backend None.  Backoff is 0 and, when
     nothing is active but pods wait, the unschedulable pods move at once
@@ -1605,21 +1728,26 @@ def _preempt_drain(store, pods, backend, device, batch_size=None,
     node) nominations made before the drain.  On the card every auction
     runs under GangRounds, every scan under SeqScans.  fresh: tensorize
     every cycle from scratch (fresh_tensorize).  max_cycles: stop after
-    that many scheduling cycles.  Returns (scheduler,
+    that many scheduling cycles.  extenders: the configuration's
+    extenders; metrics: a SchedulerMetrics to feed; on_sched: called
+    with the scheduler before the drain.  Returns (scheduler,
     placements, deleted pods [(name, priority, group)] in order,
     nominations, seconds, sync summary)."""
     import torch
     from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
                                            KubeSchedulerProfile)
     from kubetpu_torch.scheduler import Scheduler
-    cfg = KubeSchedulerConfiguration(profiles=[KubeSchedulerProfile()])
+    cfg = KubeSchedulerConfiguration(profiles=[KubeSchedulerProfile()],
+                                     extenders=list(extenders))
     if batch_size:
         cfg.batch_size = batch_size
     if backend is not None:
         cfg.mode, cfg.kernel_backend = "gang", backend
-    sched = Scheduler(store, config=cfg, device=device)
+    sched = Scheduler(store, config=cfg, device=device, metrics=metrics)
     if fresh:
         fresh_tensorize(sched)
+    if on_sched is not None:
+        on_sched(sched)
     # no backoff: set on the queue, since a configuration must ask for
     # more than 0 s
     sched.queue._initial_backoff = sched.queue._max_backoff = 0.0
@@ -1640,8 +1768,11 @@ def _preempt_drain(store, pods, backend, device, batch_size=None,
     restore = (_record_launches(record, record_limit)
                if record is not None else None)
     card = device == "cuda"
-    guard = (GangRounds() if card and backend is not None
-             else SeqScans() if card else contextlib.nullcontext())
+    # with an extender no auction or scan runs: each pod is scored by one
+    # filter-and-score program
+    watched = card and not extenders
+    guard = (GangRounds() if watched and backend is not None
+             else SeqScans() if watched else contextlib.nullcontext())
     try:
         with guard as gr:
             t0 = time.perf_counter()
@@ -1673,7 +1804,7 @@ def _preempt_drain(store, pods, backend, device, batch_size=None,
     noms = {p.metadata.name: p.status.nominated_node_name
             for p in store.list("Pod") if p.status.nominated_node_name}
     return (sched, placed, deleted, noms, seconds,
-            gr.summary() if card else None)
+            gr.summary() if watched else None)
 
 
 def _preempt_stats(sched) -> dict:
@@ -1695,6 +1826,7 @@ def phase_preempt(n_nodes=FILL_NODES, device="cuda") -> dict:
     from kubetpu_torch.ops import propose as PK
     from kubetpu_torch.scheduler import Scheduler, capacity_violations
     from kubetpu_torch.utils.decisions import DecisionLog
+    from kubetpu_torch.utils.metrics import SchedulerMetrics
     store = packed_fill_store(n_nodes)
     pods = preemptor_pods(n_nodes)
     record = []
@@ -1712,6 +1844,8 @@ def phase_preempt(n_nodes=FILL_NODES, device="cuda") -> dict:
         return orig_audit(sched, cycle_ctx, failed, host_ok)
     DecisionLog.record = spy
     Scheduler._audit_failures = audit_spy
+    metrics = SchedulerMetrics()
+    tallies = []
     PK.propose.launches = 0          # this path starts: zero the count
     try:
         with DeviceTimed(PR, "whatif_wave") as wave_t, \
@@ -1719,7 +1853,8 @@ def phase_preempt(n_nodes=FILL_NODES, device="cuda") -> dict:
                 DeviceTimed(PR, "explain_verdicts") as audit_t:
             sched, placed, deleted, noms, seconds, rounds = _preempt_drain(
                 store, pods, "pallas", device, n_nodes // 5, record=record,
-                record_limit=16)
+                record_limit=16, metrics=metrics,
+                on_sched=lambda s: tallies.append(PreemptTally(s)))
     finally:
         DecisionLog.record = orig_record
         Scheduler._audit_failures = orig_audit
@@ -1756,7 +1891,11 @@ def phase_preempt(n_nodes=FILL_NODES, device="cuda") -> dict:
     if stats["evictions"] != len(deleted):
         raise AssertionError("preempt: %d evictions counted, %d pods "
                              "deleted" % (stats["evictions"], len(deleted)))
+    # the metrics and Events against the drain's own tallies
+    observed = check_preemption_observed("preempt", metrics, tallies[0],
+                                         store, deleted)
     out = dict(placed=len(placed), cycles=sched.cycle_count,
+               observed=observed, events=event_counts(store),
                **stats, launches=launches,
                routes=sorted(set(sched.gang_backends)),
                auction_rounds=sched.gang_rounds, drain_s=seconds,
@@ -1788,48 +1927,68 @@ def phase_preempt(n_nodes=FILL_NODES, device="cuda") -> dict:
     return out
 
 
-def _preempt_card_vs_cpu(what, make, backend, batch_size=None):
-    """make() -> (store, pods, parked), drained on the CPU and on the
-    card: the same deleted pods in the same order, the same nominations,
-    the same placements."""
+def _preempt_world(what):
+    """The reference phase's preemption worlds, (store, pods, parked):
+    scheduler_perf's Preemption (500 nodes, 2,000 fillers, 500
+    preemptors) or the term-bearing preempt_worlds world (seed 21)."""
+    if what == "Preemption":
+        return packed_fill_store(500), preemptor_pods(500), ()
+    from kubetpu_torch.api import types as api
+    from kubetpu_torch.client.store import ClusterStore
+    from kubetpu_torch.harness import preempt_worlds as PW
+    w = PW.world(api, 21, 48, 16, terms=True)
+    store = ClusterStore()
+    PW.populate(store, w)
+    return store, w.pending, w.parked
+
+
+def _preempt_world_drain(what, backend, device, batch_size=None) -> dict:
+    """``what``'s world (_preempt_world) drained on ``device``: deleted
+    pods in order, nominations, placements, decisions, seconds, and on
+    the card the stats and sync check."""
     from kubetpu_torch import preemption as PRE
-    runs, logs = {}, {}
-    for dev in ("cpu", "cuda"):
-        store, pods, parked = make()
-        with DeviceTimed(PRE, "_whatif_reprieve") as rep_t:
-            sched, placed, deleted, noms, seconds, sync = _preempt_drain(
-                store, pods, backend, dev, batch_size, parked)
-        runs[dev] = (placed, deleted, noms)
-        logs[dev] = decision_view(sched)
-        if sched.preempt_wave_failures:
-            raise AssertionError("reference %s: a wave failed" % what)
-        if dev == "cuda":
-            rep_ms = rep_t.ms()
-            out = dict(placed=sum(1 for v in placed.values() if v),
-                       pods=len(pods), cycles=sched.cycle_count,
-                       deleted=len(deleted), **_preempt_stats(sched),
-                       card_s=seconds, sync_check=sync,
-                       reprieve_calls=len(rep_ms),
-                       reprieve_ms_per_call=(sum(rep_ms) / len(rep_ms)
-                                             if rep_ms else None))
-        else:
-            cpu_s = seconds
-    if runs["cpu"] != runs["cuda"]:
+    store, pods, parked = _preempt_world(what)
+    with DeviceTimed(PRE, "_whatif_reprieve") as rep_t:
+        sched, placed, deleted, noms, seconds, sync = _preempt_drain(
+            store, pods, backend, device, batch_size, parked)
+    if sched.preempt_wave_failures:
+        raise AssertionError("reference %s: a wave failed" % what)
+    out = dict(run=(placed, deleted, noms), log=decision_view(sched),
+               seconds=seconds)
+    if device == "cuda":
+        rep_ms = rep_t.ms()
+        out["card"] = dict(placed=sum(1 for v in placed.values() if v),
+                           pods=len(pods), cycles=sched.cycle_count,
+                           deleted=len(deleted), **_preempt_stats(sched),
+                           card_s=seconds, sync_check=sync,
+                           reprieve_calls=len(rep_ms),
+                           reprieve_ms_per_call=(sum(rep_ms) / len(rep_ms)
+                                                 if rep_ms else None))
+    return out
+
+
+def _preempt_card_vs_cpu(what, backend, batch_size=None):
+    """``what``'s world drained on the card and on the CPU (main()'s
+    reference child): the same deleted pods in the same order, the same
+    nominations, the same placements and decisions."""
+    card = _preempt_world_drain(what, backend, "cuda", batch_size)
+    cpu, waited = child_result("reference " + what, _preempt_world_drain,
+                               what, backend, "cpu", batch_size)
+    if cpu["run"] != card["run"]:
         raise AssertionError("reference %s: card and CPU differ (deleted "
                              "%s, nominations %s, placements %s)" % (
-                                 what, runs["cpu"][1] == runs["cuda"][1],
-                                 runs["cpu"][2] == runs["cuda"][2],
-                                 runs["cpu"][0] == runs["cuda"][0]))
-    if not runs["cpu"][1] or not runs["cpu"][2]:
+                                 what, cpu["run"][1] == card["run"][1],
+                                 cpu["run"][2] == card["run"][2],
+                                 cpu["run"][0] == card["run"][0]))
+    if not cpu["run"][1] or not cpu["run"][2]:
         raise AssertionError("reference %s: nothing was preempted" % what)
-    if logs["cpu"] != logs["cuda"]:
-        diff = [k for k in logs["cpu"] if logs["cpu"][k] != logs["cuda"].get(k)]
+    if cpu["log"] != card["log"]:
+        diff = [k for k in cpu["log"] if cpu["log"][k] != card["log"].get(k)]
         raise AssertionError("reference %s: DecisionLogs differ card vs CPU "
                              "(%d pods, e.g. %s)" % (what, len(diff),
                                                     diff[:3]))
-    out.update(cpu_s=cpu_s, matches_cpu=True, decisions_match_cpu=len(
-        logs["cpu"]))
-    return out
+    return dict(card["card"], cpu_s=cpu["seconds"], cpu_wait_s=waited,
+                matches_cpu=True, decisions_match_cpu=len(cpu["log"]))
 
 
 def decision_view(sched) -> dict:
@@ -1845,22 +2004,8 @@ def _preemption_references() -> dict:
     """scheduler_perf's Preemption (500 nodes, 2,000 fillers, 500
     preemptors) in the default configuration, and a term-bearing
     preempt_worlds world in gang mode (the per-pod reprieve)."""
-    from kubetpu_torch.api import types as api
-    from kubetpu_torch.client.store import ClusterStore
-    from kubetpu_torch.harness import preempt_worlds as PW
-
-    def perf_preemption():
-        return packed_fill_store(500), preemptor_pods(500), ()
-
-    def term_world():
-        w = PW.world(api, 21, 48, 16, terms=True)
-        store = ClusterStore()
-        PW.populate(store, w)
-        return store, w.pending, w.parked
-
-    out = dict(preemption_seq=_preempt_card_vs_cpu(
-        "Preemption", perf_preemption, None))
-    terms = _preempt_card_vs_cpu("terms", term_world, "pallas", 8)
+    out = dict(preemption_seq=_preempt_card_vs_cpu("Preemption", None))
+    terms = _preempt_card_vs_cpu("terms", "pallas", 8)
     if not terms["reprieve_calls"]:
         raise AssertionError("reference terms: no per-pod reprieve ran")
     out["preemption_terms"] = terms
@@ -2097,11 +2242,11 @@ def phase_resident() -> dict:
     out["sequential_5000"] = seq
     out["launches"] += seq["launches"]
     for backend in ("pallas", None):
-        runs = {dev: resident_drain(1000, 100, 8, backend, dev, digest=True)
-                for dev in ("cuda", "cpu")}
-        (cp, cd, crep, crec), (pp, pd, prep, prec) = (runs["cuda"],
-                                                      runs["cpu"])
         what = "resident 1000 %s" % (backend or "sequential")
+        cp, cd, crep, crec = resident_drain(1000, 100, 8, backend, "cuda",
+                                            digest=True)
+        (pp, pd, prep, prec), waited = child_result(
+            what, resident_drain, 1000, 100, 8, backend, "cpu", True)
         if (cp, cd) != (pp, pd):
             raise AssertionError("%s: card and CPU differ (placements %s, "
                                  "evictions %s)" % (what, cp == pp,
@@ -2120,8 +2265,8 @@ def phase_resident() -> dict:
             raise AssertionError("%s: %d vs %d refreshes" % (
                 what, len(crec), len(prec)))
         out["card_vs_cpu_1000_" + (backend or "sequential")] = dict(
-            card=crep, cpu_drain_s=prep["drain_s"], refreshes=len(crec),
-            matches_cpu=True)
+            card=crep, cpu_drain_s=prep["drain_s"], cpu_wait_s=waited,
+            refreshes=len(crec), matches_cpu=True)
     return out
 
 
@@ -2283,7 +2428,8 @@ def phase_points() -> dict:
             card_s = time.perf_counter() - t
             launches = PK.propose.launches
             t = time.perf_counter()
-            cpu = points_drain("cpu", mode, terms)
+            with cpu_threads():
+                cpu = points_drain("cpu", mode, terms)
             cpu_s = time.perf_counter() - t
             for i, name in enumerate(("placements", "calls", "forgotten",
                                       "routes")):
@@ -2323,6 +2469,7 @@ def phase_points() -> dict:
 # and the REST store
 
 SERVE_DEPTHS = (1, 2, 4)
+REST_NODES, REST_PODS = 1000, 2000     # serving's and chaos' REST world
 SERVE_DEADLINE_S = 10.0     # armed on every serving drain: no demotion
 
 
@@ -2472,26 +2619,12 @@ def _serve_fault(kind, fail_at, n_nodes=1000, batch_size=512):
     exactly once (a store that counts binds), four on every node; no
     capacity violated."""
     import kubetpu_torch.scheduler as S
-    from kubetpu_torch.client.store import ClusterStore
     from kubetpu_torch.scheduler import capacity_violations
     from kubetpu_torch.utils import pallas_backend as PB
-
-    class CountingStore(ClusterStore):
-        def __init__(self):
-            super().__init__()
-            self.bind_calls = []
-
-        def bind(self, pod, node_name):
-            self.bind_calls.append(pod.metadata.name)
-            super().bind(pod, node_name)
-
     src_store, pods = backlog_world() if n_nodes == 1000 else (
         hollow_store(n_nodes, 3, varied=True),
         pending_pods(4 * n_nodes, "backlog", cpu_milli=900))
-    store = CountingStore()
-    for kind_ in ("Node", "Pod"):
-        for obj in src_store.list(kind_):
-            store.add(obj)
+    store = counting_store(src_store)
     orig, calls = S.run_auction, [0]
 
     def faulty(*args, **kw):
@@ -2710,7 +2843,7 @@ def _serve_cli(n_nodes=5000, n_pods=5000):
                 in_process_bound=in_process, in_process_s=stats["drain_s"])
 
 
-def _serve_rest(n_nodes=1000, n_pods=2000, timeout_s=120.0):
+def _serve_rest(n_nodes=REST_NODES, n_pods=REST_PODS, timeout_s=120.0):
     """The REST control plane in two processes: this one serves a hollow
     cluster through APIServer; ``python -m kubetpu_torch --api-server URL
     --once`` (pipelined configuration) schedules it over HTTP; this
@@ -2752,14 +2885,16 @@ def _serve_rest(n_nodes=1000, n_pods=2000, timeout_s=120.0):
 
 def phase_serving() -> dict:
     """The serving loop on the card: the pipelined fill at every depth,
-    twice each, against the synchronous drain; vol_backlog pipelined
+    once each, against the synchronous drain; vol_backlog pipelined
     (the host-filter flush path) against its synchronous drain; an
     injected dispatch error and a stall past the deadline; Scheduler.run
     with SchedulerServer; the CLI;
     the REST store in two processes."""
     from kubetpu_torch.ops import propose as PK
     launches = 0
-    fill = _serve_depths("fill", fill_world, 1000)
+    # once per depth (the run's time limit: the extenders and chaos
+    # phases need the room)
+    fill = _serve_depths("fill", fill_world, 1000, reps=1)
     launches += sum(r["launches"] for r in fill)
     if fill[-1]["ring_high_water"] != 3:
         raise AssertionError("serving: the depth-4 ring reached %d parked "
@@ -2780,6 +2915,532 @@ def phase_serving() -> dict:
                               max_abs_err=max(r["max_abs_err"]
                                               for r in recorded),
                               real_launch=recorded[0]["real_launch"]))
+
+
+# ---------------------------------------------------------------------------
+# HTTP extenders and injected faults
+
+EXT_NODES = 5000     # SchedulingBasic5000Nodes (config/performance-config.yaml:9-13)
+EXT_PODS = 1000      # its measured pods
+EXT_PREEMPT_NODES = 500   # Preemption (:158-162): 500 nodes, 2,000 fillers
+# the extender drain's cycles held on the CPU, in pairs (k, k + 1) spread
+# over the whole drain, each pair replayed from the card's state before
+# cycle k: the CPU's filter-and-score at N = P = 8,192 costs ~8 s per pod,
+# so the CPU cannot drain all 1,000 pods within the run
+EXT_REPLAY_AT = (0, 142, 284, 426, 568, 710, 852, 998)
+CHAOS_SPEC = "seed=42,dispatch:error:n=1,delta:corrupt:n=1,bind:error:n=1"
+CHAOS_REST_SPEC = "seed=42,rest:error:n=2,watch:error:n=2"
+# the recovery_log entries the chaos drains expect (a bind retry is not
+# one: the JAX scheduler counts it in recoveries{bind-retry} only)
+CHAOS_RECOVERIES = {"dispatch-error", "verify-resync"}
+
+
+def event_counts(store) -> dict:
+    """Events by reason."""
+    out = {}
+    for e in store.list("Event"):
+        out[e.reason] = out.get(e.reason, 0) + 1
+    return out
+
+
+def check_scheduled_events(store, bound, what) -> int:
+    """One Scheduled Event, of count 1, per pod the drain bound."""
+    evs = [e for e in store.list("Event") if e.reason == "Scheduled"]
+    names = sorted(e.involved_name for e in evs)
+    if names != sorted(bound) or any(e.count != 1 for e in evs):
+        raise AssertionError("%s: %d Scheduled Events for %d bound pods"
+                             % (what, len(evs), len(bound)))
+    return len(evs)
+
+
+class PreemptTally:
+    """What a drain's preemption did, counted beside the metrics: the pods
+    each Preempt call was handed (every one eligible: a hollow store
+    deletes at once, so no victim is ever terminating) and each committed
+    preemption's victims."""
+
+    def __init__(self, sched):
+        self.attempts = 0
+        self.victims = []
+        pre = sched.preemptor
+        wave, commit = pre.preempt_wave, pre._commit_victims
+
+        def preempt_wave(fwk, cycle, pods):
+            self.attempts += len(pods)
+            return wave(fwk, cycle, pods)
+
+        def commit_victims(fwk, pod, best, victims, cycle, node_row):
+            self.victims.append(len(victims.pods))
+            return commit(fwk, pod, best, victims, cycle, node_row)
+        pre.preempt_wave = preempt_wave
+        pre._commit_victims = commit_victims
+
+
+def check_preemption_observed(what, metrics, tally, store, deleted) -> dict:
+    """preemption_attempts_total and the preemption_victims count and sum
+    equal the drain's own tallies, and one Preempted Event names each
+    evicted pod."""
+    victims = [v for v in tally.victims if v]
+    got = (metrics.preemption_attempts.value(),
+           metrics.preemption_victims.count(),
+           metrics.preemption_victims.sum())
+    if got != (tally.attempts, len(victims), sum(victims)) \
+            or sum(victims) != len(deleted):
+        raise AssertionError("%s: preemption metrics %s, tallies %s, %d "
+                             "evicted" % (what, got, (tally.attempts,
+                                                      len(victims),
+                                                      sum(victims)),
+                                          len(deleted)))
+    evs = [e for e in store.list("Event") if e.reason == "Preempted"]
+    if sorted(e.involved_name for e in evs) != sorted(d[0] for d in deleted):
+        raise AssertionError("%s: %d Preempted Events for %d evictions"
+                             % (what, len(evs), len(deleted)))
+    return dict(attempts=tally.attempts, preemptions=len(victims),
+                victims=sum(victims), preempted_events=len(evs))
+
+
+def ext_decision_view(sched, url) -> dict:
+    """Every pod's last decision, its extenders map with the extender's
+    URL written "EXT" (the card's and the CPU's extenders listen on
+    other ports)."""
+    return {d.name: (d.outcome, d.node, d.n_feasible, d.nominated_node,
+                     d.message, {k.replace(url, "EXT"): v
+                                 for k, v in d.extenders.items()})
+            for d in sched.decisions.recent(10 ** 6)}
+
+
+def _extender_sched(store, ext, device):
+    """The default configuration with ``ext`` (a FakeExtender) as its one
+    extender, on ``device``."""
+    from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
+                                           KubeSchedulerProfile)
+    from kubetpu_torch.scheduler import Scheduler
+    from kubetpu_torch.utils.metrics import SchedulerMetrics
+    return Scheduler(store, config=KubeSchedulerConfiguration(
+        profiles=[KubeSchedulerProfile()], batch_size=1000,
+        extenders=[ext.config()]), device=device, metrics=SchedulerMetrics())
+
+
+def _measured_placed(store) -> dict:
+    return {p.metadata.name: p.spec.node_name for p in store.list("Pod")
+            if p.metadata.labels.get("group") == "measured"
+            and p.spec.node_name}
+
+
+def extender_drain(device, n_nodes=EXT_NODES, n_pods=EXT_PODS) -> dict:
+    """SchedulingBasic5000Nodes (5,000 nodes, one bound pod each; its
+    1,000 measured pods) under the default configuration with the fake
+    extender (kubetpu_torch/harness/extender_worlds.py) serving filter,
+    prioritize and bind: each pod its own cycle, scored once on the
+    device and placed on the host.  Returns the bound pods' nodes, their
+    decisions, the pod of each cycle in order, the scheduler's tie-break
+    counter and cycle count before each cycle (and after the last), the
+    extender's calls, cycles, seconds and stages."""
+    import torch
+    from kubetpu_torch.harness import extender_worlds as EW
+    from kubetpu_torch.ops import propose as PK
+    from kubetpu_torch.scheduler import capacity_violations
+    store = hollow_store(n_nodes, 1)
+    pods = pending_pods(n_pods, "measured")
+    with EW.FakeExtender(store, verbs=("filter", "prioritize",
+                                       "bind")) as ext:
+        sched = _extender_sched(store, ext, device)
+        for p in pods:
+            store.add(p)
+        order, counters = [], []
+        PK.propose.launches = 0          # this path starts: zero the count
+        t0 = time.perf_counter()
+        while True:
+            counters.append((sched._rng_counter, sched.cycle_count))
+            out = sched.schedule_pending()
+            if not out:
+                break
+            order.extend(o.pod.metadata.name for o in out)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = PK.propose.launches
+        sched.close()
+        url, calls = ext.url, dict(ext.calls)
+    check_no_recovery(sched, "extenders %s" % device)
+    placed = _measured_placed(store)
+    bound = list(placed)
+    if (len(bound) != n_pods or len(order) != sched.cycle_count
+            or capacity_violations(store)):
+        raise AssertionError("extenders %s: %d/%d bound in %d cycles"
+                             % (device, len(bound), n_pods,
+                                sched.cycle_count))
+    if any(EW.node_index(v) % 4 == 0 for v in placed.values()):
+        raise AssertionError("extenders %s: a pod on a node the extender "
+                             "filtered out" % device)
+    if calls.get("bind") != n_pods:
+        raise AssertionError("extenders %s: %s extender calls"
+                             % (device, calls))
+    return dict(placed=placed, decisions=ext_decision_view(sched, url),
+                order=order, counters=counters, calls=calls,
+                cycles=sched.cycle_count, seconds=seconds,
+                stage_s=dict(sched.stage_s), launches=launches,
+                scheduled_events=check_scheduled_events(
+                    store, bound, "extenders %s" % device),
+                events=event_counts(store))
+
+
+def extender_cpu_replay(order, placed, counters, at=EXT_REPLAY_AT,
+                        n_nodes=EXT_NODES, n_pods=EXT_PODS) -> dict:
+    """The extender drain's cycles k and k + 1, for each k in ``at``, on
+    the CPU, each pair from the card drain's state before cycle k: the
+    pods of the card's first k cycles (``order``) bound where the card
+    placed them (``placed``), pods k and k + 1 pending, and the
+    scheduler's tie-break counter and cycle count as the card's were
+    (``counters``).  Returns the replayed pods' nodes and decisions, the
+    counters after each replayed cycle, cycles and seconds."""
+    from kubetpu_torch.harness import extender_worlds as EW
+    store = hollow_store(n_nodes, 1)
+    pods = {p.metadata.name: p for p in pending_pods(n_pods, "measured")}
+    after = {}
+    seconds = 0.0
+    with EW.FakeExtender(store, verbs=("filter", "prioritize",
+                                       "bind")) as ext:
+        sched = _extender_sched(store, ext, "cpu")
+        done = 0
+        for k in at:
+            for name in order[done:k]:
+                pods[name].spec.node_name = placed[name]
+                store.add(pods[name])
+            for name in order[k:k + 2]:
+                store.add(pods[name])
+            sched._rng_counter, sched.cycle_count = counters[k]
+            t0 = time.perf_counter()
+            for j in (k, k + 1):
+                sched.schedule_pending()
+                after[j + 1] = (sched._rng_counter, sched.cycle_count)
+            seconds += time.perf_counter() - t0
+            done = k + 2
+        sched.close()
+        url = ext.url
+    check_no_recovery(sched, "extenders replay")
+    names = [n for k in at for n in order[k:k + 2]]
+    now = _measured_placed(store)
+    view = ext_decision_view(sched, url)
+    return dict(placed={n: now.get(n) for n in names},
+                decisions={n: view.get(n) for n in names}, after=after,
+                cycles=len(names), seconds=seconds)
+
+
+def extender_preempt_drain(device, n_nodes=EXT_PREEMPT_NODES) -> dict:
+    """scheduler_perf's Preemption (500 nodes packed with four fillers
+    each, bound directly; as many preemptors as nodes) under the default
+    configuration with a preemptVerb extender that keeps only the
+    even-indexed candidates: placements, victims in order, nominations,
+    decisions, the metrics against the drain's tallies, the Preempted
+    Events."""
+    from kubetpu_torch.harness import extender_worlds as EW
+    from kubetpu_torch.utils.metrics import SchedulerMetrics
+    store = packed_fill_store(n_nodes)
+    pods = preemptor_pods(n_nodes)
+    metrics = SchedulerMetrics()
+    tallies = []
+    with EW.FakeExtender(store, verbs=("preempt",)) as ext:
+        sched, placed, deleted, noms, seconds, _ = _preempt_drain(
+            store, pods, None, device, extenders=[ext.config()],
+            metrics=metrics, on_sched=lambda s: tallies.append(
+                PreemptTally(s)))
+        url, calls = ext.url, dict(ext.calls)
+    if any(EW.node_index(n) % 2 for n in noms.values()):
+        raise AssertionError("extenders preempt %s: a nomination on a node "
+                             "the extender dropped" % device)
+    if not deleted or not calls.get("preempt"):
+        raise AssertionError("extenders preempt %s: nothing preempted"
+                             % device)
+    observed = check_preemption_observed(
+        "extenders preempt %s" % device, metrics, tallies[0], store, deleted)
+    return dict(placed=placed, deleted=deleted, noms=noms,
+                decisions=ext_decision_view(sched, url), calls=calls,
+                cycles=sched.cycle_count, seconds=seconds,
+                stage_s=dict(sched.stage_s), observed=observed)
+
+
+def _differ(what, key, card, cpu) -> None:
+    if card != cpu:
+        diff = ([k for k in card if card[k] != cpu.get(k)]
+                if isinstance(card, dict) else "-")
+        raise AssertionError("%s: %s differ card vs CPU (%s)"
+                             % (what, key, diff[:3]))
+
+
+def phase_extenders() -> dict:
+    """HTTP extenders on the card (main()'s card child, beside the phases
+    after the kernel's), each drain held against the CPU (main()'s
+    reference child): SchedulingBasic5000Nodes with filter, prioritize
+    and bind, all 1,000 pods on the card and the EXT_REPLAY_AT cycle
+    pairs replayed on the CPU from the card's state (every replayed pod's
+    node and decision, its extenders map included, and the tie-break
+    counter after each cycle equal); and Preemption with a preemptVerb
+    extender, whole on both (the same victims in order, nominations,
+    placements and decisions; the preemption metrics and Preempted
+    Events against the drain's own tallies)."""
+    card, card_wait = child_result("extenders card", extender_drain, "cuda")
+    start_replay(card)
+    cpu, cpu_wait = child_result("extenders replay", extender_cpu_replay,
+                                 card["order"], card["placed"],
+                                 card["counters"])
+    names = list(cpu["placed"])
+    _differ("extenders", "placed", {n: card["placed"][n] for n in names},
+            cpu["placed"])
+    _differ("extenders", "decisions",
+            {n: card["decisions"][n] for n in names}, cpu["decisions"])
+    _differ("extenders", "counters",
+            {j: tuple(card["counters"][j]) for j in cpu["after"]},
+            cpu["after"])
+    n = len(card["placed"])
+    out = dict(extenders=dict(
+        pods=n, cycles=card["cycles"], card_s=card["seconds"],
+        card_wait_s=card_wait, cpu_pods=len(names), cpu_cycles=cpu["cycles"],
+        cpu_replayed_at=list(EXT_REPLAY_AT), cpu_s=cpu["seconds"],
+        cpu_wait_s=cpu_wait, stage_s=card["stage_s"], calls=card["calls"],
+        round_trips_per_pod=sum(card["calls"].values()) / n,
+        matches_cpu=True, launches=card["launches"],
+        scheduled_events=card["scheduled_events"], events=card["events"]))
+    card, card_wait = child_result("extenders_preempt card",
+                                   extender_preempt_drain, "cuda")
+    cpu, cpu_wait = child_result("extenders_preempt cpu",
+                                 extender_preempt_drain, "cpu")
+    for key in ("placed", "deleted", "noms", "decisions", "calls"):
+        _differ("extenders_preempt", key, card[key], cpu[key])
+    n = len(card["placed"])
+    out["extenders_preempt"] = dict(
+        pods=n, cycles=card["cycles"], card_s=card["seconds"],
+        card_wait_s=card_wait, cpu_pods=len(cpu["placed"]),
+        cpu_cycles=cpu["cycles"], cpu_s=cpu["seconds"], cpu_wait_s=cpu_wait,
+        stage_s=card["stage_s"], calls=card["calls"],
+        round_trips_per_pod=sum(card["calls"].values()) / n,
+        matches_cpu=True, deleted=len(card["deleted"]),
+        nominated=len(card["noms"]), **card["observed"])
+    out["launches"] = out["extenders"]["launches"]
+    return out
+
+
+def _chaos_backlog(device="cuda", n_nodes=1000, batch_size=512) -> dict:
+    """The backlog's world (1,000 nodes, 4,096 900m pods) gang under
+    "pallas", batch 512, the chain on, on an in-process store, with
+    KUBETPU_VERIFY_INTERVAL=1 and KUBETPU_CHAOS=CHAOS_SPEC read by the
+    Scheduler (utils/chaos.maybe_arm_from_env): the first dispatch
+    raises, the first delta scatter corrupts a resident, the first bind
+    fails.  Every armed point fired, every pod bound exactly once, the
+    recoveries logged (dispatch-error, verify-resync) and counted
+    (bind-retry too), faults_injected equal to the fire counts, no
+    demotion, every K1 launch recorded and bitwise equal to the plain
+    version."""
+    import os
+    from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
+                                           KubeSchedulerProfile)
+    from kubetpu_torch.ops import propose as PK
+    from kubetpu_torch.scheduler import Scheduler, capacity_violations
+    from kubetpu_torch.utils import chaos
+    from kubetpu_torch.utils import pallas_backend as PB
+    from kubetpu_torch.utils.metrics import SchedulerMetrics
+    src, pods = ((backlog_world() if n_nodes == 1000 else
+                  (hollow_store(n_nodes, 3, varied=True),
+                   pending_pods(4 * n_nodes + n_nodes // 10, "backlog",
+                                cpu_milli=900))))
+    store = counting_store(src)
+    metrics = SchedulerMetrics()
+    env = {"KUBETPU_CHAOS": CHAOS_SPEC, "KUBETPU_VERIFY_INTERVAL": "1"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    record = []
+    try:
+        sched = Scheduler(store, config=KubeSchedulerConfiguration(
+            profiles=[KubeSchedulerProfile()], batch_size=batch_size,
+            mode="gang", kernel_backend="pallas", chain_cycles=True),
+            device=device, metrics=metrics)
+        reg = chaos.active()
+        if reg is None or reg.seed != 42:
+            raise AssertionError("chaos: KUBETPU_CHAOS did not arm the "
+                                 "registry")
+        sched.queue._clock = _QueueClock()
+        for p in pods:
+            store.add(p)
+        restore = (_record_launches(record, None) if device == "cuda"
+                   else lambda: None)
+        PK.propose.launches = 0          # this path starts: zero the count
+        try:
+            with (GangRounds() if device == "cuda"
+                  else contextlib.nullcontext()) as gr:
+                t0 = time.perf_counter()
+                outs = serve_passes(sched)
+                seconds = time.perf_counter() - t0
+        finally:
+            restore()
+            sched.close()
+        launches = PK.propose.launches
+        sched._sync_chaos_metrics()
+        fired = reg.counts()
+    finally:
+        chaos.disarm()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    what = "chaos backlog"
+    if fired != {"dispatch": 1, "delta": 1, "bind": 1}:
+        raise AssertionError("%s: fired %s" % (what, fired))
+    kinds = [e["kind"] for e in sched.recovery_log]
+    if sorted(kinds) != sorted(CHAOS_RECOVERIES):
+        raise AssertionError("%s: recovery log %s" % (what, kinds))
+    retries = metrics.recoveries.value("bind-retry")
+    if retries != 1 or event_counts(store).get("BindRetried") != 1:
+        raise AssertionError("%s: %s bind retries counted" % (what, retries))
+    injected = {pt: metrics.faults_injected.value(pt) for pt in fired}
+    if injected != fired:
+        raise AssertionError("%s: faults_injected %s, fired %s"
+                             % (what, injected, fired))
+    if PB.demotion() is not None or {b for b, _ in sched.gang_backends} \
+            != {"pallas"}:
+        raise AssertionError("%s: routes %s, demotion %r" % (
+            what, sorted({b for b, _ in sched.gang_backends}),
+            PB.demotion()))
+    if len(store.bind_calls) != len(set(store.bind_calls)):
+        raise AssertionError("%s: a pod was bound twice" % what)
+    bound = sorted(p.metadata.name for p in store.list("Pod")
+                   if p.spec.node_name and p.metadata.name.startswith(
+                       "backlog"))
+    if bound != sorted(store.bind_calls) or len(bound) != 4 * n_nodes:
+        raise AssertionError("%s: %d pods bound, %d binds"
+                             % (what, len(bound), len(store.bind_calls)))
+    if capacity_violations(store):
+        raise AssertionError("%s: capacity violated" % what)
+    requeued = sum(1 for o in outs if o.err and "dispatch recovered" in o.err)
+    out = dict(fired=fired, faults_injected=injected, recoveries=kinds,
+               bind_retries=retries, requeued=requeued, bound=len(bound),
+               cycles=sched.cycle_count, sources=sched.cluster_sources,
+               launches=launches, seconds=seconds,
+               scheduled_events=check_scheduled_events(store, bound, what))
+    if device == "cuda":
+        if launches <= 0:
+            raise AssertionError("%s: K1 never launched" % what)
+        out.update(sync_check=gr.summary(),
+                   recorded=check_recorded(record, what))
+    return out
+
+
+def _rest_chaos_child(url, device="cuda") -> dict:
+    """The scheduler side of _chaos_rest, in its own process: a
+    RestClusterStore on ``url`` and a gang scheduler under "pallas"
+    (batch 1,000, the chain on) armed from KUBETPU_CHAOS, drained until
+    nothing is active or backing off; then the watch loop is given until
+    its armed faults have fired."""
+    from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
+                                           KubeSchedulerProfile)
+    from kubetpu_torch.client.rest import RestClusterStore
+    from kubetpu_torch.scheduler import Scheduler
+    from kubetpu_torch.utils import chaos
+    from kubetpu_torch.utils.metrics import SchedulerMetrics
+    store = RestClusterStore(url)
+    if not store.wait_for_cache_sync(timeout=30.0):
+        raise AssertionError("chaos rest: no cache sync")
+    metrics = SchedulerMetrics()
+    sched = Scheduler(store, config=KubeSchedulerConfiguration(
+        profiles=[KubeSchedulerProfile()], batch_size=1000, mode="gang",
+        kernel_backend="pallas", chain_cycles=True), device=device,
+        metrics=metrics)
+    reg = chaos.active()
+    t0 = time.perf_counter()
+    deadline = t0 + 120.0
+    bound = 0
+    while time.perf_counter() < deadline:
+        sched.queue.flush_backoff_completed()
+        got = sched.schedule_pending(timeout=0.2)
+        bound += sum(1 for o in got if o.node)
+        if (not got and not len(sched.queue.active_q)
+                and not len(sched.queue.backoff_q)):
+            break
+    seconds = time.perf_counter() - t0
+    while (reg.counts().get("watch", 0) < 2
+           and time.perf_counter() < deadline):
+        time.sleep(0.05)
+    sched._sync_chaos_metrics()
+    sched.close()
+    store.close()
+    fired = reg.counts()
+    return dict(fired=fired, bound=bound, seconds=seconds,
+                faults_injected={pt: metrics.faults_injected.value(pt)
+                                 for pt in fired},
+                recoveries=[e["kind"] for e in sched.recovery_log],
+                bind_retries=metrics.recoveries.value("bind-retry"),
+                routes=sorted({b for b, _ in sched.gang_backends}),
+                cycles=sched.cycle_count)
+
+
+def _chaos_rest(n_nodes=REST_NODES, n_pods=REST_PODS, device="cuda") -> dict:
+    """The REST control plane in two processes under injected transport
+    faults: this process serves the serving phase's hollow cluster (1,000
+    nodes, 2,000 pods) through APIServer on a store that counts binds;
+    the second (_rest_chaos_child) schedules it with
+    KUBETPU_CHAOS=CHAOS_REST_SPEC: two API-server errors and two watch
+    disconnects.  Every armed point fired, every pod bound exactly once
+    on the server, no recovery logged, the kernel route kept."""
+    import os
+    from kubetpu_torch.client.rest import APIServer
+    from kubetpu_torch.scheduler import capacity_violations
+    src = hollow_store(n_nodes, 0)
+    for p in pending_pods(n_pods, "rest"):
+        src.add(p)
+    store = counting_store(src)
+    api = APIServer(store)
+    port = api.start()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, KUBETPU_CHAOS=CHAOS_REST_SPEC,
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    try:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c",
+             "import json, chip_smoke; print(json.dumps("
+             "chip_smoke._rest_chaos_child(%r, %r)))"
+             % ("http://127.0.0.1:%d" % port, device)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+    finally:
+        api.stop()
+    if run.returncode != 0:
+        raise AssertionError("chaos rest: the scheduler process exited %d"
+                             "\n%s" % (run.returncode, run.stderr[-3000:]))
+    child = json.loads(run.stdout.strip().splitlines()[-1])
+    what = "chaos rest"
+    if child["fired"] != {"rest": 2, "watch": 2} \
+            or child["faults_injected"] != child["fired"]:
+        raise AssertionError("%s: fired %s, faults_injected %s"
+                             % (what, child["fired"],
+                                child["faults_injected"]))
+    if child["recoveries"] or child["routes"] != ["pallas"]:
+        raise AssertionError("%s: recoveries %s, routes %s"
+                             % (what, child["recoveries"], child["routes"]))
+    bound = sorted(p.metadata.name for p in store.list("Pod")
+                   if p.spec.node_name)
+    if (len(bound) != n_pods or sorted(store.bind_calls) != bound
+            or child["bound"] != n_pods):
+        raise AssertionError("%s: %d bound on the server, %d binds, the "
+                             "client says %d" % (what, len(bound),
+                                                 len(store.bind_calls),
+                                                 child["bound"]))
+    if capacity_violations(store):
+        raise AssertionError("%s: capacity violated" % what)
+    return dict(child, process_s=seconds, server_bound=len(bound),
+                events=event_counts(store))
+
+
+def phase_chaos() -> dict:
+    """Injected faults on the card, armed through KUBETPU_CHAOS: the
+    backlog in process (dispatch, delta, bind) and REST in two processes
+    (rest, watch)."""
+    backlog = _chaos_backlog()
+    with LoggedFaults("chaos rest"):
+        rest = _chaos_rest()
+    return dict(launches=backlog["launches"], backlog=backlog, rest=rest,
+                recorded=backlog["recorded"])
 
 
 # ---------------------------------------------------------------------------
@@ -3035,42 +3696,70 @@ def volume_mask_worlds() -> dict:
                 matches_host_plugins=True)
 
 
-def _volume_card_vs_cpu(what, make_world, backend, batch_size, n_bound,
+def _volume_world_drain(what, world, backend, batch_size, n_bound) -> dict:
+    """``world`` = (fn, args), a world's builder, drained on the CPU: the
+    view (placements, claims, failure messages) and the drain's stats."""
+    fn, args = world
+    store, pods = fn(*args)
+    _, stats = volume_drain(store, pods, backend, batch_size, "cpu")
+    stats["max_attach"] = check_volume_drain(store, what, n_bound)
+    return dict(view=volume_view(store), stats=stats)
+
+
+def _volume_card_vs_cpu(what, world, backend, batch_size, n_bound,
                         record_limit=None):
-    """One world drained on the card (K1's launches counted from zero,
-    and recorded when record_limit is set) and on the CPU: the same
-    placements, claims and failure messages.  n_bound: the pods each
-    drain must leave bound (None: any number)."""
+    """One world (``world`` = (fn, args), its builder) drained on the
+    card (K1's launches counted from zero, and recorded when
+    record_limit is set) and on the CPU (main()'s reference child): the
+    same placements, claims and failure messages.  n_bound: the pods
+    each drain must leave bound (None: any number)."""
     from kubetpu_torch.ops import propose as PK
-    views, res = {}, {}
     record = [] if record_limit is not None else None
-    for device in ("cuda", "cpu"):
-        store, pods = make_world()
-        if device == "cuda":
-            PK.propose.launches = 0      # this path starts: zero the count
-        _, stats = volume_drain(store, pods, backend, batch_size, device,
-                                record if device == "cuda" else None,
-                                record_limit)
-        if device == "cuda":
-            stats["launches"] = PK.propose.launches
-        stats["max_attach"] = check_volume_drain(store, what, n_bound)
-        views[device] = volume_view(store)
-        res[device] = stats
-    if views["cuda"] != views["cpu"]:
-        diff = sum(1 for a, b in zip(views["cuda"][0], views["cpu"][0])
+    fn, args = world
+    store, pods = fn(*args)
+    PK.propose.launches = 0      # this path starts: zero the count
+    _, stats = volume_drain(store, pods, backend, batch_size, "cuda",
+                            record, record_limit)
+    stats["launches"] = PK.propose.launches
+    stats["max_attach"] = check_volume_drain(store, what, n_bound)
+    card_view = volume_view(store)
+    cpu, waited = child_result(what, _volume_world_drain, what, world,
+                               backend, batch_size, n_bound)
+    if card_view != cpu["view"]:
+        diff = sum(1 for a, b in zip(card_view[0], cpu["view"][0])
                    if a != b)
         raise AssertionError("%s: card and CPU differ (%d pods; claims "
                              "equal: %s)" % (what, diff,
-                                             views["cuda"][1] ==
-                                             views["cpu"][1]))
-    out = dict(res["cuda"], cpu_drain_s=res["cpu"]["drain_s"],
-               cpu_stage_s=res["cpu"]["stage_s"], matches_cpu=True)
+                                             card_view[1] ==
+                                             cpu["view"][1]))
+    out = dict(stats, cpu_drain_s=cpu["stats"]["drain_s"],
+               cpu_stage_s=cpu["stats"]["stage_s"], cpu_wait_s=waited,
+               matches_cpu=True)
     if record is not None:
         if out["launches"] <= 0:
             raise AssertionError("%s: the propose kernel never launched"
                                  % what)
         out["recorded"] = check_recorded(record, what)
     return out
+
+
+def _volume_refs():
+    """The volumes phase's card-vs-CPU drains, (what, world, backend,
+    batch size, pods bound): scheduler_perf's four volume workloads at
+    500 nodes (sequential, and gang under "pallas" for the PV and CSI
+    ones), and vol_backlog."""
+    refs = []
+    for name, flag in VOLUME_WORKLOADS:
+        w = volume_workload(name, flag, 500)
+        for backend in ((None, "pallas") if name in GANG_VOLUME_WORKLOADS
+                        else (None,)):
+            refs.append(("%s %s" % (w.name, backend or "sequential"),
+                         (volume_workload_world, (w,)), backend,
+                         1000 if backend else 256,
+                         w.num_init_pods + w.num_pods_to_schedule))
+    refs.append(("vol_backlog", (vol_backlog_world, ()), "pallas", 4096,
+                 None))
+    return refs
 
 
 def phase_volumes() -> dict:
@@ -3084,21 +3773,12 @@ def phase_volumes() -> dict:
     import copy
     from kubetpu_torch.ops import propose as PK
     out = {"launches": 0, "mask_worlds": volume_mask_worlds()}
-    for name, flag in VOLUME_WORKLOADS:
-        w = volume_workload(name, flag, 500)
-        for backend in ((None, "pallas") if name in GANG_VOLUME_WORKLOADS
-                        else (None,)):
-            what = "%s %s" % (w.name, backend or "sequential")
-            res = _volume_card_vs_cpu(
-                what, lambda: volume_workload_world(w), backend,
-                1000 if backend else 256, w.num_init_pods + 1000)
-            out["launches"] += res["launches"]
-            out[what] = res
-
-    res = _volume_card_vs_cpu("vol_backlog", vol_backlog_world, "pallas",
-                              4096, None, record_limit=16)
-    out["launches"] += res["launches"]
-    out["vol_backlog"] = res
+    for what, world, backend, batch_size, n_bound in _volume_refs():
+        res = _volume_card_vs_cpu(
+            what, world, backend, batch_size, n_bound,
+            record_limit=16 if what == "vol_backlog" else None)
+        out["launches"] += res["launches"]
+        out[what] = res
 
     for name, flag in VOLUME_WORKLOADS:
         w = volume_workload(name, flag, 5000)
@@ -3110,7 +3790,7 @@ def phase_volumes() -> dict:
             stats["launches"] = PK.propose.launches
             out["launches"] += stats["launches"]
             stats["max_attach"] = check_volume_drain(
-                store, what, w.num_init_pods + 1000)
+                store, what, w.num_init_pods + w.num_pods_to_schedule)
             if backend is None:
                 # 8 sampled pods, as pending copies, against the drained
                 # cluster, every node
@@ -3720,6 +4400,64 @@ def phase_profile() -> dict:
         audit=_profiled_audit())
 
 
+# ---------------------------------------------------------------------------
+# main()'s children
+
+POOLS = {}     # "cpu": the reference child; "card": the card child
+
+
+def cpu_ref_jobs(phase) -> list:
+    """``phase``'s CPU references, (job, fn, args), in the order the
+    phase collects them: the CPU halves of its card-vs-CPU drains."""
+    if phase == "reference":
+        return [("reference Preemption", _preempt_world_drain,
+                 ("Preemption", None, "cpu")),
+                ("reference terms", _preempt_world_drain,
+                 ("terms", "pallas", "cpu", 8))]
+    if phase == "volumes":
+        return [(what, _volume_world_drain, (what, world, backend,
+                                              batch_size, n_bound))
+                for what, world, backend, batch_size, n_bound
+                in _volume_refs()]
+    if phase in ("seq_slice", "binpack"):
+        return [(phase, _seq_cpu_reference, (phase,))]
+    if phase == "resident":
+        return [("resident 1000 %s" % (backend or "sequential"),
+                 resident_drain, (1000, 100, 8, backend, "cpu", True))
+                for backend in ("pallas", None)]
+    if phase == "extenders":
+        # its replay starts once the card drain is done (pump_children)
+        return [("extenders_preempt cpu", extender_preempt_drain, ("cpu",))]
+    return []
+
+
+def card_jobs(phase) -> list:
+    """``phase``'s card drains that run in the card child, beside the
+    phases after the kernel's: the extender path's."""
+    if phase == "extenders":
+        return [("extenders card", extender_drain, ("cuda",)),
+                ("extenders_preempt card", extender_preempt_drain,
+                 ("cuda",))]
+    return []
+
+
+def start_replay(card) -> None:
+    """The extender drain's CPU replay (extender_cpu_replay) in the
+    reference child, from the card drain's result, once."""
+    if "cpu" in POOLS and "extenders replay" not in CHILD_JOBS:
+        CHILD_JOBS["extenders replay"] = POOLS["cpu"].submit(
+            extender_cpu_replay, card["order"], card["placed"],
+            card["counters"])
+
+
+def pump_children() -> None:
+    """Start the child jobs that wait on another's result: the extender
+    drain's CPU replay once the card child's drain is done."""
+    card = CHILD_JOBS.get("extenders card")
+    if card is not None and card.done() and card.exception() is None:
+        start_replay(card.result())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -3740,21 +4478,36 @@ def main() -> int:
     log({"build_s": time.perf_counter() - t0,
          "nvcc_s": _build.build_seconds.get("propose")})
     results = {}
-    refs = [ph for ph in ("seq_slice", "binpack") if ph in phases]
-    pool = (concurrent.futures.ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"))
-        if refs else None)
+    # both children start once the kernel phase is done (its times must
+    # have the host and the card to themselves): the reference child on
+    # every phase's CPU references at once, the card child on the
+    # extender path's card drains
+    cpu_jobs = [j for ph in phases for j in cpu_ref_jobs(ph)]
+    cards = [j for ph in phases for j in card_jobs(ph)]
+    spawn = multiprocessing.get_context("spawn")
     try:
-        for ph in refs:
-            CPU_REFS[ph] = pool.submit(_seq_cpu_reference, ph)
         for ph in phases:
+            if ph != "kernel":
+                if cpu_jobs and "cpu" not in POOLS:
+                    POOLS["cpu"] = concurrent.futures.ProcessPoolExecutor(
+                        1, mp_context=spawn, initializer=_ref_child_init)
+                    for job, fn, args in cpu_jobs:
+                        CHILD_JOBS[job] = POOLS["cpu"].submit(fn, *args)
+                if cards and "card" not in POOLS:
+                    POOLS["card"] = concurrent.futures.ProcessPoolExecutor(
+                        1, mp_context=spawn)
+                    for job, fn, args in cards:
+                        CHILD_JOBS[job] = POOLS["card"].submit(fn, *args)
             t = time.perf_counter()
             results[ph] = globals()["phase_" + ph]()
             results[ph]["phase_s"] = time.perf_counter() - t
             log({"phase": ph, "card": card, **results[ph]})
+            pump_children()
     finally:
-        if pool is not None:
+        for pool in POOLS.values():
             pool.shutdown(wait=True, cancel_futures=True)
+        POOLS.clear()
+        CHILD_JOBS.clear()
     if {"kernel", *MAIN_PATHS} <= set(phases):
         # the pallas drain of each main path, counted on its own
         by_path = {ph: (results[ph]["pallas"]["launches"]
@@ -3776,6 +4529,7 @@ def main() -> int:
         recorded.append(vol_backlog)
         recorded.append(results["resident"]["recorded"])
         recorded.append(results["serving"]["recorded"])
+        recorded.append(results["chaos"]["recorded"])
         recorded.append(results["measure"]["recorded"])
         log({"kernels": [{
             "name": "propose", "route": "cuda",
@@ -3798,6 +4552,8 @@ def main() -> int:
                 results["resident"]["recorded"]["real_launch"],
             "serving_real_launch":
                 results["serving"]["recorded"]["real_launch"],
+            "chaos_real_launch":
+                results["chaos"]["recorded"]["real_launch"],
             "measure_real_launch":
                 results["measure"]["recorded"]["real_launch"]}]})
     print(card, flush=True)

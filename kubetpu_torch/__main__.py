@@ -172,7 +172,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                     if (not out and len(sched.queue.active_q) == 0
                             and len(sched.queue.backoff_q) == 0):
                         break
-                sched.wait_for_inflight_binds()
+                # the binds still on the pool get the rest of the drain's
+                # timeout (the JAX CLI waits a fixed 10 s, which a REST
+                # drain of thousands of pods outlasts now that every bind
+                # also POSTs its Scheduled Event)
+                sched.wait_for_inflight_binds(
+                    timeout=max(deadline - time.time(), 10.0))
                 bound = sum(1 for o in outcomes if o.node and not o.err)
                 print(json.dumps({
                     "scheduled": bound,

@@ -5,9 +5,7 @@ The reference serves JSON/protobuf through generated conversion code
 plain typed dataclasses (kubetpu_torch/api/types.py), so one reflective codec
 covers every kind: field types drive decoding, defaults drive omission.
 Documents use the dataclass field names verbatim (snake_case) — the wire
-format is ours, not Kubernetes'.  A copy of kubetpu/client/codec.py; the
-port records no Events (ROADMAP queue 1 item 11), so the Event kind is
-not served.
+format is ours, not Kubernetes'.  A copy of kubetpu/client/codec.py.
 """
 
 from __future__ import annotations
@@ -28,6 +26,7 @@ KINDS = {
     "ReplicationController": api.ReplicationController,
     "ReplicaSet": api.ReplicaSet, "StatefulSet": api.StatefulSet,
     "PodDisruptionBudget": api.PodDisruptionBudget,
+    "Event": None,  # resolved lazily (utils.events.Event)
 }
 
 _hints_cache: Dict[type, Dict[str, Any]] = {}
@@ -91,6 +90,9 @@ def from_doc(cls, doc: Any):
 
 def decode(kind: str, doc: Dict[str, Any]):
     cls = KINDS.get(kind)
+    if cls is None and kind == "Event":
+        from ..utils.events import Event
+        cls = Event
     if cls is None:
         raise ValueError(f"unservable kind {kind!r}")
     return from_doc(cls, doc)

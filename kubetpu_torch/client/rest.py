@@ -14,9 +14,8 @@ loop — the Reflector -> DeltaFIFO -> SharedInformer shape of client-go
 in order, with subscriber fan-out identical to the in-process store, so a
 Scheduler runs against a REMOTE control plane unchanged.
 
-A copy of kubetpu/client/rest.py without its fault-injection seams (the
-chaos registry is not ported: ROADMAP queue 1 item 11; disarmed they are
-no-ops).
+A copy of kubetpu/client/rest.py, with its fault-injection seams
+(utils/chaos.py "rest" and "watch").
 """
 
 from __future__ import annotations
@@ -31,6 +30,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from ..api import types as api
+from ..utils import chaos
 from . import codec
 from .store import ClusterStore, Conflict, NotFound
 
@@ -266,6 +266,9 @@ class RestClusterStore(ClusterStore):
     # -- transport ----------------------------------------------------------
 
     def _req(self, method: str, path: str, doc=None, timeout=30.0):
+        # chaos seam (utils/chaos.py "rest"): a transient API-server
+        # transport error, surfaced exactly where a socket error would be
+        chaos.raise_or_stall("rest")
         data = json.dumps(doc).encode() if doc is not None else None
         req = urllib.request.Request(
             self.base_url + path, data=data, method=method,
@@ -369,6 +372,10 @@ class RestClusterStore(ClusterStore):
                 failures = 0
                 self._synced.set()
             try:
+                # chaos seam (utils/chaos.py "watch"): a dropped watch
+                # connection, recovered by the same backoff ladder a real
+                # transport error takes
+                chaos.raise_or_stall("watch")
                 # client bound = server hold + slack, so close()'s join
                 # bound below really does cover one poll round trip
                 doc = self._req(

@@ -13,12 +13,17 @@ plugins, whose kernel names make the profile's ProgramConfig
 (``tensor_filters``, ``tensor_scores``, ``tensor_plugin_args``) and run
 for the whole batch on the device, and *host* plugins, Python methods
 that the extension points below run, each only where its ``relevant(pod)``
-holds.  The JAX runtime's per-point duration metrics are ROADMAP queue 1
-item 11.
+holds.  With a metrics registry (``metrics``), the seven host points that
+run once per pod per cycle observe
+``framework_extension_point_duration_seconds{extension_point,status}``
+and ``wait_on_permit`` observes ``permit_wait_duration_seconds{result}``,
+as the JAX runtime does.
 """
 
 from __future__ import annotations
 
+import functools
+import time
 from typing import Dict, List, Optional, Tuple
 
 from ..api import types as api
@@ -31,12 +36,47 @@ from .provider import default_plugins
 MAX_PERMIT_TIMEOUT = 600.0  # reference: interface.go maxTimeout 15 min, capped
 
 
+def _status_label(result) -> str:
+    """Status label for the extension-point histogram (reference:
+    framework.go frameworkMetric status values)."""
+    st = result[1] if isinstance(result, tuple) else result
+    if st is None or st.is_success():
+        return "Success"
+    if st.code == Code.WAIT:
+        return "Wait"
+    return "Unschedulable" if st.is_unschedulable() else "Error"
+
+
+def _timed_point(point: str):
+    """Observe scheduler_framework_extension_point_duration_seconds for
+    one host extension point (reference: framework.go:369,660,678,708,
+    818 each wrap their run in metrics.ObserveExtensionPoint;
+    kubetpu/framework/runtime.py:45).  Only the per-pod-per-cycle points
+    are instrumented, not the per-(pod, node) Filter loop.  Without a
+    metrics registry the wrapper is one attribute read."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args, **kwargs):
+            m = self.metrics
+            if m is None:
+                return fn(self, *args, **kwargs)
+            t0 = time.time()
+            result = fn(self, *args, **kwargs)
+            m.framework_extension_point_duration.observe(
+                time.time() - t0, point, _status_label(result))
+            return result
+        return wrapper
+    return deco
+
+
 class Framework:
     """One framework per profile (reference: framework.go:96 framework)."""
 
     def __init__(self, registry, profile: Optional[KubeSchedulerProfile] = None,
-                 base_plugins: Optional[Plugins] = None, client=None):
+                 base_plugins: Optional[Plugins] = None, client=None,
+                 metrics=None):
         self.client = client
+        self.metrics = metrics
         self.profile_name = (profile.scheduler_name if profile
                              else KubeSchedulerProfile().scheduler_name)
         plugins = (base_plugins or default_plugins()).apply(
@@ -124,6 +164,7 @@ class Framework:
 
     # -- extension points (host plugins only; see module docstring) ---------
 
+    @_timed_point("PreFilter")
     def run_pre_filter_plugins(self, state: CycleState, pod: api.Pod) -> Status:
         # reference: framework.go:369
         for p in self.host_pre_filter_plugins:
@@ -200,6 +241,7 @@ class Framework:
             out[p.name()] = [s * w for _, s in scores]
         return out
 
+    @_timed_point("Reserve")
     def run_reserve_plugins(self, state: CycleState, pod: api.Pod,
                             node_name: str) -> Status:
         # reference: framework.go:660
@@ -219,6 +261,7 @@ class Framework:
             if self._relevant(p, pod):
                 p.unreserve(state, pod, node_name)
 
+    @_timed_point("Permit")
     def run_permit_plugins(self, state: CycleState, pod: api.Pod,
                            node_name: str) -> Status:
         """reference: framework.go:818 — collects Wait verdicts into a
@@ -247,15 +290,23 @@ class Framework:
         return Status.success()
 
     def wait_on_permit(self, pod: api.Pod) -> Status:
-        # reference: framework.go:775 WaitOnPermit
+        # reference: framework.go:775 WaitOnPermit; the permit-wait
+        # histogram is observed only for pods that entered a Wait
         wp = self.waiting_pods.get(pod.uid)
         if wp is None:
             return Status.success()
+        t0 = time.time()
         try:
-            return wp.wait()
+            st = wp.wait()
         finally:
             self.waiting_pods.remove(pod.uid)
+        if self.metrics is not None:
+            self.metrics.permit_wait_duration.observe(
+                time.time() - t0,
+                "allowed" if st.is_success() else "rejected")
+        return st
 
+    @_timed_point("PreBind")
     def run_pre_bind_plugins(self, state: CycleState, pod: api.Pod,
                              node_name: str) -> Status:
         # reference: framework.go:678
@@ -269,6 +320,7 @@ class Framework:
                     f'{st.message()}')
         return Status.success()
 
+    @_timed_point("PostFilter")
     def run_post_filter_plugins(self, state: CycleState, pod: api.Pod,
                                 filtered_node_status=None):
         """reference: framework.go:514 RunPostFilterPlugins — run until the
@@ -286,6 +338,7 @@ class Framework:
             reasons.extend(st.reasons)
         return None, Status(Code.UNSCHEDULABLE, reasons)
 
+    @_timed_point("Bind")
     def run_bind_plugins(self, state: CycleState, pod: api.Pod,
                          node_name: str) -> Status:
         # reference: framework.go:708 — SKIP falls through to the next binder
@@ -300,6 +353,7 @@ class Framework:
             f"all bind plugins skipped binding pod "
             f"{pod.namespace}/{pod.metadata.name}"])
 
+    @_timed_point("PostBind")
     def run_post_bind_plugins(self, state: CycleState, pod: api.Pod,
                               node_name: str) -> None:
         for p in self.post_bind_plugins:

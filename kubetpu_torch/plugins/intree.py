@@ -16,6 +16,7 @@ from typing import Callable, Dict
 
 from ..framework import interface as fw
 from ..framework.interface import Status, TensorPlugin
+from ..utils import chaos
 
 
 class PrioritySort(fw.QueueSortPlugin):
@@ -336,6 +337,10 @@ class DefaultBinder(fw.BindPlugin):
 
     def bind(self, state, pod, node_name: str) -> Status:
         try:
+            # chaos seam (utils/chaos.py "bind"): a transient binding
+            # transport error, caught below like any real one; the
+            # scheduler's bind retry ladder recovers it
+            chaos.raise_or_stall("bind")
             self.client.bind(pod, node_name)
         except Exception as e:  # the store rejects gone / already-bound pods
             return Status.error(f"binding rejected: {e}")

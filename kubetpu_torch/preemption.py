@@ -34,8 +34,13 @@ The cycle's snapshot tensors are reused; nothing is re-tensorized per
 failed pod.  Every device->host read is counted in CycleContext.stats
 (the wave reads its [B, C, K+1] result once per round).
 
-The port has no extenders, metrics or event recorder, so
-processPreemptionWithExtenders is the identity.  The profile's host
+Each Preempt call counts its eligible pods in
+``preemption_attempts_total`` and each committed preemption observes its
+victims in ``preemption_victims``, with one ``Preempted`` Event per
+evicted pod.  With an extender that supports preemption
+(processPreemptionWithExtenders, generic_scheduler.go:317), every pod
+takes the eager node -> Victims map (_FastWave.entries_dict), which the
+extenders trim before the pick.  The profile's host
 filters (the volume family among them) join the device verdicts of the
 candidate nodes (_wave_candidates) and are checked on a chosen node with
 its victims removed (_host_filters_pass): against the final
@@ -469,6 +474,9 @@ class Preemptor:
             # podEligibleToPreemptOthers runs before any candidates work
             if self._eligible(p):
                 fresh.append(p)
+        if fresh and sched.metrics is not None:
+            # reference: metrics.PreemptionAttempts.Inc() per Preempt call
+            sched.metrics.preemption_attempts.inc(amount=len(fresh))
         if fresh and cycle is None:
             cycle = self._build_cycle(fwk, fresh)
         try:
@@ -509,6 +517,8 @@ class Preemptor:
         # see the victims this wave deletes
         deleted = cycle.evicted_uids
         pending = live
+        has_preempt_ext = any(e.supports_preemption()
+                              for e in sched.extenders)
         for _ in range(self.wave_rounds):
             cycle.stats["rounds"] += 1
             fastw, slow_entries = self._wave_round(fwk, cycle, pending,
@@ -517,13 +527,17 @@ class Preemptor:
             next_pending: List[api.Pod] = []
             for pod in pending:
                 b = fastw.index.get(pod.uid) if fastw is not None else None
-                if b is not None:
+                if b is not None and not has_preempt_ext:
                     # lazy lexicographic resolution: only the WINNER's
                     # victim list materializes
                     best, victims, had_claimed = fastw.resolve(
                         fwk, pod, b, claimed)
                 else:
-                    nv = slow_entries.get(pod.uid, {})
+                    # the eager map: the extenders inspect all of it
+                    nv = (slow_entries.get(pod.uid)
+                          if pod.uid in slow_entries
+                          else (fastw.entries_dict(fwk, pod, b)
+                                if b is not None else {}))
                     had_claimed = any(n in claimed for n in nv)
                     if had_claimed:
                         # a higher-ranked preemptor won this node in THIS
@@ -531,6 +545,7 @@ class Preemptor:
                         # or re-wave
                         nv = {n: v for n, v in nv.items()
                               if n not in claimed}
+                    nv = self._process_with_extenders(pod, nv)
                     best = pick_one_node_for_preemption(nv) if nv else None
                     victims = nv.get(best) if best is not None else None
                 if best is None:
@@ -555,12 +570,19 @@ class Preemptor:
         sched = self.sched
         table = cycle.builder.table
         R = int(cycle.cluster.requested.shape[1])
+        if victims.pods and sched.metrics is not None:
+            # reference: metrics.PreemptionVictims.Observe per preemptor
+            sched.metrics.preemption_victims.observe(len(victims.pods))
         for victim in victims.pods:
             try:
                 sched.store.delete(victim)
             except Exception:
                 # already gone (a raced external delete): nothing was freed
                 continue
+            if sched.recorder:
+                sched.recorder.event(victim, "Normal", "Preempted",
+                                     f"by {pod.namespace}/{pod.metadata.name} "
+                                     f"on node {best}")
             pi = PodInfo(victim)
             cycle.note_evict(node_row, _pod_channels(pi, table, R),
                              np.asarray([pi.non_zero_cpu,
@@ -1058,6 +1080,29 @@ class Preemptor:
                 sim_ni.remove_pod(pi.pod)
         return fwk.run_filter_plugins(CycleState(), pod, sim_ni).is_success()
 
+    # ------------------------------------------------------------- extenders
+
+    def _process_with_extenders(self, pod: api.Pod,
+                                node_victims: Dict[str, Victims]
+                                ) -> Dict[str, Victims]:
+        """reference: generic_scheduler.go:317 processPreemptionWithExtenders
+        + core/extender.go:317 ProcessPreemption
+        (kubetpu/preemption.py:1050)."""
+        if not node_victims:
+            return node_victims
+        for ext in self.sched.extenders:
+            if not (ext.supports_preemption() and ext.is_interested(pod)):
+                continue
+            try:
+                node_victims = ext.process_preemption(pod, node_victims)
+            except Exception:
+                if getattr(ext, "ignorable", False):
+                    continue
+                return {}
+            if not node_victims:
+                return {}
+        return node_victims
+
 
 class _FastWave:
     """One round's wave what-if results plus lazy contention resolution.
@@ -1134,6 +1179,22 @@ class _FastWave:
                 return names[c], victims, had_claimed
             banned.add(names[c])
 
+    def entries_dict(self, fwk, pod, b: int) -> Dict[str, Victims]:
+        """The eager node -> Victims map of pod ``b``, in candidate order
+        (extender path only: extenders inspect the full map, reference
+        ProcessPreemption)."""
+        out: Dict[str, Victims] = {}
+        for c, name in enumerate(self.names[b]):
+            if not self.fits[b, c]:
+                continue
+            victims = self._victims(pod, b, c)
+            if not Preemptor._host_filters_pass(
+                    fwk, pod, self.cycle.node_infos[self.cand_lists[b][c]],
+                    {p.uid for p in victims.pods}):
+                continue
+            out[name] = victims
+        return out
+
 
 class _WaveUnion:
     """Routes per-pod wave handles across the element-budget chunks of one
@@ -1147,6 +1208,10 @@ class _WaveUnion:
     def resolve(self, fwk, pod, key, claimed):
         w, b = key
         return w.resolve(fwk, pod, b, claimed)
+
+    def entries_dict(self, fwk, pod, key):
+        w, b = key
+        return w.entries_dict(fwk, pod, b)
 
 
 # ---------------------------------------------------------------------------

@@ -44,9 +44,24 @@ A Permit plugin that answers Wait needs ``async_binding=True``: the bind
 cycle then runs on a pool of binder threads (``wait_for_inflight_binds``).
 Placements do not depend on this setting.  A bind that fails with a
 transport error retries on the pod backoff ladder (``bind_retries``),
-each attempt first asking the store whether the bind landed.  Refused, a
-ROADMAP queue 1 item: extenders (item 8); deferred: the JAX runtime's
-journal, chaos, devstats and AOT utilities (item 11).
+each attempt first asking the store whether the bind landed.  Deferred:
+the JAX runtime's journal, devstats and AOT utilities (ROADMAP queue 1
+item 11).
+
+HTTP extenders (extender.py): with any configured, each cycle pops ONE
+pod, as the reference's scheduleOne, and never takes the pipelined
+executor; the device scores the pod once (programs.filter_and_score)
+and the extenders' filters and weighted priorities refine the choice on
+the host (``_schedule_with_extenders``).  An extender that binds binds
+the pod in place of the Bind plugins.
+
+Events (utils/events.py): an EventBroadcaster on the store records
+Scheduled, FailedScheduling, BindRetried and, per evicted pod, Preempted
+(``recorder``; a falsy one turns them off).  Fault injection
+(utils/chaos.py): ``KUBETPU_CHAOS`` arms the registry at construction;
+disarmed, each seam (dispatch here, the delta scatter, the binder, the
+extender and REST transports) is one module attribute read, and the
+fire counts fold into ``faults_injected`` after each committed cycle.
 
 The recorders (each disarmed by default, one module attribute read per
 seam then): the flight recorder (utils/trace.py: one ``Trace`` per
@@ -100,6 +115,8 @@ from .api import types as api
 from .apis.config import KubeSchedulerConfiguration, KubeSchedulerProfile
 from .apis.load import validate as validate_config
 from .client.store import ClusterStore
+from .extender import MAX_EXTENDER_PRIORITY, ExtenderError, HTTPExtender
+from .framework import interface as fw
 from .framework.interface import Code, CycleState, Status
 from .framework.runtime import Framework
 from .framework.types import (PodInfo, QueuedPodInfo, pod_with_affinity,
@@ -118,6 +135,7 @@ from .state import volumes as vstate
 from .state.cache import SchedulerCache, Snapshot
 from .state.delta import DeltaTensorizer
 from .state.tensors import SnapshotBuilder, vocab_signature
+from .utils import chaos as uchaos
 from .utils import pallas_backend as PB
 from .utils import prng
 from .utils import slo as uslo
@@ -125,6 +143,7 @@ from .utils import telemetry as utelemetry
 from .utils import trace as utrace
 from .utils.decisions import DecisionLog, PodDecision
 from .utils.device import DeviceLike, resolve_device
+from .utils.events import EventBroadcaster
 from .utils.intern import pow2_bucket
 from .utils.trace import Trace
 
@@ -211,21 +230,31 @@ class Scheduler:
     factories (default: plugins/intree.new_in_tree_registry(), to which a
     caller adds its own).  async_binding: run each bind cycle on a binder
     pool (see the module docstring).  seed: the first cycle's PRNG key is
-    seed + 1.  metrics: a utils/metrics.SchedulerMetrics to feed."""
+    seed + 1.  metrics: a utils/metrics.SchedulerMetrics to feed.
+    recorder: the EventRecorder (default: one of an EventBroadcaster on
+    the store; a falsy value records no Events)."""
 
     def __init__(self, store: ClusterStore,
                  config: Optional[KubeSchedulerConfiguration] = None,
                  registry=None, device: DeviceLike = None,
-                 async_binding: bool = False, seed: int = 0, metrics=None):
-        # KUBETPU_SLO / KUBETPU_TELEMETRY arm those recorders (the flight
-        # recorder's KUBETPU_FLIGHT is read once, at the package's
+                 async_binding: bool = False, seed: int = 0, metrics=None,
+                 recorder=None):
+        # KUBETPU_CHAOS / KUBETPU_SLO / KUBETPU_TELEMETRY arm those (the
+        # flight recorder's KUBETPU_FLIGHT is read once, at the package's
         # import); disarmed (the default) every seam is one attribute
         # read and the hot path takes zero new locks
+        uchaos.maybe_arm_from_env()
         uslo.maybe_arm_from_env()
         utelemetry.maybe_arm_from_env()
         self.device = resolve_device(device)
         self.store = store
         self.metrics = metrics
+        if recorder is None:
+            # reference: profile/profile.go:33 NewRecorderFactory; the
+            # store is the event sink
+            self.broadcaster = EventBroadcaster(sink=store)
+            recorder = self.broadcaster.new_recorder()
+        self.recorder = recorder or None
         self.config = config or KubeSchedulerConfiguration(
             profiles=[KubeSchedulerProfile()])
         if not self.config.profiles:
@@ -234,12 +263,11 @@ class Scheduler:
         # plugin existence is checked against the registry the profiles
         # are built from (reference: framework.go:205 NewFramework)
         validate_config(self.config, registry_names=set(registry))
-        if self.config.extenders:
-            raise NotImplementedError(
-                "extenders are not ported (ROADMAP queue 1 item 8)")
         self.profiles: Dict[str, Framework] = {
-            p.scheduler_name: Framework(registry, p, client=store)
+            p.scheduler_name: Framework(registry, p, client=store,
+                                        metrics=metrics)
             for p in self.config.profiles}
+        self.extenders = [HTTPExtender(e) for e in self.config.extenders]
         self.cache = SchedulerCache(
             expire_listener=lambda pod: self._mark_chain_dirty())
         any_fw = next(iter(self.profiles.values()))
@@ -334,6 +362,9 @@ class Scheduler:
         self._dispatch_deadline = float(
             dl if dl else self.config.dispatch_deadline_seconds or 0.0)
         self.recovery_log: deque = deque(maxlen=256)
+        # chaos fire counts already folded into faults_injected (serving
+        # thread only)
+        self._chaos_seen: Dict[str, int] = {}
         self._deadline_grace = 0
         self._last_commit_failed = False
         # the depth-k pipelined executor (pipeline.py)
@@ -481,9 +512,13 @@ class Scheduler:
         if tel is not None:
             tel.maybe_tick(self)
         max_batch = max_batch or self.config.batch_size
+        if self.extenders:
+            # an extender is a per-pod HTTP round trip: the reference's
+            # serial semantics (scheduler.go:510 pops one pod)
+            max_batch = 1
         self._settled = set()
-        if (self.config.pipeline_cycles and self.config.mode == "gang"
-                and self.config.chain_cycles):
+        if (self.config.pipeline_cycles and not self.extenders
+                and self.config.mode == "gang" and self.config.chain_cycles):
             return self._pipeline.drain(max_batch, timeout)
         start = wallclock()
         qpods = self.queue.pop_batch(max_batch, timeout=timeout)
@@ -668,6 +703,11 @@ class Scheduler:
         prep, outcomes = self._prepare_group(fwk, qpods)
         if prep is None:
             return outcomes
+        if self.extenders:
+            try:
+                return outcomes + self._schedule_with_extenders(prep)
+            finally:
+                prep.trace.finish()
         with prep.trace.stage("dispatch"):
             try:
                 res = self._dispatch_group(prep)
@@ -857,6 +897,10 @@ class Scheduler:
         prep.dispatch_t0 = wallclock()
         if self._dispatch_deadline > 0:
             prep.compile_snap = compile_events()
+        # chaos seam (utils/chaos.py "dispatch"): an injected error models
+        # the device failing under the program, a stall a hung dispatch;
+        # both recovered as any dispatch fault (the route is kept)
+        uchaos.raise_or_stall("dispatch")
         fresh_pods = self.cache.pod_count() + extra_uncommitted
         t = time.perf_counter()
         if self.config.mode == "gang":
@@ -966,11 +1010,25 @@ class Scheduler:
             prep.trace.finish()
         self._sync_flight_dropped()
 
+    def _sync_chaos_metrics(self) -> None:
+        """reference: kubetpu/scheduler.py:1769 — fold the armed chaos
+        registry's fire counts into faults_injected (serving thread
+        only); disarmed this is one attribute read."""
+        reg = uchaos.active()
+        if reg is None or self.metrics is None:
+            return
+        for point, n in reg.counts().items():
+            seen = self._chaos_seen.get(point, 0)
+            if n > seen:
+                self.metrics.faults_injected.inc(point, amount=n - seen)
+                self._chaos_seen[point] = n
+
     def _sync_flight_dropped(self) -> None:
-        """reference: kubetpu/scheduler.py:1782 — fold new flight-recorder
-        ring drops into the monotonic metric counter (serving thread
-        only, so the seen-count needs no lock); disarmed this is one
-        attribute read."""
+        """reference: kubetpu/scheduler.py:1782 — fold the chaos fire
+        counts and new flight-recorder ring drops into their monotonic
+        metric counters (serving thread only, so the seen-counts need no
+        lock); disarmed this is two attribute reads."""
+        self._sync_chaos_metrics()
         fr = utrace.flight_recorder()
         if fr is None or self.metrics is None:
             return
@@ -1191,6 +1249,15 @@ class Scheduler:
         if dstats.resync:
             self.resync_count += 1
             self.cluster_sources.append(dstats.reason)
+            if dstats.reason == "verify-divergence":
+                # the anti-entropy verifier caught the residents diverging
+                # from the host mirror: a recovery, not churn
+                # (kubetpu/scheduler.py:788-799)
+                self.recovery_log.append(
+                    {"kind": "verify-resync", "reason": dstats.reason,
+                     "cycle": self.cycle_count})
+                if self.metrics is not None:
+                    self.metrics.recoveries.inc("verify-resync")
         elif dstats.delta_rows > 0:
             self.delta_rows.append(dstats.delta_rows)
             self.delta_cycle_count += 1
@@ -1365,16 +1432,159 @@ class Scheduler:
         reason = PB.unsupported_reason(cfg, needs_topo, hbatch)
         return ("lax", reason) if reason is not None else ("pallas", None)
 
+    # --------------------------------------------------------------- extenders
+
+    def _schedule_with_extenders(self, prep: "PreparedCycle"
+                                 ) -> List[ScheduleOutcome]:
+        """reference: kubetpu/scheduler.py:1799-1916
+        (generic_scheduler.go:497 findNodesThatPassExtenders, :674-706
+        the extender Prioritize combine) — one filter-and-score program
+        for the batch on the device and ONE readback of its feasibility,
+        scores and host score bias; then per pod, on the host: the fit
+        re-check against live usage, the extenders' filters (never
+        admitting a node outside the device-feasible set), the device
+        score plus the bias plus the weighted extender priorities scaled
+        to MAX_NODE_SCORE, and a seeded tie-break.  An extender that
+        binds binds the pod.  A failed extender fails the pod (unless it
+        is ignorable); a pod no node passes goes through the PostFilter."""
+        import random
+        t = time.perf_counter()
+        fwk, live, states = prep.fwk, prep.live, prep.states
+        node_infos, cycle_ctx = prep.node_infos, prep.cycle_ctx
+        res = programs.filter_and_score(prep.cluster, prep.batch, prep.cfg,
+                                        prep.host_ok)
+        planes = [res.feasible.to(res.scores.dtype), res.scores]
+        if prep.score_bias is not None:
+            planes.append(prep.score_bias.to(res.scores.dtype))
+        host = torch.stack(planes).cpu().numpy()
+        feasible = (host[0] != 0).tolist()
+        score_arr = host[1]
+        if prep.score_bias is not None:
+            score_arr = score_arr + host[2]
+        scores = score_arr.tolist()
+        t = self._stage("auction", t)
+        self.cycle_count += 1
+        n_nodes = len(node_infos)
+        node_names = [ni.node_name for ni in node_infos]
+        row_of_node = {n: j for j, n in enumerate(node_names)}
+        outcomes: List[ScheduleOutcome] = []
+        for i, qp in enumerate(live):
+            state = states[qp.pod.uid]
+            row_feas = feasible[i]
+            names = [node_names[j] for j in range(n_nodes) if row_feas[j]]
+            # the device mask predates this cycle's assumes: re-check fit
+            # against the live usage, so two pods of one batch cannot
+            # oversubscribe a node
+            pod_res = prep.pinfos[i].resource
+            names = [n for n in names
+                     if self._fits_live(pod_res, self.cache.node_fit_view(n))]
+            row_scores = scores[i]
+            dev_score = {node_names[j]: row_scores[j]
+                         for j in range(n_nodes) if row_feas[j]}
+            exts = [e for e in self.extenders if e.is_interested(qp.pod)]
+            err = None
+            ext_info: Dict[str, str] = {}
+            try:
+                for e in exts:
+                    before = len(names)
+                    names, _ = e.filter(qp.pod, names)
+                    # an extender may echo names outside the device-
+                    # feasible set (stale cache, typo): never admit those
+                    names = [n for n in names if n in dev_score]
+                    ext_info[e.url_prefix or "extender"] = (
+                        f"filter {before} -> {len(names)} nodes")
+                    if not names:
+                        break
+            except ExtenderError as ex:
+                err = f"extender filter failed: {ex}"
+            if err is not None:
+                outcomes.append(self._fail(fwk, qp, err,
+                                           preemption_may_help=False,
+                                           state=state))
+                self._record_decision(qp.pod, "unschedulable", message=err,
+                                      extenders=ext_info)
+                continue
+            if not names:
+                msg = f"0/{n_nodes} nodes are available"
+                outcomes.append(self._fail(fwk, qp, msg, cycle=cycle_ctx,
+                                           state=state))
+                self._record_decision(qp.pod, "unschedulable", message=msg,
+                                      extenders=ext_info)
+                continue
+            combined = {n: 0.0 for n in names}
+            try:
+                for e in exts:
+                    for n, sc in e.prioritize(qp.pod, names).items():
+                        if n in combined:
+                            combined[n] += sc
+            except ExtenderError as ex:
+                msg = f"extender prioritize failed: {ex}"
+                outcomes.append(self._fail(fwk, qp, msg,
+                                           preemption_may_help=False,
+                                           state=state))
+                self._record_decision(qp.pod, "unschedulable", message=msg,
+                                      extenders=ext_info)
+                continue
+            scale = fw.MAX_NODE_SCORE / MAX_EXTENDER_PRIORITY
+            totals = {n: dev_score[n] + combined[n] * scale for n in names}
+            best = max(totals.values())
+            ties = [n for n in names if totals[n] == best]
+            self._rng_counter += 1
+            node_name = random.Random(self._rng_counter).choice(ties)
+            binders = [e for e in exts if e.is_binder()]
+            binder = binders[0].bind if binders else None
+            outcome = self._commit(fwk, qp, state, prep.pinfos[i], node_name,
+                                   len(names),
+                                   prep.host_relevant[qp.pod.uid],
+                                   binder_override=binder)
+            if outcome.node:
+                cycle_ctx.note_commit(i, row_of_node[node_name])
+            self._record_decision(
+                qp.pod, "scheduled" if outcome.node else "unschedulable",
+                node=outcome.node, message=outcome.err or "",
+                n_feasible=len(names), extenders=ext_info)
+            outcomes.append(outcome)
+        self._stage("commit", t)
+        return outcomes
+
+    @staticmethod
+    def _fits_live(pod_res, view) -> bool:
+        """reference: kubetpu/scheduler.py:2009 — NodeResourcesFit's
+        essentials against a live fit view (cache.node_fit_view:
+        allocatable, requested, pod count; noderesources/fit.go:194-267):
+        the pod count always, each channel only when requested."""
+        if view is None:
+            return False
+        alloc, req, n_pods = view
+        if n_pods + 1 > alloc.allowed_pod_number:
+            return False
+        r = pod_res
+        if r.milli_cpu > 0 and r.milli_cpu > alloc.milli_cpu - req.milli_cpu:
+            return False
+        if r.memory > 0 and r.memory > alloc.memory - req.memory:
+            return False
+        if (r.ephemeral_storage > 0 and r.ephemeral_storage
+                > alloc.ephemeral_storage - req.ephemeral_storage):
+            return False
+        for k, v in r.scalar_resources.items():
+            if v > 0 and v > (alloc.scalar_resources.get(k, 0)
+                              - req.scalar_resources.get(k, 0)):
+                return False
+        return True
+
     # ------------------------------------------------------------------ commit
 
     def _commit(self, fwk: Framework, qp: QueuedPodInfo, state: CycleState,
                 pinfo: PodInfo, node_name: str, n_feasible: int,
-                host_relevant: bool) -> ScheduleOutcome:
+                host_relevant: bool, binder_override=None
+                ) -> ScheduleOutcome:
         """reference: kubetpu/scheduler.py:2035-2092 — the host-filter
         re-check against the live NodeInfo, Reserve (Unreserve on
         failure), assume (scheduler.go:435), Permit, then the bind cycle,
         in the cycle or on the binder pool.  A commit failure is not a
-        FitError, so it never triggers preemption (scheduler.go:542)."""
+        FitError, so it never triggers preemption (scheduler.go:542).
+        binder_override: the binding extender's bind(pod, node), run in
+        place of the Bind plugins."""
         pod = qp.pod
         if host_relevant:
             # the pre-batch host_ok mask predates this batch's assumes;
@@ -1413,20 +1623,23 @@ class Scheduler:
                               preemption_may_help=False, state=state)
         if self._bind_pool is not None:
             self._inflight_binds.append(self._bind_pool.submit(
-                self._bind_cycle, fwk, qp, state, assumed, node_name))
+                self._bind_cycle, fwk, qp, state, assumed, node_name,
+                binder_override=binder_override))
             # the pool owns the pod now: its failures requeue it
             self._settled.add(pod.uid)
             self._prune_binds()
             err = None
         else:
             err = self._bind_cycle(fwk, qp, state, assumed, node_name,
-                                   settled=self._settled)
+                                   settled=self._settled,
+                                   binder_override=binder_override)
         return ScheduleOutcome(pod=pod, node=node_name if err is None else "",
                                err=err, n_feasible=n_feasible)
 
     def _bind_cycle(self, fwk: Framework, qp: QueuedPodInfo,
                     state: CycleState, assumed: api.Pod, node_name: str,
-                    settled: Optional[set] = None) -> Optional[str]:
+                    settled: Optional[set] = None,
+                    binder_override=None) -> Optional[str]:
         """reference: kubetpu/scheduler.py:2121-2227 (scheduler.go:628-687):
         WaitOnPermit, PreBind, Bind, PostBind; each failure forgets the
         assumed pod, runs Unreserve and requeues the pod.  Returns the
@@ -1436,7 +1649,9 @@ class Scheduler:
         Runs under a "bind" span on the cycle's flight record (from
         whichever thread runs it; capped per record) when the recorder is
         armed; the pod's SLO prefix, when the tracker is armed, is
-        completed once the pod is bound.  Both ride the pod's CycleState
+        completed once the pod is bound.  binder_override: the binding
+        extender's bind (reference: scheduler.go:457 extendersBinding),
+        run in place of the Bind plugins and their retry ladder.  Both ride the pod's CycleState
         (RECORDERS_KEY); disarmed this reads two module attributes."""
         flight = slo = None
         if (utrace.flight_recorder() is not None
@@ -1456,7 +1671,14 @@ class Scheduler:
             def bind() -> Status:
                 nonlocal bind_start
                 bind_start = wallclock()
-                return self._bind_with_retries(fwk, state, pod, node_name)
+                if binder_override is None:
+                    return self._bind_with_retries(fwk, state, pod,
+                                                   node_name)
+                try:
+                    binder_override(pod, node_name)
+                except Exception as e:
+                    return Status.error(f"extender bind failed: {e}")
+                return Status.success()
             try:
                 for run, what in ((lambda: fwk.wait_on_permit(pod),
                                    "permit rejected"),
@@ -1497,6 +1719,11 @@ class Scheduler:
                 if trk is not None:
                     self._slo_observe_terminal(trk, slo, qp, "bound",
                                                bind_start=bind_start)
+            if self.recorder:
+                self.recorder.event(pod, "Normal", "Scheduled",
+                                    f"Successfully assigned "
+                                    f"{pod.namespace}/{pod.metadata.name} "
+                                    f"to {node_name}")
             return None
 
     def _bind_with_retries(self, fwk: Framework, state: CycleState,
@@ -1528,8 +1755,14 @@ class Scheduler:
             time.sleep(delay)
             delay = min(delay * 2, self.config.pod_max_backoff_seconds)
             st = fwk.run_bind_plugins(state, pod, node_name)
-        if attempt and st.is_success() and self.metrics is not None:
-            self.metrics.recoveries.inc("bind-retry")
+        if attempt and st.is_success():
+            if self.metrics is not None:
+                self.metrics.recoveries.inc("bind-retry")
+            if self.recorder:
+                self.recorder.event(
+                    pod, "Normal", "BindRetried",
+                    f"bind succeeded after {attempt} retr"
+                    f"{'y' if attempt == 1 else 'ies'}")
         return st
 
     def _bound_node(self, pod: api.Pod) -> Optional[str]:
@@ -1618,6 +1851,8 @@ class Scheduler:
                                                         qp.scheduling_cycle)
         except ValueError:
             pass
+        if self.recorder:
+            self.recorder.event(pod, "Warning", "FailedScheduling", message)
         try:
             self.store.update_pod_condition(
                 pod, api.PodCondition(type=api.POD_SCHEDULED,

@@ -122,6 +122,18 @@ class SchedulerCache:
             item = self.nodes.get(name)
             return item.info.clone() if item is not None else None
 
+    def node_fit_view(self, name: str):
+        """(allocatable, requested, pod count) copies for a cheap live fit
+        check (the extender path's re-check): O(Resource) per call
+        instead of a full NodeInfo clone."""
+        with self._lock:
+            item = self.nodes.get(name)
+            if item is None:
+                return None
+            info = item.info
+            return (info.allocatable.clone(), info.requested.clone(),
+                    len(info.pods))
+
     # -- pods ---------------------------------------------------------------
 
     def assume_pod(self, pod: api.Pod, pinfo=None) -> None:

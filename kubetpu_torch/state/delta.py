@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..api import types as api
+from ..utils import chaos
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.intern import pow2_bucket
 from ..utils.trace import wallclock
@@ -501,6 +502,21 @@ class DeltaTensorizer:
                 filter_terms=_terms_to_device(a["filter_terms"],
                                               self.device),
                 score_terms=_terms_to_device(a["score_terms"], self.device))
+        # chaos seam (utils/chaos.py "delta"; kubetpu/state/delta.py:
+        # 640-652): "drop" loses the scatter (the mirror was already
+        # refilled, so device and host silently diverge: the fault class
+        # the anti-entropy verifier exists to catch); "corrupt" applies
+        # it, then adds 1.0 to one resident value, as a bad copy would.
+        # The corruption goes into a fresh tensor: an in-flight cycle may
+        # still read the scattered one
+        act = chaos.action("delta")
+        if act == "drop":
+            self.upload_s += wallclock() - t
+            return cluster
         out = programs.apply_cluster_delta(cluster, delta, donate=donate)
+        if act == "corrupt":
+            requested = out.requested.clone()
+            requested[0, 0] += 1.0
+            out = out._replace(requested=requested)
         self.upload_s += wallclock() - t
         return out

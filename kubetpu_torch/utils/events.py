@@ -1,0 +1,157 @@
+"""Event recording: the client-go tools/events analog.
+
+reference: staging/src/k8s.io/client-go/tools/events/event_broadcaster.go
+(EventBroadcaster: recorders fan events into a correlator that aggregates
+repeats into an EventSeries before sinking) and tools/record/events_cache.go
+(EventAggregator: same (source, object, reason, ...) key within a window
+increments a count instead of emitting a new object), wired into the
+scheduler via profile/profile.go:33 (NewRecorderFactory) and consumed at
+scheduler.go "Scheduled"/"FailedScheduling" emission sites.
+
+A copy of kubetpu/utils/events.py.  The store plays the apiserver, so the
+sink writes Event objects into it (a REST-backed store POSTs them to the
+API server); aggregation matches the reference's defaults (10-minute
+window, count bump on repeats)."""
+
+from __future__ import annotations
+
+import copy
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Tuple
+
+from ..api import types as api
+
+AGGREGATION_WINDOW = 600.0  # reference: events_cache.go defaultAggregateIntervalInSeconds
+MAX_CACHE_ENTRIES = 4096    # reference: events_cache.go maxLruCacheEntries
+
+
+@dataclass
+class Event:
+    """Scheduler-relevant Event subset
+    (reference: api/core/v1/types.go Event + EventSeries)."""
+    metadata: api.ObjectMeta = field(default_factory=api.ObjectMeta)
+    involved_kind: str = ""
+    involved_namespace: str = ""
+    involved_name: str = ""
+    involved_uid: str = ""
+    type: str = ""        # Normal | Warning
+    reason: str = ""
+    message: str = ""
+    count: int = 1
+    first_timestamp: float = 0.0
+    last_timestamp: float = 0.0
+    kind: str = "Event"
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.namespace
+
+    @property
+    def uid(self) -> str:
+        return self.metadata.uid
+
+
+class EventRecorder:
+    """One named recorder (reference: events/event_recorder.go
+    recorderImpl.Eventf); shares its broadcaster's correlator."""
+
+    def __init__(self, broadcaster: "EventBroadcaster", component: str):
+        self._b = broadcaster
+        self.component = component
+
+    def event(self, obj, type_: str, reason: str, message: str) -> None:
+        self._b._record(self.component, obj, type_, reason, message)
+
+
+class EventBroadcaster:
+    """Aggregating event pipeline (reference: event_broadcaster.go:120
+    StartRecordingToSink + events_cache.go EventAggregator): events with
+    the same (component, object, type, reason) key inside the aggregation
+    window bump the existing Event's count/lastTimestamp instead of
+    creating a new object."""
+
+    def __init__(self, sink=None, clock: Callable[[], float] = time.time,
+                 window: float = AGGREGATION_WINDOW,
+                 max_entries: int = MAX_CACHE_ENTRIES):
+        from collections import OrderedDict
+        self.sink = sink          # ClusterStore-like: add(obj), update(obj)
+        self._clock = clock
+        self._window = window
+        self._max = max_entries
+        self._lock = threading.Lock()
+        self._cache: "OrderedDict[Tuple, Event]" = OrderedDict()  # kubelint: guarded-by(_lock)
+        self._watchers: List[Callable[[Event], None]] = []  # kubelint: guarded-by(_lock)
+        self._seq = 0  # kubelint: guarded-by(_lock)
+
+    def new_recorder(self, component: str = "default-scheduler"
+                     ) -> EventRecorder:
+        return EventRecorder(self, component)
+
+    def start_structured_logging(self, log_fn) -> None:
+        """reference: event_broadcaster.go StartStructuredLogging."""
+        with self._lock:
+            self._watchers.append(
+                lambda ev: log_fn(f"{ev.type} {ev.reason} "
+                                  f"{ev.involved_namespace}/"
+                                  f"{ev.involved_name}: "
+                                  f"{ev.message} (x{ev.count})"))
+
+    def watch(self, fn: Callable[[Event], None]) -> None:
+        # registration races _record's watcher snapshot without the lock
+        with self._lock:
+            self._watchers.append(fn)
+
+    def _record(self, component: str, obj, type_: str, reason: str,
+                message: str) -> None:
+        now = self._clock()
+        meta = getattr(obj, "metadata", api.ObjectMeta())
+        key = (component, getattr(obj, "kind", ""), meta.namespace,
+               meta.name, type_, reason)
+        with self._lock:
+            ev = self._cache.get(key)
+            if ev is not None:
+                self._cache.move_to_end(key)
+            if ev is not None and now - ev.last_timestamp <= self._window:
+                ev.count += 1
+                ev.last_timestamp = now
+                ev.message = message
+                # watchers and the sink get an immutable SNAPSHOT taken
+                # under the lock: the cached Event keeps mutating on
+                # aggregation, and handing out the live object would let
+                # concurrent recorders expose torn count/message reads
+                ev = copy.copy(ev)
+                if self.sink is not None:
+                    try:
+                        self.sink.update(ev)
+                    except Exception:
+                        pass
+            else:
+                self._seq += 1
+                ev = Event(
+                    metadata=api.ObjectMeta(
+                        name=f"{meta.name}.{self._seq:x}",
+                        namespace=meta.namespace or "default"),
+                    involved_kind=getattr(obj, "kind", ""),
+                    involved_namespace=meta.namespace,
+                    involved_name=meta.name,
+                    involved_uid=getattr(obj, "uid", meta.uid),
+                    type=type_, reason=reason, message=message,
+                    count=1, first_timestamp=now, last_timestamp=now)
+                self._cache[key] = ev
+                # LRU bound (events_cache.go maxLruCacheEntries): evicted
+                # keys simply start a fresh Event on their next repeat
+                while len(self._cache) > self._max:
+                    self._cache.popitem(last=False)
+                # same immutable-snapshot rule: the cached instance will
+                # mutate on future aggregations
+                ev = copy.copy(ev)
+                if self.sink is not None:
+                    try:
+                        self.sink.add(ev)
+                    except Exception:
+                        pass
+            watchers = list(self._watchers)
+        for fn in watchers:
+            fn(ev)

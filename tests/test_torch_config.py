@@ -267,8 +267,9 @@ def test_validation_hard_pod_affinity_weight():
 
 
 def test_validation_extender_rules():
-    """Extenders decode and validate as in the JAX package; a Scheduler
-    given one refuses it (ROADMAP queue 1 item 8)."""
+    """Extenders decode and validate as in the JAX package, and a
+    Scheduler given one builds its HTTPExtender from it, as the JAX
+    scheduler does."""
     raises_both(lambda P: P.load.load_config({"extenders": [
         {"urlPrefix": "http://x", "prioritizeVerb": "prioritize",
          "weight": 0}]}), "positive weight")
@@ -277,9 +278,12 @@ def test_validation_extender_rules():
         {"urlPrefix": "http://y", "bindVerb": "bind"}]}), "one extender")
     cfg = load_both({"extenders": [{"urlPrefix": "http://x",
                                     "filterVerb": "filter"}]})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        PORT.sched.Scheduler(PORT.store.ClusterStore(), config=cfg,
-                             device="cpu")
+    sched = PORT.sched.Scheduler(PORT.store.ClusterStore(), config=cfg,
+                                 device="cpu")
+    [ext] = sched.extenders
+    assert (ext.url_prefix, ext.filter_verb, ext.weight) == (
+        "http://x", "filter", 1)
+    sched.close()
 
 
 @pytest.mark.parametrize("seconds", [0, -1])

@@ -8,8 +8,7 @@ through tests/harness.run_cluster and its port twin, whose results must be
 equal bit for bit; the scheduler cases through both Schedulers, whose
 outcomes and pod conditions must agree; and the original's literal
 expectations hold on the port.  The original's three HTTP-extender cases
-have no twin: extenders are ROADMAP queue 1 item 8, and the port's
-Scheduler refuses them (tests/test_torch_config.py).
+are twinned in tests/test_torch_extender.py.
 """
 import jax.numpy as jnp
 import numpy as np

@@ -238,7 +238,26 @@ s.close()
 assert placed == 12, placed
 assert main(["--once", "--device", "cpu", "--hollow-nodes", "4",
              "--hollow-pods", "6", "--mode", "gang"]) == 0
-bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+# HTTP extenders, the Events and the chaos registry
+from kubetpu_torch.harness import extender_worlds as EW
+from kubetpu_torch.utils import chaos
+store = ClusterStore()
+for n in hollow.make_nodes(3):
+    store.add(n)
+chaos.arm(chaos.parse_spec("seed=1,extender:error:n=1"))
+with EW.FakeExtender(store) as ext:
+    s = Scheduler(store, KubeSchedulerConfiguration(
+        profiles=[KubeSchedulerProfile()],
+        extenders=[ext.config(ignorable=True)]), device="cpu")
+    store.add(hollow.make_pod("ext"))
+    out = s.schedule_pending()
+    s.close()
+# the ignorable extender's filter took the fault: every node stayed in
+assert chaos.active().counts() == {"extender": 1}
+chaos.disarm()
+assert out[0].node and out[0].n_feasible == 3, out
+assert [e.reason for e in store.list("Event")] == ["Scheduled"]
+bad =[m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "kubetpu" or m.startswith("kubetpu.")]
 assert not bad, bad
 print("ISOLATED")

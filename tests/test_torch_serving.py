@@ -6,7 +6,7 @@ Twins of tests/test_chaos.py's dispatch error, stall past the deadline,
 first-compile exemption, pallas demotion, pipelined dispatch error,
 flaky bind, lost bind response and exhausted retries.  The JAX package
 injects those faults through its chaos registry (kubetpu/utils/chaos.py),
-which is not ported (ROADMAP queue 1 item 11); here each fault is
+as tests/test_torch_chaos.py does through the port's; here each fault is
 injected by monkeypatching the port's own seam: the scheduler module's
 ``run_auction`` (the auction the dispatch runs), ``Scheduler.
 _dispatch_group`` and the store's ``bind``.  Every recovery must lose no

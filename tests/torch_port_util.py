@@ -379,25 +379,50 @@ class FakeClock:
 
 def make_scheduler(pkg, store, mode="sequential", backend="pallas",
                    batch=8, disable_preemption=False, profile=None,
-                   registry=None, async_binding=False):
+                   registry=None, async_binding=False, metrics=None,
+                   **cfg_kw):
     """A package's Scheduler on ``store`` with the queue on a FakeClock,
     binding in the cycle unless async_binding; the port's on the CPU.
     profile: a KubeSchedulerProfile of the package (default: the default
-    set); registry: its plugin factories (default: the in-tree ones)."""
+    set); registry: its plugin factories (default: the in-tree ones);
+    metrics: the package's SchedulerMetrics to feed; cfg_kw: further
+    KubeSchedulerConfiguration fields."""
     kw = dict(profiles=[profile or pkg.config.KubeSchedulerProfile()],
               batch_size=batch, mode=mode, kernel_backend=backend,
-              disable_preemption=disable_preemption)
+              disable_preemption=disable_preemption, **cfg_kw)
+    # metrics only when given: a caller may default it by wrapping
+    # Scheduler.__init__ (tests/torch_recorder_util.py)
+    extra = {} if metrics is None else dict(metrics=metrics)
     if pkg.api is japi:
         s = pkg.sched.Scheduler(
             store, config=pkg.config.KubeSchedulerConfiguration(
                 prewarm=False, **kw), registry=registry,
-            async_binding=async_binding)
+            async_binding=async_binding, **extra)
     else:
         s = pkg.sched.Scheduler(
             store, config=pkg.config.KubeSchedulerConfiguration(**kw),
-            registry=registry, device="cpu", async_binding=async_binding)
+            registry=registry, device="cpu", async_binding=async_binding,
+            **extra)
     s.queue._clock = FakeClock()
     return s
+
+
+def metrics_scrape(metrics) -> dict:
+    """The series of a SchedulerMetrics scrape that a drain fixes, as
+    name{labels} -> value: the preemption, recovery, injected-fault and
+    attempt series, and the per-point duration and permit-wait counts
+    (their buckets and sums are times)."""
+    fixed = ("scheduler_preemption_", "scheduler_recoveries_total",
+             "scheduler_faults_injected_total",
+             "scheduler_framework_extension_point_duration_seconds_count",
+             "scheduler_permit_wait_duration_seconds_count",
+             "scheduler_schedule_attempts_total")
+    out = {}
+    for line in metrics.expose_text().splitlines():
+        if line.startswith(fixed):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
 
 
 def spy_deletes(store):
