@@ -396,12 +396,12 @@ import time
 ALL_PHASES = ("kernel", "reference", "points", "volumes", "slice",
               "backlog", "fill", "preempt", "seq_slice", "seq_anti",
               "seq_spread", "gang_anti", "gang_spread", "autoscaler",
-              "binpack", "resident", "serving", "extenders", "chaos",
-              "measure", "profile")
+              "binpack", "resident", "mesh", "serving", "extenders",
+              "chaos", "measure", "profile")
 MAIN_PATHS = ("slice", "backlog", "fill", "preempt", "seq_slice",
               "seq_anti", "seq_spread", "gang_anti", "gang_spread",
               "autoscaler", "binpack", "points", "volumes", "resident",
-              "serving", "extenders", "chaos", "measure")
+              "mesh", "serving", "extenders", "chaos", "measure")
 FILL_NODES = 5000             # Preemption5000Nodes: 5,000 nodes,
 FILL_PODS = 4 * FILL_NODES    # 20,000 init pods (four 900m pods fill a node)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -573,7 +573,7 @@ class LoggedFaults:
 
 def drain(store, pods, backend, batch_size, device, record=None,
           record_limit=None, profile=None, families=None, fresh=False,
-          chain=True):
+          chain=True, mesh_shape=None, max_cycles=None):
     """Drain ``pods`` through Scheduler.schedule_pending, in gang mode
     under ``backend``, or, with backend None, under the default
     configuration (the sequential replay); profile: the scheduler's one
@@ -583,15 +583,17 @@ def drain(store, pods, backend, batch_size, device, record=None,
     plain version; families: a dict counting every launch by its layout
     ("default" or "generic" combine); fresh: tensorize every cycle from
     scratch (fresh_tensorize); chain=False: delta refreshes every cycle,
-    no chain.  A gang drain on the card runs
-    every auction under GangRounds (one host read per round, nothing
+    no chain; mesh_shape: the configuration's device mesh; max_cycles:
+    stop after that many cycles.  A gang drain on the card without a mesh
+    runs every auction under GangRounds (one host read per round, nothing
     else); returns (scheduler, placements, seconds, GangRounds summary or
     None)."""
     from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
                                            KubeSchedulerProfile)
     from kubetpu_torch.scheduler import Scheduler
     cfg = KubeSchedulerConfiguration(
-        profiles=[profile or KubeSchedulerProfile()], batch_size=batch_size)
+        profiles=[profile or KubeSchedulerProfile()], batch_size=batch_size,
+        mesh_shape=mesh_shape)
     if backend is not None:
         cfg.mode, cfg.kernel_backend = "gang", backend
     sched = Scheduler(store, config=cfg, device=device)
@@ -604,11 +606,12 @@ def drain(store, pods, backend, batch_size, device, record=None,
     placed = {}
     restore = (_record_launches(record, record_limit, families)
                if record is not None else None)
-    gang_card = backend is not None and device == "cuda"
+    gang_card = (backend is not None and device == "cuda"
+                 and mesh_shape is None)
     try:
         with GangRounds() if gang_card else contextlib.nullcontext() as gr:
             t0 = time.perf_counter()
-            while True:
+            while sched.cycle_count != max_cycles:
                 out = sched.schedule_pending()
                 if not out:
                     break
@@ -1587,6 +1590,9 @@ def phase_backlog() -> dict:
     return _pallas_vs_lax("backlog", backlog_world, 4096)[0]
 
 
+FILL_LAX: dict = {}
+
+
 def phase_fill() -> dict:
     """Preemption5000Nodes' init phase: every filler placed, four on every
     node (the template packs the cluster exactly); nothing is nominated,
@@ -1596,6 +1602,9 @@ def phase_fill() -> dict:
     with DeviceTimed(PR, "nominated_fit_mask") as overlay:
         out, stores = _pallas_vs_lax("fill", fill_world, 1000,
                                      record_limit=16)
+    # the mesh phase holds its (2, 2) fill against this lax drain
+    FILL_LAX.update(placements=placements_of(stores["lax"]),
+                    rounds=list(out["lax"]["rounds"]))
     if overlay.events:
         raise AssertionError("fill: %d nominated-pods overlay passes with "
                              "nothing nominated" % len(overlay.events))
@@ -2132,12 +2141,13 @@ class RefreshProbe:
 
 
 def resident_drain(n_nodes, batch, waves, backend, device, digest=False,
-                   record=None):
+                   record=None, mesh_shape=None):
     """resident_world drained (gang under ``backend``, or sequential with
     None) with the churn before each cycle, the preemption drain's queue
     settings (backoff 0, unschedulable pods retried when the queue idles)
     and every refresh verified.  record: a list that receives every
     propose launch as (inputs, outputs), cloned, for check_recorded.
+    mesh_shape: the configuration's device mesh (no GangRounds then).
     Returns (placements, deleted, report, refresh records)."""
     from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
                                            KubeSchedulerProfile)
@@ -2146,7 +2156,7 @@ def resident_drain(n_nodes, batch, waves, backend, device, digest=False,
     import torch
     store, pods, churn = resident_world(n_nodes, batch, waves)
     cfg = KubeSchedulerConfiguration(profiles=[KubeSchedulerProfile()],
-                                     batch_size=batch)
+                                     batch_size=batch, mesh_shape=mesh_shape)
     if backend is not None:
         cfg.mode, cfg.kernel_backend = "gang", backend
     sched = Scheduler(store, config=cfg, device=device)
@@ -2162,8 +2172,8 @@ def resident_drain(n_nodes, batch, waves, backend, device, digest=False,
     for p in pods:
         store.add(p)
     card = device == "cuda"
-    guard = (GangRounds() if card and backend is not None
-             else SeqScans() if card else contextlib.nullcontext())
+    guard = (contextlib.nullcontext() if not card or mesh_shape
+             else GangRounds() if backend is not None else SeqScans())
     if card:
         PK.propose.launches = 0      # this path starts: zero the count
     restore = (_record_launches(record, None)
@@ -2269,6 +2279,265 @@ def phase_resident() -> dict:
             refreshes=len(crec), matches_cpu=True)
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# the device mesh
+
+
+class PackedProbe:
+    """Records every cycle's packed readback (Scheduler._readback_group's
+    host array, copied) in ``packed``.  Restored on exit."""
+
+    def __enter__(self):
+        from kubetpu_torch.scheduler import Scheduler
+        self._orig = orig = Scheduler._readback_group
+        self.packed = []
+        probe = self
+
+        def readback(sched, prep, res):
+            out = orig(sched, prep, res)
+            probe.packed.append(out.copy())
+            return out
+        Scheduler._readback_group = readback
+        return self
+
+    def __exit__(self, *exc):
+        from kubetpu_torch.scheduler import Scheduler
+        Scheduler._readback_group = self._orig
+
+
+class ScatterProbe:
+    """Records the first ``limit`` resident delta scatters
+    (models/programs.apply_cluster_delta) as (the cluster before it,
+    cloned; the delta), for check_sharded_scatter.  Restored on exit."""
+
+    def __init__(self, limit=8):
+        self.limit = limit
+        self.records = []
+
+    def __enter__(self):
+        from kubetpu_torch.models import programs
+        from kubetpu_torch.parallel import mesh as pmesh
+        self._orig = orig = programs.apply_cluster_delta
+        probe = self
+
+        def apply(cluster, delta, donate=True):
+            if len(probe.records) < probe.limit:
+                probe.records.append(
+                    (pmesh._tree_map(lambda t: t.clone(), cluster), delta))
+            return orig(cluster, delta, donate=donate)
+        programs.apply_cluster_delta = apply
+        return self
+
+    def __exit__(self, *exc):
+        from kubetpu_torch.models import programs
+        programs.apply_cluster_delta = self._orig
+
+
+def check_sharded_scatter(records, shape) -> int:
+    """Each recorded delta scattered shard by shard over a ``shape`` mesh
+    on the card (parallel/mesh.sharded_apply_cluster_delta) and gathered,
+    bitwise against the single-device scatter of the same delta into the
+    same cluster.  Returns the number of deltas checked."""
+    import numpy as np
+    from kubetpu_torch.models import programs
+    from kubetpu_torch.parallel import mesh as pmesh
+    from kubetpu_torch.state import delta as D
+    mesh = pmesh.make_mesh(shape, "cuda")
+    for k, (cluster, delta) in enumerate(records):
+        want = programs.apply_cluster_delta(cluster, delta, donate=False)
+        got = pmesh.gather(pmesh.sharded_apply_cluster_delta(
+            cluster, delta, mesh, donate=False))
+        for f in type(want)._fields:
+            for a, b in zip(D._leaves(getattr(want, f)),
+                            D._leaves(getattr(got, f))):
+                a, b = a.cpu().numpy(), b.cpu().numpy()
+                if (a.dtype != b.dtype or a.shape != b.shape
+                        or not np.array_equal(a.view(np.uint8),
+                                              b.view(np.uint8))):
+                    raise AssertionError(
+                        "mesh scatter %d: %s differs from the "
+                        "single-device scatter" % (k, f))
+    return len(records)
+
+
+def mesh_drive(make_world, backend, batch_size, mesh_shape, device="cuda",
+               max_cycles=None, chain=True):
+    """One drain of a fresh ``make_world()`` through the scheduler with
+    ``mesh_shape`` (None: one device), every packed readback recorded.
+    Returns (placements, packed readbacks, report)."""
+    import numpy as np
+    import torch
+    from kubetpu_torch.ops import propose as PK
+    from kubetpu_torch.parallel import shardmap as SM
+    from kubetpu_torch.scheduler import capacity_violations
+    from kubetpu_torch.utils.device import shard_copy
+    store, pods = make_world()
+    for k in SM.tiled_stats:
+        SM.tiled_stats[k] = 0
+    copies0, cross0 = shard_copy.copies, shard_copy.cross_device
+    PK.propose.launches = 0          # this path starts: zero the count
+    with PackedProbe() as probe:
+        sched, placed, seconds, _ = drain(store, pods, backend, batch_size,
+                                          device, chain=chain,
+                                          mesh_shape=mesh_shape,
+                                          max_cycles=max_cycles)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    what = "mesh %s %s" % (mesh_shape, device)
+    if capacity_violations(store):
+        raise AssertionError("%s: capacity violated" % what)
+    for a in probe.packed:
+        if not np.isfinite(a).all():
+            raise AssertionError("%s: a packed readback is not finite" % what)
+    st = dict(SM.tiled_stats)
+    rounds = sum(sched.gang_rounds)
+    mesh = sched._mesh
+    report = dict(
+        shape=list(mesh_shape) if mesh_shape else None,
+        placed=sum(1 for v in placed.values() if v), cycles=sched.cycle_count,
+        rounds=list(sched.gang_rounds), drain_s=seconds,
+        auction_s=sched.stage_s["auction"], routes=sched.gang_backends,
+        sources=list(sched.cluster_sources), launches=PK.propose.launches,
+        tiled=st, copies=shard_copy.copies - copies0,
+        cross_device_copies=shard_copy.cross_device - cross0,
+        round_copies_per_round=(st["round_copies"] / st["rounds"]
+                                if st["rounds"] else None),
+        ms_per_round=(sched.stage_s["auction"] / rounds * 1e3
+                      if rounds else None),
+        devices=(sorted({str(d) for row in mesh.devices for d in row})
+                 if mesh is not None else None),
+        shards_share_one_card=(not mesh.spread if mesh is not None
+                               else None))
+    return placements_of(store), probe.packed, report
+
+
+def _same_drive(want, got, what) -> None:
+    """Placements and every cycle's packed readback (chosen, n_feasible,
+    all_unresolvable, rounds or the next start index) bitwise equal."""
+    import numpy as np
+    if want[0] != got[0]:
+        diff = [k for k in want[0] if want[0][k] != got[0].get(k)]
+        raise AssertionError("%s: placements differ for %d pods"
+                             % (what, len(diff)))
+    if len(want[1]) != len(got[1]) or not all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for a, b in zip(want[1], got[1])):
+        raise AssertionError("%s: the packed readbacks differ" % what)
+    if want[2]["rounds"] != got[2]["rounds"]:
+        raise AssertionError("%s: rounds %s vs %s" % (
+            what, want[2]["rounds"], got[2]["rounds"]))
+
+
+def _mesh_small_world():
+    return (hollow_store(64, 2, varied=True),
+            pending_pods(256, "small", cpu_milli=900))
+
+
+def _seq_first():
+    return hollow_store(5000, 1), pending_pods(256, "measured")
+
+
+def phase_mesh() -> dict:
+    """The device mesh on one card (every shard on cuda:0 unless the
+    machine has more cards), each mesh drive bitwise against the
+    single-device drive on the card: placements and every cycle's packed
+    readback.  The backlog (1,000 nodes x 4,096 pods, one windowed
+    cycle) at (1, 1), (1, 4) and (2, 2) on the tiled surface; the fill at
+    full width at (2, 2), chained, against phase_fill's lax drain;
+    gang_anti's first cycle at (2, 2), the replicated topology surface;
+    seq_slice's first 256 pods at (2, 2), the replicated scan; the
+    1,000-node resident drive at (2, 2) with its churn (every refresh
+    verified, the residents' digests equal), whose first delta scatters
+    are repeated shard by shard (the pre-sharded delta scatter) against
+    the single-device scatter; and a small seeded world at (2, 2), card
+    against CPU.  K1 never runs
+    under a mesh (its route there is lax, as in the JAX package)."""
+    out, drives = {}, []
+    base = mesh_drive(backlog_world, "lax", 4096, None)
+    out["backlog_single"] = base[2]
+    for shape in ((1, 1), (1, 4), (2, 2)):
+        got = mesh_drive(backlog_world, "lax", 4096, shape)
+        _same_drive(base, got, "mesh backlog %s" % (shape,))
+        drives.append(got[2])
+        if got[2]["tiled"]["auctions"] != got[2]["cycles"]:
+            raise AssertionError("mesh backlog %s: %s of %d cycles tiled"
+                                 % (shape, got[2]["tiled"], got[2]["cycles"]))
+        out["backlog_%dx%d" % shape] = got[2]
+    # the fill at (2, 2), chained, against phase_fill's lax drain (run
+    # here when that phase did not run)
+    if not FILL_LAX:
+        lax = mesh_drive(fill_world, "lax", 1000, None)
+        FILL_LAX.update(placements=lax[0], rounds=lax[2]["rounds"])
+    fill = mesh_drive(fill_world, "lax", 1000, (2, 2))
+    drives.append(fill[2])
+    if fill[0] != FILL_LAX["placements"]:
+        raise AssertionError("mesh fill: placements differ from the lax "
+                             "drain's")
+    if fill[2]["rounds"] != FILL_LAX["rounds"]:
+        raise AssertionError("mesh fill: rounds %s vs %s" % (
+            fill[2]["rounds"], FILL_LAX["rounds"]))
+    if "chain" not in fill[2]["sources"] or fill[2]["placed"] != FILL_PODS:
+        raise AssertionError("mesh fill: %d placed, sources %s"
+                             % (fill[2]["placed"], fill[2]["sources"]))
+    out["fill_2x2"] = fill[2]
+    # gang_anti's first cycle: intra-batch topology, the replicated surface
+    anti = [mesh_drive(anti_world, "lax", 1000, shape, max_cycles=1)
+            for shape in (None, (2, 2))]
+    _same_drive(anti[0], anti[1], "mesh gang_anti")
+    drives.append(anti[1][2])
+    if anti[1][2]["tiled"]["auctions"]:
+        raise AssertionError("mesh gang_anti: a topology batch tiled")
+    out["gang_anti_first_cycle"] = dict(single=anti[0][2], mesh=anti[1][2])
+    # seq_slice's first 256 pods: the replicated scan
+    seq = [mesh_drive(_seq_first, None, 256, shape)
+           for shape in (None, (2, 2))]
+    _same_drive(seq[0], seq[1], "mesh seq_slice")
+    drives.append(seq[1][2])
+    out["seq_slice_256"] = dict(single=seq[0][2], mesh=seq[1][2])
+    # the resident cluster under churn at (2, 2): verify() after every
+    # refresh, the same digests; its first delta scatters again shard by
+    # shard over the mesh, against the single-device scatter
+    res = [resident_drain(1000, 100, 8, "lax", "cuda", digest=True,
+                          mesh_shape=None)]
+    with ScatterProbe() as scatters:
+        res.append(resident_drain(1000, 100, 8, "lax", "cuda", digest=True,
+                                  mesh_shape=(2, 2)))
+    n_scatter = check_sharded_scatter(scatters.records, (2, 2))
+    if not n_scatter:
+        raise AssertionError("mesh resident: no delta scatter to check")
+    if res[0][:2] != res[1][:2]:
+        raise AssertionError("mesh resident: placements or evictions "
+                             "differ")
+    if res[0][3] != res[1][3]:
+        raise AssertionError("mesh resident: refresh outcomes, uid lists "
+                             "or resident digests differ")
+    if "delta" not in res[1][2]["sources"]:
+        raise AssertionError("mesh resident: no delta refresh")
+    drives.append(res[1][2])
+    out["resident_2x2"] = dict(single=res[0][2], mesh=res[1][2],
+                               refreshes=len(res[1][3]),
+                               verified=res[1][2]["verified"],
+                               sharded_scatters_checked=n_scatter)
+    # a small seeded world through the mesh, card against CPU
+    small_card = mesh_drive(_mesh_small_world, "lax", 128, (2, 2))
+    with cpu_threads():
+        small_cpu = mesh_drive(_mesh_small_world, "lax", 128, (2, 2),
+                               device="cpu")
+    _same_drive(small_cpu, small_card, "mesh small card vs CPU")
+    drives.append(small_card[2])
+    out["small_card_vs_cpu"] = dict(card=small_card[2], matches_cpu=True)
+    # K1's count over the mesh drives, each zeroed before it and read
+    # after it
+    out["launches"] = sum(d["launches"] for d in drives)
+    if out["launches"]:
+        raise AssertionError("mesh: K1 launched %d times under a mesh"
+                             % out["launches"])
+    import torch
+    out["card_count"] = torch.cuda.device_count()
+    out["matches_single_device"] = True
+    return out
 
 # ---------------------------------------------------------------------------
 # custom profiles: the configurable scorers and the extension points

@@ -6,9 +6,9 @@ DefaultPercentageOfNodesToScore :251; the counterpart of
 kubetpu/apis/config.py.  YAML decoding, defaulting and validation live in
 apis/load.py.  The JAX package's serving-runtime knobs are here with its
 defaults (leader election, the metrics and health addresses, the dispatch
-deadline, bind retries, prewarm, the pipelined drain); meshes are not
-ported (ROADMAP queue 1 item 10), and the XLA bucket ladder
-``prewarm_ladder`` has no torch counterpart (ROADMAP item 11).
+deadline, bind retries, prewarm, the pipelined drain, the device mesh),
+and the XLA bucket ladder ``prewarm_ladder`` has no torch counterpart
+(ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -136,6 +136,12 @@ class KubeSchedulerConfiguration:
     # first asking the store whether the bind landed (bind is not
     # idempotent)
     bind_retries: int = 2
+    # (pods, nodes): run every cycle's program over a device mesh of that
+    # shape (parallel/mesh.py; shard k on cuda:((index + k) mod
+    # device_count) from the scheduler's card, or the CPU for a CPU
+    # scheduler).  Placements equal the single-device run's; None = one
+    # device
+    mesh_shape: Optional[tuple] = None
     # Scheduler.run builds or loads the CUDA kernels and runs one dry
     # cycle before serving, so the first served cycle pays no nvcc
     prewarm: bool = True

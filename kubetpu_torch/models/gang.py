@@ -40,7 +40,10 @@ rows write a spare row that is dropped.  ``kernel_backend`` "lax" runs
 [B, N] feasibility is a diagnostic output) and every later round's
 propose half through ``ops.propose`` — the CUDA kernel on the card, its
 plain version on the CPU — for the batches utils/pallas_backend routes
-there (term-free ones); others run "lax".
+there (term-free ones); others run "lax".  A ``propose_step`` (the mesh's
+tiled round, parallel/shardmap.py) takes the place of ``ops.propose`` in
+every round, round 0 included, with the same admission, windows and
+epilogue.
 
 Exactness: admission's prefix sums, the deferral's prefix sums and the
 commit's segment sums are f32 sums of integer values.  They are exact in
@@ -51,7 +54,7 @@ bound and raises rather than trust a summation order.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -403,12 +406,20 @@ def _gang_program(cluster, batch, cfg: ProgramConfig, rng,
                   residual_window: int = 512,
                   score_bias: Optional[torch.Tensor] = None,
                   kernel_backend: str = "lax",
-                  gumbel: Optional[torch.Tensor] = None) -> GangResult:
+                  gumbel: Optional[torch.Tensor] = None,
+                  propose_step: Optional[Callable] = None) -> GangResult:
     """The auction body, after routing.  It reads the device once before
     the rounds (_check_exact_sums) and once per round (_read_flags);
     nothing else in it waits for the card.  (schedule_gang's routing of a
     pallas request with intra-batch topology off reads the batch's soft
-    constraint flags once more when the batch is on the card.)"""
+    constraint flags once more when the batch is on the card.)
+
+    propose_step: a factory that takes the round-invariant bundle
+    (ops/propose.build_bundle) and returns a step ``(rows, live, req, nz,
+    ports_used, first) -> (prop, act, best, feas)`` with ops.propose's
+    meaning, feas being the rows' [W, N] feasibility when ``first`` and
+    None otherwise.  Every round, round 0 included, then proposes through
+    it; it needs intra_batch_topology=False."""
     batch = densify_for(cluster, batch)
     dev = batch.req.device
     B = batch.req.shape[0]
@@ -423,10 +434,13 @@ def _gang_program(cluster, batch, cfg: ProgramConfig, rng,
     use_ipa = "InterPodAffinity" in filters and intra_batch_topology
     intra = use_sph or use_ipa
     use_pallas = kernel_backend == "pallas"
-    if use_pallas and intra:
+    # every later round (pallas) or every round (a propose_step) proposes
+    # from the bundle
+    use_bundle = use_pallas or propose_step is not None
+    if use_bundle and intra:
         raise ValueError(
-            "kernel_backend='pallas' requires intra_batch_topology=False "
-            "(schedule_gang routes this; see "
+            "kernel_backend='pallas' and a propose_step require "
+            "intra_batch_topology=False (schedule_gang routes this; see "
             "utils/pallas_backend.unsupported_reason)")
     _check_exact_sums(cluster, batch)
 
@@ -479,7 +493,8 @@ def _gang_program(cluster, batch, cfg: ProgramConfig, rng,
     gumbel = gumbel.to(device=dev, dtype=torch.float32)
     bundle = (PK.build_bundle(cluster, batch, cfg, static_ok, ports_ok0,
                               score_pre, score_bias, gumbel)
-              if use_pallas else None)
+              if use_bundle else None)
+    step = propose_step(bundle) if propose_step is not None else None
 
     P = batch.ports_hot.shape[1]
     c: Dict[str, torch.Tensor] = dict(
@@ -522,7 +537,7 @@ def _gang_program(cluster, batch, cfg: ProgramConfig, rng,
                            ports_hot=g(batch.ports_hot),
                            ports_asnode_hot=g(batch.ports_asnode_hot),
                            valid=g(batch.valid) & wvalid)
-        if use_pallas:
+        if use_bundle:
             return dict(rows=rows, valid=tail_fields["valid"],
                         batch=batch._replace(**tail_fields), bundle=bundle)
 
@@ -658,11 +673,18 @@ def _gang_program(cluster, batch, cfg: ProgramConfig, rng,
         return round_tail(sb, prop, active, best, unassigned, windowed,
                           boot_live)
 
-    def pallas_round(sb, windowed: bool):
+    def bundle_round(sb, windowed: bool, first: bool = False):
         unassigned = unassigned_of(sb)
-        prop, active, best = PK.propose(sb["bundle"], sb["rows"],
-                                        unassigned, c["req"], c["nz"],
-                                        c["ports_used"])
+        if step is None:
+            prop, active, best = PK.propose(sb["bundle"], sb["rows"],
+                                            unassigned, c["req"], c["nz"],
+                                            c["ports_used"])
+        else:
+            prop, active, best, feas = step(sb["rows"], unassigned,
+                                            c["req"], c["nz"],
+                                            c["ports_used"], first)
+            if first:
+                c["feas0"] = feas
         return round_tail(sb, prop, active, best, unassigned, windowed)
 
     def round_tail(sb, prop, active, best, unassigned, windowed: bool,
@@ -719,10 +741,12 @@ def _gang_program(cluster, batch, cfg: ProgramConfig, rng,
 
     fsb = full_sub()
     use_window = bool(residual_window) and residual_window < B
-    progress, pool_any = read_flags(round_step(fsb, windowed=use_window))
+    progress, pool_any = read_flags(
+        bundle_round(fsb, use_window, first=True) if step is not None
+        else round_step(fsb, windowed=use_window))
     if not use_window:
         while progress and state["rounds"] < max_rounds:
-            flags = (pallas_round(fsb, False) if use_pallas
+            flags = (bundle_round(fsb, False) if use_bundle
                      else round_step(fsb, False))
             progress, pool_any = read_flags(flags)
     else:
@@ -737,7 +761,7 @@ def _gang_program(cluster, batch, cfg: ProgramConfig, rng,
             rows = torch.where(pool[first], idx[first],
                                torch.full_like(first, B))
             sb = gather_sub(rows)
-            flags = (pallas_round(sb, True) if use_pallas
+            flags = (bundle_round(sb, True) if use_bundle
                      else round_step(sb, True))
             progress, pool_any = read_flags(flags)
 

@@ -69,6 +69,59 @@ def gumbel_tiebreak_argmax(total, f, gumbel, col_offset, neg):
 
 
 # ---------------------------------------------------------------------------
+# exact reductions over mesh shards (kubetpu/ops/kernels.py:66-113)
+#
+# A reduction takes one piece per shard of a mesh axis (a list, in shard
+# order, each piece on its shard's device), gathers the pieces onto the
+# first one's device, folds them in shard order and returns the result
+# copied back to every shard's device.  The fold is exact in any order:
+# float max/min always, sums only over ints or integer-valued f32 below
+# 2**24 (the caller's contract, as in the JAX package).
+
+CANDIDATE_SENTINEL = 2 ** 30
+
+
+def _fold_shards(parts, op):
+    from ..utils.device import shard_copy
+    home = parts[0].device
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = op(acc, shard_copy(p, home))
+    return [acc] + [shard_copy(acc, p.device) for p in parts[1:]]
+
+
+def exact_psum(parts):
+    """Cross-shard sum (ints, or integer-valued f32 below 2**24)."""
+    return _fold_shards(parts, torch.add)
+
+
+def exact_pmax(parts):
+    """Cross-shard max: exactly associative."""
+    return _fold_shards(parts, torch.maximum)
+
+
+def exact_pmin(parts):
+    """Cross-shard min: exactly associative."""
+    return _fold_shards(parts, torch.minimum)
+
+
+def crossaxis_first_index_argmax(tile_best, tile_h, tile_arg, neg):
+    """Cross-shard resolve of per-tile gumbel_tiebreak_argmax results
+    (lists over the shards of one row of tiles): the max score, then the
+    max gumbel among the tiles holding it, then the MIN global index among
+    tiles tying on both — the index torch.argmax over the whole row picks.
+    Returns per-shard lists (best, index)."""
+    best = exact_pmax(tile_best)
+    gh = exact_pmax([torch.where(tb == b, th, torch.full_like(th, neg))
+                     for tb, th, b in zip(tile_best, tile_h, best)])
+    cand = [torch.where((tb == b) & (th == g), ta,
+                        torch.full_like(ta, CANDIDATE_SENTINEL))
+            for tb, th, ta, b, g in zip(tile_best, tile_h, tile_arg, best,
+                                        gh)]
+    return best, exact_pmin(cand)
+
+
+# ---------------------------------------------------------------------------
 # shared aggregation helpers
 
 

@@ -235,11 +235,50 @@ def propose_plain(bundle, rows, live, req, nz, ports_used):
     return prop, act, best
 
 
-def _combine(bundle, L: Layout, f, nz):
-    """[W, N] weighted total of the score plugins plus the bias plane,
-    for the gathered window rows ``bundle`` with feasibility f."""
+def row_stats(bundle, L: Layout, f) -> Dict[str, torch.Tensor]:
+    """The combine's per-row normalisation statistics over the columns of
+    f: each max/min statistic of a plane is taken over the feasible
+    columns, ``havez`` flags a feasible node with a zone and ``czone``
+    holds DefaultPodTopologySpread's [W, Z] feasible counts per zone.
+    Over column blocks they reduce exactly: the max/min and havez
+    statistics by max/min (keys in ROW_STAT_MIN are minima), czone by a
+    sum of integer-valued f32 (parallel/shardmap.py folds them so)."""
     planes = bundle["planes"]
     plane = {name: i for i, name in enumerate(L.planes)}
+    names = {n for n, _ in L.scores}
+    st: Dict[str, torch.Tensor] = {}
+    for name, key in (("NodeAffinity", "max_na"),
+                      ("TaintToleration", "max_tt"),
+                      ("InterPodAffinity", "max_ip"),
+                      ("DefaultPodTopologySpread", "max_dps")):
+        if name in names:
+            st[key] = _rowmax(f, planes[plane[PLANE_OF[name]]], NEG)
+    if "InterPodAffinity" in names:
+        raw = planes[plane["ipa_raw"]]
+        st["min_ip"] = torch.where(f, raw, torch.full_like(raw, BIG)) \
+            .min(dim=1).values
+    if "DefaultPodTopologySpread" in names:
+        raw = planes[plane["dps_raw"]]
+        has_zone = bundle["zid"] >= 0
+        st["havez"] = (f & has_zone[None, :]).any(dim=1)
+        st["czone"] = (torch.where(f, raw, torch.zeros_like(raw))
+                       @ zone_onehot(bundle["zid"], bundle["n_zones"]))
+    return st
+
+
+ROW_STAT_MIN = frozenset({"min_ip"})
+ROW_STAT_SUM = frozenset({"czone"})
+
+
+def _combine(bundle, L: Layout, f, nz, st=None):
+    """[W, N] weighted total of the score plugins plus the bias plane,
+    for the gathered window rows ``bundle`` with feasibility f.  st: the
+    rows' statistics (row_stats) when f is one column block of wider
+    rows; by default they are f's own."""
+    planes = bundle["planes"]
+    plane = {name: i for i, name in enumerate(L.planes)}
+    if st is None:
+        st = row_stats(bundle, L, f)
     W, N = f.shape
     alloc = bundle["allocT"].T
     bnz = bundle["bnz"]
@@ -267,21 +306,20 @@ def _combine(bundle, L: Layout, f, nz):
             s = planes[plane[PLANE_OF[name]]]
         elif name == "NodeAffinity":
             raw = planes[plane["raw:NodeAffinity"]]
-            max_c = torch.clamp(_rowmax(f, raw, NEG), min=0.0)[:, None]
+            max_c = torch.clamp(st["max_na"], min=0.0)[:, None]
             scaled = K._idiv(K.MAX_NODE_SCORE * raw,
                              torch.clamp(max_c, min=1.0))
             s = torch.where(max_c > 0, scaled, zero)
         elif name == "TaintToleration":
             raw = planes[plane["raw:TaintToleration"]]
-            max_c = torch.clamp(_rowmax(f, raw, NEG), min=0.0)[:, None]
+            max_c = torch.clamp(st["max_tt"], min=0.0)[:, None]
             scaled = K.MAX_NODE_SCORE - K._idiv(K.MAX_NODE_SCORE * raw,
                                                 torch.clamp(max_c, min=1.0))
             s = torch.where(max_c > 0, scaled, full)
         elif name == "InterPodAffinity":
             raw = planes[plane["ipa_raw"]]
-            max_c = torch.clamp(_rowmax(f, raw, NEG), min=0.0)[:, None]
-            min_c = torch.clamp(torch.where(f, raw, torch.full_like(raw, BIG))
-                                .min(dim=1).values, max=0.0)[:, None]
+            max_c = torch.clamp(st["max_ip"], min=0.0)[:, None]
+            min_c = torch.clamp(st["min_ip"], max=0.0)[:, None]
             diff = max_c - min_c
             norm = torch.where(diff > 0,
                                K._idiv(K.MAX_NODE_SCORE * (raw - min_c),
@@ -291,11 +329,11 @@ def _combine(bundle, L: Layout, f, nz):
             s = torch.where(f, full, zero)
         elif name == "DefaultPodTopologySpread":
             raw = planes[plane["dps_raw"]]
-            max_node = torch.clamp(_rowmax(f, raw, NEG), min=0.0)[:, None]
+            max_node = torch.clamp(st["max_dps"], min=0.0)[:, None]
             f_score = torch.where(max_node > 0,
                                   K.MAX_NODE_SCORE * (max_node - raw)
                                   / torch.clamp(max_node, min=1.0), full)
-            cz = torch.where(f, raw, zero) @ zone               # [W, Z]
+            cz = st["czone"]                                    # [W, Z]
             max_zone = torch.clamp(cz.max(dim=1).values, min=0.0)[:, None]
             nzc = cz @ zone.T
             zone_score = torch.where(max_zone > 0,
@@ -303,9 +341,8 @@ def _combine(bundle, L: Layout, f, nz):
                                      / torch.clamp(max_zone, min=1.0), full)
             with_zone = (f_score * K.ONE_MINUS_ZONE_W
                          + K.ZONE_W * zone_score)
-            havez = (f & has_zone[None, :]).any(dim=1)
-            out = torch.where(havez[:, None] & has_zone[None, :], with_zone,
-                              f_score)
+            out = torch.where(st["havez"][:, None] & has_zone[None, :],
+                              with_zone, f_score)
             out = torch.floor(out)
             s = torch.where(bundle["skip"][:, None], zero, out)
         else:

@@ -126,6 +126,7 @@ from .models.batch import (PodBatchBuilder, batch_to_device, build_nominated,
                            nominated_to_device, take_rows)
 from .models.gang import materialize_assigned, run_auction
 from .models.sequential import schedule_sequential
+from .parallel import mesh as pmesh
 from .ops._build import compile_events, kernel_fault, load_propose
 from .pipeline import PipelinedExecutor, depth_from_env
 from .plugins.intree import DefaultPreemption, new_in_tree_registry
@@ -298,6 +299,13 @@ class Scheduler:
         self._chain = None
         self._chain_seq = 0
         self._chain_lock = threading.Lock()
+        # the device mesh (parallel/mesh.py) of mesh_shape=(pods, nodes):
+        # every cycle's program is dispatched over it (the resident
+        # cluster and the batch stay whole on self.device, the mesh's
+        # controller); None = one device
+        self._mesh = (pmesh.make_mesh(tuple(self.config.mesh_shape),
+                                      self.device)
+                      if self.config.mesh_shape else None)
         # per-pod decision audit (utils/decisions.py): on by default,
         # KUBETPU_AUDIT=0 disables it
         self.decisions = DecisionLog()
@@ -908,11 +916,18 @@ class Scheduler:
                                          prep.hbatch)
             self.gang_backends.append(backend)
             prep.kernel_backend = backend[0]
-            res = run_auction(prep.cluster, prep.batch, prep.cfg,
-                              self._next_rng(), host_ok=prep.host_ok,
-                              score_bias=prep.score_bias,
-                              intra_batch_topology=prep.needs_topo,
-                              kernel_backend=backend[0])
+            if self._mesh is not None:
+                res = pmesh.sharded_schedule_gang(
+                    prep.cluster, prep.batch, prep.cfg,
+                    self._next_rng(), self._mesh, host_ok=prep.host_ok,
+                    intra_batch_topology=prep.needs_topo,
+                    score_bias=prep.score_bias)
+            else:
+                res = run_auction(prep.cluster, prep.batch, prep.cfg,
+                                  self._next_rng(), host_ok=prep.host_ok,
+                                  score_bias=prep.score_bias,
+                                  intra_batch_topology=prep.needs_topo,
+                                  kernel_backend=backend[0])
             prep.syncs = res.syncs
             # the auction's verdict rows, shared lazily: preemption reads
             # them only if nothing committed since
@@ -924,12 +939,17 @@ class Scheduler:
         else:
             n_nodes = len(prep.node_infos)
             start = self._next_start_node_index % n_nodes
-            res = schedule_sequential(
-                prep.cluster, prep.batch, prep.cfg, self._next_rng(),
-                hard_pod_affinity_weight=float(
-                    prep.fwk.hard_pod_affinity_weight),
+            kw = dict(hard_pod_affinity_weight=float(
+                prep.fwk.hard_pod_affinity_weight),
                 host_ok=prep.host_ok, start_index=start,
                 score_bias=prep.score_bias)
+            if self._mesh is not None:
+                res = pmesh.sharded_schedule_sequential(
+                    prep.cluster, prep.batch, prep.cfg,
+                    self._next_rng(), self._mesh, **kw)
+            else:
+                res = schedule_sequential(prep.cluster, prep.batch, prep.cfg,
+                                          self._next_rng(), **kw)
             packed = _copy_to_host(res.packed)
             self._stage("auction", t)
         return packed
@@ -1429,6 +1449,10 @@ class Scheduler:
         why a pallas request runs lax."""
         if self.config.kernel_backend != "pallas":
             return "lax", None
+        if self._mesh is not None:
+            # the mesh runs the lax round (its tiles, or the replicated
+            # program), as kubetpu/scheduler.py:1375 routes it
+            return "lax", "mesh"
         reason = PB.unsupported_reason(cfg, needs_topo, hbatch)
         return ("lax", reason) if reason is not None else ("pallas", None)
 
@@ -1451,8 +1475,13 @@ class Scheduler:
         t = time.perf_counter()
         fwk, live, states = prep.fwk, prep.live, prep.states
         node_infos, cycle_ctx = prep.node_infos, prep.cycle_ctx
-        res = programs.filter_and_score(prep.cluster, prep.batch, prep.cfg,
-                                        prep.host_ok)
+        if self._mesh is not None:
+            res = pmesh.sharded_filter_and_score(
+                prep.cluster, prep.batch, prep.cfg, self._mesh,
+                host_ok=prep.host_ok)
+        else:
+            res = programs.filter_and_score(prep.cluster, prep.batch,
+                                            prep.cfg, prep.host_ok)
         planes = [res.feasible.to(res.scores.dtype), res.scores]
         if prep.score_bias is not None:
             planes.append(prep.score_bias.to(res.scores.dtype))
@@ -1990,10 +2019,19 @@ class Scheduler:
         t0 = wallclock()
         with (fr_rec.span("prewarm", mode="dry-run") if fr_rec is not None
               else contextlib.nullcontext()) as sp:
-            if self.config.mode == "gang":
+            if self.config.mode == "gang" and self._mesh is not None:
+                res = pmesh.sharded_schedule_gang(
+                    cluster, batch, cfg, rng, self._mesh,
+                    intra_batch_topology=False)
+            elif self.config.mode == "gang":
                 res = run_auction(cluster, batch, cfg, rng,
                                   intra_batch_topology=False,
                                   kernel_backend=self.config.kernel_backend)
+            elif self._mesh is not None:
+                res = pmesh.sharded_schedule_sequential(
+                    cluster, batch, cfg, rng, self._mesh,
+                    hard_pod_affinity_weight=float(
+                        fwk.hard_pod_affinity_weight))
             else:
                 res = schedule_sequential(
                     cluster, batch, cfg, rng,

@@ -64,3 +64,24 @@ def upload_packed(arrays: Sequence[np.ndarray], device) -> List[torch.Tensor]:
         out.append(seg.view(dt).reshape(a.shape) if a.size
                    else torch.zeros(a.shape, dtype=dt, device=device))
     return out
+
+
+def shard_copy(x: torch.Tensor, device) -> torch.Tensor:
+    """``x`` on ``device`` for another shard of a mesh (parallel/mesh.py):
+    every call counts in ``shard_copy.copies``, and one that crosses
+    devices in ``shard_copy.cross_device``.  The copy is synchronous
+    (non_blocking=False): a copy between two cards waits for the work
+    queued on both cards' current streams, so a shard never reads a
+    piece its producer has not finished.  On a shared device it returns
+    ``x`` itself."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    shard_copy.copies += 1
+    if x.device != device:
+        shard_copy.cross_device += 1
+    return x.to(device, non_blocking=False)
+
+
+shard_copy.copies = 0
+shard_copy.cross_device = 0
