@@ -255,6 +255,25 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              and sum equal to the drain's own tallies, one Preempted
              Event per eviction.  Reports cycles, seconds, stages and
              extender round trips per pod;
+  journal    the cycle journal and its replayer (utils/journal.py,
+             kubetpu_torch.kubereplay) and devstats (utils/devstats.py):
+             the fill (Preemption5000Nodes' init, config/performance-
+             config.yaml:163-171: 5,000 nodes, 20,000 fillers, gang under
+             "pallas", batch 1,000, the chain on, pipelined at depth 2)
+             with the journal, devstats at sample interval 1 and, once the
+             first 3 records are on disk, the chaos point
+             journal:truncate:n=1 armed: placements equal to the fill
+             phase's disarmed drain; the whole journal replayed on the
+             card, every record bit-matched but the truncated one and the
+             broken lineage behind it up to the next resync anchor, every
+             K1 launch of the replay recorded and held bitwise to the
+             plain version; the first 3 records replayed on the CPU in
+             the reference child beside the later phases (collected after
+             the last phase).  Reports each program's device time from
+             CUDA event pairs, fence_wait_s, run_auction's roofline
+             fraction against 67e12 f32 FLOP/s (below 1.05), and the
+             ledger's resident bytes against memory_allocated's rise at
+             each upload;
   chaos      fault injection (utils/chaos.py), armed through
              KUBETPU_CHAOS as an operator arms it: the backlog's world
              (1,000 nodes x 4,096 pods, gang under "pallas", batch 512,
@@ -341,8 +360,9 @@ The main path is the pallas drain of each of slice, backlog, fill,
 preempt, gang_anti, gang_spread and autoscaler, each sequential drain,
 binpack's card drains, points' card drains, the card drains of volumes,
 resident's card drains, serving's fill and vol_backlog drains,
-extenders' 5,000-node card drain, chaos' backlog drain and
-measure's sustained run and parity drains: the
+extenders' 5,000-node card drain, journal's armed fill drain and its
+replay on the card (counted apart as journal_replay), chaos' backlog
+drain and measure's sustained run and parity drains: the
 kernel launch count is zeroed just before each and read just after it,
 and reported per path.  The slice never launches the kernel (above), nor do the
 term-bearing gang drains (routed to the lax round, as the JAX package
@@ -352,8 +372,8 @@ route to lax), nor does the extender path (it scores with one
 filter-and-score program and selects on the host, as the JAX package
 does); in the backlog, fill, autoscaler, term-free points and
 vol_backlog drains, resident's 5,000-node gang drain, chaos' backlog
-drain and measure's parity drains and sustained run every launch's
-inputs and outputs are
+drain, measure's parity drains and sustained run and the journal's
+replay every launch's inputs and outputs are
 recorded (the fill's, autoscaler's, vol_backlog's
 and the preempt drain's first 16)
 and, after the drain, the outputs are held bitwise against the plain
@@ -385,6 +405,7 @@ import concurrent.futures
 import contextlib
 import json
 import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
@@ -397,11 +418,12 @@ ALL_PHASES = ("kernel", "reference", "points", "volumes", "slice",
               "backlog", "fill", "preempt", "seq_slice", "seq_anti",
               "seq_spread", "gang_anti", "gang_spread", "autoscaler",
               "binpack", "resident", "mesh", "serving", "extenders",
-              "chaos", "measure", "profile")
+              "journal", "chaos", "measure", "profile")
 MAIN_PATHS = ("slice", "backlog", "fill", "preempt", "seq_slice",
               "seq_anti", "seq_spread", "gang_anti", "gang_spread",
               "autoscaler", "binpack", "points", "volumes", "resident",
-              "mesh", "serving", "extenders", "chaos", "measure")
+              "mesh", "serving", "extenders", "chaos", "measure",
+              "journal")
 FILL_NODES = 5000             # Preemption5000Nodes: 5,000 nodes,
 FILL_PODS = 4 * FILL_NODES    # 20,000 init pods (four 900m pods fill a node)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -1591,6 +1613,9 @@ def phase_backlog() -> dict:
 
 
 FILL_LAX: dict = {}
+# the fill's disarmed pallas drain, which the journal phase's armed drain
+# must equal
+FILL_PALLAS: dict = {}
 
 
 def phase_fill() -> dict:
@@ -1602,9 +1627,11 @@ def phase_fill() -> dict:
     with DeviceTimed(PR, "nominated_fit_mask") as overlay:
         out, stores = _pallas_vs_lax("fill", fill_world, 1000,
                                      record_limit=16)
-    # the mesh phase holds its (2, 2) fill against this lax drain
+    # the mesh phase holds its (2, 2) fill against this lax drain, the
+    # journal phase its armed drain against the pallas one
     FILL_LAX.update(placements=placements_of(stores["lax"]),
                     rounds=list(out["lax"]["rounds"]))
+    FILL_PALLAS.update(placements=placements_of(stores["pallas"]))
     if overlay.events:
         raise AssertionError("fill: %d nominated-pods overlay passes with "
                              "nothing nominated" % len(overlay.events))
@@ -4653,6 +4680,231 @@ def phase_measure() -> dict:
                               real_launch=recorded[0]["real_launch"]))
 
 
+# records of the journal's first anchor window, replayed on the CPU too;
+# the journal chaos point is armed once they are on disk, so the record
+# after them is the truncated one
+JOURNAL_WINDOW = 3
+# the directory of the copied window while the reference child replays it
+JOURNAL_CPU: dict = {}
+
+
+def _journal_cpu_replay(journal_dir) -> dict:
+    """(the reference child) the journal's first anchor window, copied to
+    ``journal_dir``, replayed on the CPU: the report's counts and the
+    seconds."""
+    from kubetpu_torch.kubereplay import replay_journal
+    t0 = time.perf_counter()
+    rep = replay_journal(journal_dir, device="cpu")
+    return dict(seconds=time.perf_counter() - t0,
+                **{k: rep[k] for k in ("considered", "replayed", "matched",
+                                       "skipped", "bit_match")})
+
+
+def _start_journal_cpu(jdir) -> None:
+    """Copy the first JOURNAL_WINDOW records of the journal and hand their
+    CPU replay to the reference child, where it runs beside the later
+    phases (journal_cpu_check collects it)."""
+    import shutil
+    import tempfile
+    from kubetpu_torch.utils.journal import record_filename
+    wdir = tempfile.mkdtemp(prefix="kubetpu-journal-window-")
+    for seq in range(1, JOURNAL_WINDOW + 1):
+        shutil.copy(os.path.join(jdir, record_filename(seq)), wdir)
+    JOURNAL_CPU["dir"] = wdir
+    if "cpu" in POOLS:
+        CHILD_JOBS["journal cpu"] = POOLS["cpu"].submit(
+            _journal_cpu_replay, wdir)
+
+
+def journal_cpu_check() -> dict:
+    """The journal's first anchor window, replayed on the CPU: every
+    record bit-matches the card's."""
+    import shutil
+    wdir = JOURNAL_CPU.pop("dir")
+    try:
+        cpu, waited = child_result("journal cpu", _journal_cpu_replay, wdir)
+    finally:
+        shutil.rmtree(wdir, ignore_errors=True)
+    if not (cpu["bit_match"] and cpu["replayed"] == cpu["matched"]
+            == JOURNAL_WINDOW):
+        raise AssertionError("journal: the CPU replay of the first anchor "
+                             "window: %s" % cpu)
+    return dict(cpu, waited_s=waited)
+
+
+class UploadProbe:
+    """Each full upload of a DeltaTensorizer (state/delta.py _upload):
+    torch.cuda.memory_allocated's rise across it (synchronized) and the
+    residency ledger's bytes for the resident just after it."""
+
+    def __init__(self, ds):
+        self.ds, self.uploads = ds, []
+
+    def __enter__(self):
+        import torch
+        from kubetpu_torch.state import delta as D
+        self._orig = D.DeltaTensorizer._upload
+        orig, probe = self._orig, self
+
+        def upload(tz):
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            freed = tz.cluster is not None
+            orig(tz)
+            torch.cuda.synchronize()
+            ent = probe.ds.ledger()["entries"].get(
+                "delta-resident/" + (tz.profile or "default"), {})
+            probe.uploads.append(dict(
+                allocated_rise=torch.cuda.memory_allocated() - m0,
+                ledger_bytes=ent.get("bytes"), replaced=freed))
+        D.DeltaTensorizer._upload = upload
+        return self
+
+    def __exit__(self, *exc):
+        from kubetpu_torch.state import delta as D
+        D.DeltaTensorizer._upload = self._orig
+
+
+def phase_journal() -> dict:
+    """The cycle journal and devstats on the fill (Preemption5000Nodes'
+    init phase: 5,000 nodes, 20,000 fillers, gang under "pallas", batch
+    1,000, the chain on, pipelined at depth 2), armed: the journal,
+    devstats at sample interval 1, and the chaos point journal:truncate
+    once the first JOURNAL_WINDOW records are on disk.  The placements
+    equal the fill phase's disarmed drain.  Then the whole journal
+    replays on the card (python -m kubetpu_torch.kubereplay's
+    replay_journal), every K1 launch recorded and held bitwise to the
+    plain version: every record bit-matches but the truncated one and
+    the broken lineage after it up to the next resync anchor; and the
+    first anchor window replays on the CPU in the reference child, beside
+    the later phases (main() collects it; journal_cpu_check).  Reports
+    per-program device time (CUDA event pairs), fence_wait_s,
+    run_auction's roofline fraction against 67e12 f32 FLOP/s (below
+    1.05), and the ledger's resident bytes against memory_allocated's
+    rise at each upload."""
+    import shutil
+    import tempfile
+    import torch
+    from kubetpu_torch.kubereplay import replay_journal
+    from kubetpu_torch.ops import propose as PK
+    from kubetpu_torch.utils import chaos as uchaos
+    from kubetpu_torch.utils import devstats as ud
+    from kubetpu_torch.utils import journal as uj
+    from kubetpu_torch.utils.flops import peak_flops_per_s
+    out = {}
+    if "placements" not in FILL_PALLAS:
+        # run without the fill phase: its disarmed pallas drain here
+        store, pods = fill_world()
+        drain(store, pods, "pallas", 1000, "cuda")
+        FILL_PALLAS.update(placements=placements_of(store))
+    jdir = tempfile.mkdtemp(prefix="kubetpu-journal-")
+    try:
+        jr = uj.arm_journal(jdir)
+        ds = ud.arm_devstats(sample_interval=1)
+        append = jr.append
+
+        def arm_then_append(record):
+            if jr.records_total == JOURNAL_WINDOW and uchaos.active() is None:
+                uchaos.arm(uchaos.parse_spec("journal:truncate:n=1"))
+            return append(record)
+        jr.append = arm_then_append
+        store, pods = fill_world()
+        PK.propose.launches = 0      # this path starts: zero the count
+        with UploadProbe(ds) as probe:
+            sched, _outs, stats = serve_drain(store, pods, 1000, 2)
+        launches = PK.propose.launches
+        doc = ds.to_dict()
+        out.update(journal=jr.status(), chaos=uchaos.active().counts())
+    finally:
+        uchaos.disarm()
+        uj.disarm_journal()
+        ud.disarm_devstats()
+    try:
+        if placements_of(store) != FILL_PALLAS["placements"]:
+            raise AssertionError("journal: the armed drain's placements "
+                                 "differ from the fill's disarmed drain")
+        if launches <= 0:
+            raise AssertionError("journal: the armed drain never launched "
+                                 "the propose kernel")
+        if out["chaos"].get("journal") != 1 or \
+                out["journal"]["records"] != sched.cycle_count:
+            raise AssertionError("journal: %d records of %d cycles, chaos "
+                                 "%s" % (out["journal"]["records"],
+                                         sched.cycle_count, out["chaos"]))
+        progs = {name: dict(count=d["count"],
+                            device_time_s=d["device_time_s"],
+                            mean_s=d["mean_s"], sources=d["sources"],
+                            roofline=d.get("roofline"))
+                 for name, d in doc["programs"].items()}
+        ra = progs["run_auction"]
+        if not ra["device_time_s"] > 0 or ra["count"] < sched.cycle_count:
+            raise AssertionError("journal: run_auction timed %d times in "
+                                 "%d cycles, %r s" % (ra["count"],
+                                                   sched.cycle_count,
+                                                   ra["device_time_s"]))
+        frac = ra["roofline"]["roofline_fraction"]
+        if not 0 < frac < 1.05:
+            raise AssertionError("journal: run_auction roofline fraction "
+                                 "%r" % frac)
+        first = probe.uploads[0]
+        out.update(launches=launches, drain=stats, cycles=sched.cycle_count,
+                   placements_match_fill=True, programs=progs,
+                   fence_wait_s=doc["fence_wait_s"],
+                   fenced_cycles=doc["fenced_cycles"],
+                   peak_f32_flops=peak_flops_per_s(),
+                   ledger_bytes=doc["ledger"]["total_bytes"],
+                   uploads=probe.uploads,
+                   first_upload_ratio=(first["ledger_bytes"]
+                                       / first["allocated_rise"]))
+        # the whole journal replayed on the card, every K1 launch recorded
+        record = []
+        restore = _record_launches(record, None)
+        PK.propose.launches = 0
+        t0 = time.perf_counter()
+        try:
+            rep = replay_journal(jdir, device="cuda")
+        finally:
+            restore()
+        replay_s = time.perf_counter() - t0
+        replay_launches = PK.propose.launches
+        kinds = {seq: r["input"] for seq, r, _w in uj.read_records(jdir)
+                 if r is not None}
+        skipped = [s["seq"] for s in rep["skipped"]]
+        cut = JOURNAL_WINDOW + 1
+        anchor = min([seq for seq, k in kinds.items()
+                      if seq > cut and k == "resync"]
+                     or [rep["records"] + 1])
+        if (skipped != list(range(cut, anchor))
+                or "truncated" not in rep["skipped"][0]["reason"]
+                or any("broken-lineage" not in s["reason"]
+                       for s in rep["skipped"][1:])):
+            raise AssertionError("journal replay: skips %s (truncated "
+                                 "record %d, next anchor %d)"
+                                 % (rep["skipped"], cut, anchor))
+        if not (rep["bit_match"] and rep["matched"] == rep["replayed"]
+                == rep["records"] - len(skipped)):
+            raise AssertionError("journal replay: %d of %d replayed "
+                                 "records bit-matched, first divergence "
+                                 "%s" % (rep["matched"], rep["replayed"],
+                                         rep["first_divergence"]))
+        if replay_launches <= 0:
+            raise AssertionError("journal replay: the propose kernel never "
+                                 "launched")
+        out.update(replay=dict(records=rep["records"],
+                               replayed=rep["replayed"],
+                               matched=rep["matched"], skipped=skipped,
+                               next_anchor=anchor, seconds=replay_s,
+                               kinds=sorted(set(kinds.values()))),
+                   replay_launches=replay_launches,
+                   recorded=check_recorded(record, "journal replay"))
+        del record
+        torch.cuda.empty_cache()
+        _start_journal_cpu(jdir)
+        return out
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+
+
 def phase_profile() -> dict:
     return dict(
         slice=_profiled_drain(hollow_store(5000, 1),
@@ -4757,7 +5009,8 @@ def main() -> int:
     try:
         for ph in phases:
             if ph != "kernel":
-                if cpu_jobs and "cpu" not in POOLS:
+                if ((cpu_jobs or "journal" in phases)
+                        and "cpu" not in POOLS):
                     POOLS["cpu"] = concurrent.futures.ProcessPoolExecutor(
                         1, mp_context=spawn, initializer=_ref_child_init)
                     for job, fn, args in cpu_jobs:
@@ -4772,17 +5025,27 @@ def main() -> int:
             results[ph]["phase_s"] = time.perf_counter() - t
             log({"phase": ph, "card": card, **results[ph]})
             pump_children()
+        if "journal" in results:
+            t = time.perf_counter()
+            results["journal"]["cpu_window"] = journal_cpu_check()
+            log({"journal_cpu_window": results["journal"]["cpu_window"],
+                 "collect_s": time.perf_counter() - t})
     finally:
         for pool in POOLS.values():
             pool.shutdown(wait=True, cancel_futures=True)
         POOLS.clear()
         CHILD_JOBS.clear()
+        if "dir" in JOURNAL_CPU:     # a run that failed before collecting
+            import shutil
+            shutil.rmtree(JOURNAL_CPU.pop("dir"), ignore_errors=True)
     if {"kernel", *MAIN_PATHS} <= set(phases):
         # the pallas drain of each main path, counted on its own
         by_path = {ph: (results[ph]["pallas"]["launches"]
                         if ph in ("backlog", "fill", "autoscaler")
                         else results[ph]["launches"])
                    for ph in MAIN_PATHS}
+        # the journal's replay on the card (kubetpu_torch.kubereplay)
+        by_path["journal_replay"] = results["journal"]["replay_launches"]
         launches = sum(by_path.values())
         if launches <= 0:
             raise AssertionError("main path: the propose kernel never "
@@ -4800,6 +5063,7 @@ def main() -> int:
         recorded.append(results["serving"]["recorded"])
         recorded.append(results["chaos"]["recorded"])
         recorded.append(results["measure"]["recorded"])
+        recorded.append(results["journal"]["recorded"])
         log({"kernels": [{
             "name": "propose", "route": "cuda",
             "source": "kubetpu_torch/ops/csrc/propose.cu",
@@ -4824,7 +5088,9 @@ def main() -> int:
             "chaos_real_launch":
                 results["chaos"]["recorded"]["real_launch"],
             "measure_real_launch":
-                results["measure"]["recorded"]["real_launch"]}]})
+                results["measure"]["recorded"]["real_launch"],
+            "journal_replay_real_launch":
+                results["journal"]["recorded"]["real_launch"]}]})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ apis/load.py.  The JAX package's serving-runtime knobs are here with its
 defaults (leader election, the metrics and health addresses, the dispatch
 deadline, bind retries, prewarm, the pipelined drain, the device mesh),
 and the XLA bucket ladder ``prewarm_ladder`` has no torch counterpart
-(ROADMAP item 11).
+(ROADMAP queue 1 item 11, with the AOT, compilation-cache and
+sanitizer decisions).
 """
 
 from __future__ import annotations

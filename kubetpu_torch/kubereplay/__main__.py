@@ -1,0 +1,136 @@
+"""CLI of the journal replayer.
+
+  python -m kubetpu_torch.kubereplay <journal-dir>              bit-match oracle
+  python -m kubetpu_torch.kubereplay <dir> --device cpu         on the CPU
+  python -m kubetpu_torch.kubereplay <dir> --window 10:60       seq window
+  python -m kubetpu_torch.kubereplay <dir> --counterfactual scoreWeight:NodeResourcesBalancedAllocation=5
+  python -m kubetpu_torch.kubereplay <dir> --counterfactual kernelBackend=pallas
+  python -m kubetpu_torch.kubereplay <dir> --counterfactual pipelineDepth=4
+  ... --json                                                    machine-readable
+
+The device defaults to CUDA; without a card the replay raises unless
+``--device cpu`` is given.  Exit codes: 0 = replay ok (the bit-match
+held, or a counterfactual was measured), 2 = a bit-match divergence (a
+correctness failure), 1 = nothing replayable.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from . import replay_journal
+
+
+def parse_counterfactual(clauses):
+    """scoreWeight:<Plugin>=<int> | kernelBackend=<lax|pallas> |
+    pipelineDepth=<int> -> the replay_journal counterfactual dict."""
+    if not clauses:
+        return None
+    out = {"score_weights": {}}
+    for raw in clauses:
+        key, sep, val = raw.partition("=")
+        if not sep:
+            raise SystemExit(f"--counterfactual {raw!r}: want key=value")
+        if key.startswith("scoreWeight:"):
+            out["score_weights"][key[len("scoreWeight:"):]] = int(val)
+        elif key == "kernelBackend":
+            if val not in ("lax", "pallas"):
+                raise SystemExit("--counterfactual kernelBackend must be "
+                                 "lax or pallas")
+            out["kernel_backend"] = val
+        elif key == "pipelineDepth":
+            out["pipeline_depth"] = int(val)
+        else:
+            raise SystemExit(f"--counterfactual {raw!r}: unknown key "
+                             f"{key!r} (scoreWeight:<Plugin>, "
+                             "kernelBackend, pipelineDepth)")
+    if not out["score_weights"]:
+        out.pop("score_weights")
+    return out
+
+
+def parse_window(raw):
+    if raw is None:
+        return None
+    lo, sep, hi = raw.partition(":")
+    if not sep:
+        raise SystemExit("--window wants START:END (journal seqs)")
+    return int(lo), int(hi)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="kubereplay",
+        description="bit-exact offline replay of kubetpu_torch cycle "
+                    "journals")
+    ap.add_argument("journal", help="journal directory (KUBETPU_JOURNAL)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the replayed programs (default "
+                         "cuda; cpu runs the plain PyTorch path)")
+    ap.add_argument("--window", default=None,
+                    help="replay only journal seqs START:END (lineage "
+                         "warm-up from the nearest resync anchor)")
+    ap.add_argument("--counterfactual", action="append", default=[],
+                    metavar="K=V",
+                    help="re-run under a modified profile; repeatable "
+                         "(scoreWeight:<Plugin>=N, kernelBackend=lax|"
+                         "pallas, pipelineDepth=N)")
+    ap.add_argument("--keep-going", action="store_true",
+                    help="keep replaying past a bit-match divergence "
+                         "(bounded; default stops at the first)")
+    ap.add_argument("--json", action="store_true", dest="as_json")
+    args = ap.parse_args(argv)
+
+    try:
+        report = replay_journal(
+            args.journal, window=parse_window(args.window),
+            counterfactual=parse_counterfactual(args.counterfactual),
+            keep_going=args.keep_going, device=args.device)
+    except FileNotFoundError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+
+    if args.as_json:
+        print(json.dumps(report, indent=1, default=str))
+    else:
+        print(f"journal {report['dir']}: {report['records']} records, "
+              f"{report['considered']} considered, "
+              f"{report['replayed']} replayed, "
+              f"{report['matched']} bit-matched, "
+              f"{len(report['skipped'])} skipped")
+        for s in report["skipped"]:
+            print(f"  skip seq {s['seq']}: {s['reason']}")
+        cf = report.get("counterfactual")
+        if cf:
+            print(f"counterfactual {cf['overrides']}: "
+                  f"{cf['divergent_cycles']}/{cf['cycles']} cycles "
+                  f"diverged ({cf['diverged_pods']} pods moved)")
+            u = cf["utilization"]
+            print(f"  utilization recorded={u['recorded']}")
+            print(f"  utilization counterfactual={u['counterfactual']}")
+            print(f"  delta={u['delta']}")
+        elif report["first_divergence"] is not None:
+            d = report["first_divergence"]
+            print(f"FIRST DIVERGENCE at seq {d['seq']} (cycle "
+                  f"{d['cycle']}, flight_seq "
+                  f"{d['links'].get('flight_seq')}): "
+                  f"rounds {d['recorded_rounds']} -> "
+                  f"{d['replayed_rounds']}")
+            for p in d["pod_diff"][:16]:
+                print(f"  {p['pod']}: {p['recorded_node'] or '-'} -> "
+                      f"{p['replayed_node'] or '-'} (n_feasible "
+                      f"{p['recorded_n_feasible']} -> "
+                      f"{p['replayed_n_feasible']})")
+        elif report["bit_match"]:
+            print("bit-match oracle HELD")
+    if report.get("counterfactual") is not None:
+        return 0
+    if report["first_divergence"] is not None:
+        return 2
+    return 0 if report["replayed"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -468,6 +468,10 @@ class PipelinedExecutor:
         recorded relevance map, so the host-plugin walk never re-runs."""
         s = self.sched
         stale = prep.trace
+        # the discarded cycle may have applied a journal capture that will
+        # now never be journaled: the next journaled cycle re-anchors
+        # (Scheduler._journal_note_discard; a no-op disarmed)
+        s._journal_note_discard(prep)
         new_prep, early = s._prepare_group(prep.fwk, prep.live,
                                            relevance=prep.relevance)
         stale.finish(discarded=True)

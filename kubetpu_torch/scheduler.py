@@ -45,8 +45,8 @@ cycle then runs on a pool of binder threads (``wait_for_inflight_binds``).
 Placements do not depend on this setting.  A bind that fails with a
 transport error retries on the pod backoff ladder (``bind_retries``),
 each attempt first asking the store whether the bind landed.  Deferred:
-the JAX runtime's journal, devstats and AOT utilities (ROADMAP queue 1
-item 11).
+the JAX runtime's racecheck, AOT, compilation-cache and sanitizer
+utilities (ROADMAP queue 1 item 11).
 
 HTTP extenders (extender.py): with any configured, each cycle pops ONE
 pod, as the reference's scheduleOne, and never takes the pipelined
@@ -66,9 +66,16 @@ fire counts fold into ``faults_injected`` after each committed cycle.
 The recorders (each disarmed by default, one module attribute read per
 seam then): the flight recorder (utils/trace.py: one ``Trace`` per
 prepared cycle, its stages and per-pod bind spans), the per-pod SLO
-tracker (utils/slo.py: ``_slo_prefix`` and ``_slo_observe_terminal``)
-and the load-telemetry ring (utils/telemetry.py, ticked at the top of
-``schedule_pending``).
+tracker (utils/slo.py: ``_slo_prefix`` and ``_slo_observe_terminal``),
+the load-telemetry ring (utils/telemetry.py, ticked at the top of
+``schedule_pending``), the cycle journal (utils/journal.py: one record
+per committed cycle, ``_journal_append``, from the delta or chain
+capture of ``_cluster_for``, the RNG fold and start index of the
+dispatch, and the host batch and masks) and devstats (utils/devstats.py:
+the cycle tick in ``_prepare_group``, the timed dispatch, the settle
+after the readback, the residency ledger of the resident and the
+chain).  ``device_flops`` sums the analytic FLOPs of every gang cycle
+(utils/flops.py).
 
 A cycle has the reference's seams: ``_prepare_group`` (host work up to
 the dispatch), ``_dispatch_group`` (the device program, the packed copy
@@ -137,6 +144,8 @@ from .state.cache import SchedulerCache, Snapshot
 from .state.delta import DeltaTensorizer
 from .state.tensors import SnapshotBuilder, vocab_signature
 from .utils import chaos as uchaos
+from .utils import devstats as udevstats
+from .utils import journal as ujournal
 from .utils import pallas_backend as PB
 from .utils import prng
 from .utils import slo as uslo
@@ -145,6 +154,7 @@ from .utils import trace as utrace
 from .utils.decisions import DecisionLog, PodDecision
 from .utils.device import DeviceLike, resolve_device
 from .utils.events import EventBroadcaster
+from .utils.flops import gang_cycle_flops
 from .utils.intern import pow2_bucket
 from .utils.trace import Trace
 
@@ -204,6 +214,17 @@ class PreparedCycle:
     # behind the commit) and the round its auction ran ("pallas"/"lax")
     ring_slot: int = 0
     kernel_backend: str = "lax"
+    # the cycle journal's provenance (armed only): the cluster's input,
+    # ("resync"|"delta"|"noop", payload) from the DeltaTensorizer or
+    # ("chain", pads), and the RNG fold counter and sequential start
+    # index the dispatch consumed
+    journal_input: Optional[tuple] = None
+    journal_rng: int = 0
+    journal_start: int = 0
+    # devstats: the timed dispatch of a deep cycle (utils/devstats.py
+    # ProgramSample; its seconds are read at the readback, and the commit
+    # pairs them with the cycle's analytic FLOPs)
+    devstats_sample: object = None
 
 
 # the CycleState key under which a committed pod's bind cycle finds the
@@ -240,12 +261,15 @@ class Scheduler:
                  registry=None, device: DeviceLike = None,
                  async_binding: bool = False, seed: int = 0, metrics=None,
                  recorder=None):
-        # KUBETPU_CHAOS / KUBETPU_SLO / KUBETPU_TELEMETRY arm those (the
-        # flight recorder's KUBETPU_FLIGHT is read once, at the package's
-        # import); disarmed (the default) every seam is one attribute
-        # read and the hot path takes zero new locks
+        # KUBETPU_CHAOS / KUBETPU_SLO / KUBETPU_JOURNAL / KUBETPU_DEVSTATS
+        # / KUBETPU_TELEMETRY arm those (the flight recorder's
+        # KUBETPU_FLIGHT is read once, at the package's import); disarmed
+        # (the default) every seam is one attribute read and the hot path
+        # takes zero new locks
         uchaos.maybe_arm_from_env()
         uslo.maybe_arm_from_env()
+        ujournal.maybe_arm_from_env()
+        udevstats.maybe_arm_from_env()
         utelemetry.maybe_arm_from_env()
         self.device = resolve_device(device)
         self.store = store
@@ -323,6 +347,9 @@ class Scheduler:
         # harness read both)
         self.last_gang_rounds = 0
         self.device_wait_s = 0.0
+        # the analytic device FLOPs of every gang cycle, summed
+        # (utils/flops.py)
+        self.device_flops = 0.0
         # flight-recorder drops already folded into the metric (serving
         # thread only)
         self._flight_dropped_seen = 0
@@ -373,6 +400,15 @@ class Scheduler:
         # chaos fire counts already folded into faults_injected (serving
         # thread only)
         self._chaos_seen: Dict[str, int] = {}
+        # journal counters already folded into the scheduler_journal_*
+        # metrics, (records_total, dropped_total) (serving thread only)
+        self._journal_seen = (0, 0)
+        # profiles whose discarded pipelined cycle applied a delta or
+        # resync capture that will never be journaled: the profile's
+        # next journaled cycle must re-anchor (serving thread only)
+        self._journal_force_anchor: set = set()
+        # the chain's ledger registration memo, (profile, pads, nodes)
+        self._chain_ledger_key = None
         self._deadline_grace = 0
         self._last_commit_failed = False
         # the depth-k pipelined executor (pipeline.py)
@@ -475,6 +511,16 @@ class Scheduler:
     def _drop_chain(self) -> None:
         with self._chain_lock:
             self._chain = None
+        self._drop_chain_residency()
+
+    def _drop_chain_residency(self) -> None:
+        """reference: kubetpu/scheduler.py:463-472 — the residency
+        ledger's seam: a discarded chain's cluster is no longer resident.
+        Disarmed: one attribute read.  Called outside _chain_lock."""
+        ds = udevstats.devstats()
+        if ds is not None:
+            ds.drop_group("chain")
+            self._chain_ledger_key = None
 
     def _chain_enabled(self) -> bool:
         return self.config.mode == "gang" and self.config.chain_cycles
@@ -737,6 +783,13 @@ class Scheduler:
         pipelined cycle, whose cluster the delta scatter must not update
         in place (None: the executor's ring)."""
         t = time.perf_counter()
+        # devstats' cycle tick (kubetpu/scheduler.py:647-663): every Nth
+        # prepared cycle is a deep-timing cycle, whose programs are timed
+        # by CUDA event pairs (no pre-drain is needed: an event pair
+        # times only what runs between its marks).  Disarmed: one read
+        ds = udevstats.devstats()
+        if ds is not None:
+            ds.begin_cycle()
         # queue depths ride the cycle record; the read takes the queue's
         # lock, so it is gated on the recorder being armed
         depths = (self.queue.depths()
@@ -804,8 +857,9 @@ class Scheduler:
         # the cycle's cluster: the chained one, or the refreshed resident
         if uncommitted is None:
             uncommitted = self._pipeline.inflight_preps()
-        builder, cluster, pod_uids, used_chain, t = self._cluster_for(
-            fwk, node_infos, pinfos + nom_pinfos, chain_seq0, uncommitted, t)
+        builder, cluster, pod_uids, used_chain, journal_input, t = \
+            self._cluster_for(fwk, node_infos, pinfos + nom_pinfos,
+                              chain_seq0, uncommitted, t)
         dstats = self._last_refresh
         if trace.rec is not None and dstats is not None:
             # the refresh's spans, dirty rows and resync on the record
@@ -889,7 +943,8 @@ class Scheduler:
             cfg=cfg, cycle_ctx=cycle_ctx,
             needs_topo=self._needs_topo(live, spread_sels),
             used_chain=used_chain, pod_uids=pod_uids,
-            host_reject=host_reject, relevance=relevance, trace=trace)
+            host_reject=host_reject, relevance=relevance, trace=trace,
+            journal_input=journal_input)
         return prep, outcomes
 
     def _dispatch_group(self, prep: "PreparedCycle",
@@ -911,23 +966,32 @@ class Scheduler:
         uchaos.raise_or_stall("dispatch")
         fresh_pods = self.cache.pod_count() + extra_uncommitted
         t = time.perf_counter()
+        # devstats' timing seam (kubetpu/scheduler.py:1102-1131): on a
+        # deep cycle the program runs between a CUDA event pair (the CPU:
+        # its wall time), read after the cycle's readback.  Disarmed: one
+        # attribute read
+        operands = (prep.cluster, prep.batch)
+        start = 0
         if self.config.mode == "gang":
             backend = self._gang_backend(prep.cfg, prep.needs_topo,
                                          prep.hbatch)
             self.gang_backends.append(backend)
             prep.kernel_backend = backend[0]
-            if self._mesh is not None:
-                res = pmesh.sharded_schedule_gang(
-                    prep.cluster, prep.batch, prep.cfg,
-                    self._next_rng(), self._mesh, host_ok=prep.host_ok,
-                    intra_batch_topology=prep.needs_topo,
-                    score_bias=prep.score_bias)
-            else:
-                res = run_auction(prep.cluster, prep.batch, prep.cfg,
-                                  self._next_rng(), host_ok=prep.host_ok,
-                                  score_bias=prep.score_bias,
-                                  intra_batch_topology=prep.needs_topo,
-                                  kernel_backend=backend[0])
+            with udevstats.timed("run_auction", self.device,
+                                 operands) as sample:
+                if self._mesh is not None:
+                    res = pmesh.sharded_schedule_gang(
+                        prep.cluster, prep.batch, prep.cfg,
+                        self._next_rng(), self._mesh, host_ok=prep.host_ok,
+                        intra_batch_topology=prep.needs_topo,
+                        score_bias=prep.score_bias)
+                else:
+                    res = run_auction(prep.cluster, prep.batch, prep.cfg,
+                                      self._next_rng(), host_ok=prep.host_ok,
+                                      score_bias=prep.score_bias,
+                                      intra_batch_topology=prep.needs_topo,
+                                      kernel_backend=backend[0])
+            prep.devstats_sample = sample
             prep.syncs = res.syncs
             # the auction's verdict rows, shared lazily: preemption reads
             # them only if nothing committed since
@@ -943,15 +1007,25 @@ class Scheduler:
                 prep.fwk.hard_pod_affinity_weight),
                 host_ok=prep.host_ok, start_index=start,
                 score_bias=prep.score_bias)
-            if self._mesh is not None:
-                res = pmesh.sharded_schedule_sequential(
-                    prep.cluster, prep.batch, prep.cfg,
-                    self._next_rng(), self._mesh, **kw)
-            else:
-                res = schedule_sequential(prep.cluster, prep.batch, prep.cfg,
-                                          self._next_rng(), **kw)
+            with udevstats.timed("schedule_sequential", self.device,
+                                 operands) as sample:
+                if self._mesh is not None:
+                    res = pmesh.sharded_schedule_sequential(
+                        prep.cluster, prep.batch, prep.cfg,
+                        self._next_rng(), self._mesh, **kw)
+                else:
+                    res = schedule_sequential(prep.cluster, prep.batch,
+                                              prep.cfg, self._next_rng(),
+                                              **kw)
+            prep.devstats_sample = sample
             packed = _copy_to_host(res.packed)
             self._stage("auction", t)
+        if ujournal.journal() is not None:
+            # the journal's provenance: the RNG fold counter this dispatch
+            # consumed and the sequential start index, what the replayer
+            # feeds back into the same program
+            prep.journal_rng = self._rng_counter
+            prep.journal_start = start
         return packed
 
     def _readback_group(self, prep: "PreparedCycle", res) -> np.ndarray:
@@ -971,6 +1045,17 @@ class Scheduler:
             if sp is not None:
                 sp.args["device_wait_s"] = round(wait, 6)
         self.device_wait_s += wait
+        sample = prep.devstats_sample
+        if sample is not None:
+            # devstats: the readback has waited for this cycle's programs,
+            # so their event pairs read without a further wait
+            ds = udevstats.devstats()
+            with prep.trace.stage("device-fence",
+                                  program=sample.program) as sp:
+                if ds is not None:
+                    ds.settle()
+                if sp is not None and sample.seconds is not None:
+                    sp.args["device_time_s"] = round(sample.seconds, 6)
         return host.numpy()
 
     def _readback_guarded(self, prep: "PreparedCycle", res):
@@ -1043,12 +1128,124 @@ class Scheduler:
                 self.metrics.faults_injected.inc(point, amount=n - seen)
                 self._chaos_seen[point] = n
 
+    def _journal_note_discard(self, prep: "PreparedCycle") -> None:
+        """reference: kubetpu/scheduler.py:1649-1662 — a prepared cycle is
+        discarded without committing (the pipelined executor's
+        re-prepare).  If its journal capture carried resident state (a
+        delta scatter or a resync), that state is applied on the device
+        but will never be journaled: the profile's next journaled cycle
+        re-anchors.  Chain and noop captures carry no resident state."""
+        if prep.journal_input is not None \
+                and prep.journal_input[0] in ("delta", "resync"):
+            self._journal_force_anchor.add(prep.fwk.profile_name)
+
+    def _journal_append(self, jr, jr_seq: int, prep: "PreparedCycle",
+                        packed: np.ndarray, outcomes, audit_rows) -> None:
+        """reference: kubetpu/scheduler.py:1664-1751 — assemble and append
+        one cycle record (armed only; the caller turns any failure into a
+        counted drop).  The record is self-contained and HOST data only:
+        the host batch, the masks read back to numpy, the delta's numpy
+        tables, so a card's journal replays on a CPU-only machine."""
+        mode = self.config.mode
+        fwk, live = prep.fwk, prep.live
+        kind, payload = prep.journal_input or ("unknown", None)
+        kernel_backend = prep.kernel_backend if mode == "gang" else "lax"
+        hard_w = float(fwk.hard_pod_affinity_weight)
+        placements: Dict[str, str] = {}
+        blocking: Dict[str, int] = {}
+        scheduled = failed = 0
+        for i, qp in enumerate(live):
+            o = outcomes[i] if i < len(outcomes) else None
+            node = o.node if o is not None else ""
+            placements[qp.pod.metadata.name] = node
+            if node:
+                scheduled += 1
+            else:
+                failed += 1
+                info = (audit_rows or {}).get(qp.pod.uid, {})
+                for plugin in info.get("blocking", []):
+                    blocking[plugin] = blocking.get(plugin, 0) + 1
+        host_reasons: Dict[str, int] = {}
+        for counts in prep.host_reject.values():
+            for reason, n in counts.items():
+                host_reasons[reason] = host_reasons.get(reason, 0) + n
+        flight = prep.trace.rec
+        record = {
+            "v": ujournal.RECORD_VERSION,
+            "seq": jr_seq,
+            "cycle": self.cycle_count,
+            "ts": time.time(),
+            "mode": mode,
+            "profile": fwk.profile_name,
+            # ---- inputs ----
+            "input": kind,
+            "input_payload": payload,
+            "batch": prep.hbatch,
+            "cfg": prep.cfg,
+            "host_ok": (prep.host_ok.cpu().numpy()
+                        if prep.host_ok is not None else None),
+            "score_bias": (prep.score_bias.cpu().numpy()
+                           if prep.score_bias is not None else None),
+            "needs_topo": bool(prep.needs_topo),
+            "rng_counter": int(prep.journal_rng),
+            "start_index": int(prep.journal_start),
+            "kernel_backend": kernel_backend,
+            "hard_pod_affinity_weight": hard_w,
+            "mesh": self._mesh is not None,
+            "vocab_sig": vocab_signature(prep.builder.table),
+            "n_nodes": len(prep.node_infos),
+            # node row order on anchor records only: delta and chain
+            # records keep it (a node-set change forces a resync)
+            "node_names": ([ni.node_name for ni in prep.node_infos]
+                           if kind == "resync" else None),
+            "config_digest": ujournal.config_digest(
+                mode, fwk.profile_name, prep.cfg, hard_w,
+                self.config.kernel_backend),
+            # ---- outputs ----
+            "packed": np.asarray(packed),
+            "rounds": self.last_gang_rounds if mode == "gang" else 0,
+            "pods": [(qp.pod.metadata.name, qp.pod.namespace, qp.pod.uid)
+                     for qp in live],
+            "placements": placements,
+            "verdicts": {"scheduled": scheduled, "failed": failed,
+                         "blocking": blocking,
+                         "host_reasons": host_reasons},
+            # ---- linkage ----
+            "links": {
+                "flight_seq": int(flight.seq) if flight is not None else 0,
+                "decision_cycle": self.cycle_count,
+                "ring_slot": int(prep.ring_slot),
+                "pipeline_depth": int(self._pipeline.depth
+                                      if self.config.pipeline_cycles
+                                      else 1),
+            },
+        }
+        jr.append(record)
+
+    def _sync_journal_metrics(self) -> None:
+        """reference: kubetpu/scheduler.py:1753-1767 — fold the armed
+        journal's counters into scheduler_journal_* (serving thread
+        only); disarmed this is one attribute read."""
+        jr = ujournal.journal()
+        if jr is None or self.metrics is None:
+            return
+        records, dropped = jr.counters()
+        seen_r, seen_d = self._journal_seen
+        if records > seen_r:
+            self.metrics.journal_records.inc(amount=records - seen_r)
+        if dropped > seen_d:
+            self.metrics.journal_dropped.inc(amount=dropped - seen_d)
+        self._journal_seen = (max(records, seen_r), max(dropped, seen_d))
+        self.metrics.journal_bytes.set(jr.disk_bytes())
+
     def _sync_flight_dropped(self) -> None:
         """reference: kubetpu/scheduler.py:1782 — fold the chaos fire
-        counts and new flight-recorder ring drops into their monotonic
-        metric counters (serving thread only, so the seen-counts need no
-        lock); disarmed this is two attribute reads."""
+        counts, the journal's counters and new flight-recorder ring drops
+        into their monotonic metric counters (serving thread only, so the
+        seen-counts need no lock); disarmed this is three attribute
+        reads."""
         self._sync_chaos_metrics()
+        self._sync_journal_metrics()
         fr = utrace.flight_recorder()
         if fr is None or self.metrics is None:
             return
@@ -1077,6 +1274,19 @@ class Scheduler:
             self.last_gang_rounds = int(packed[3 * B])
             self.gang_rounds.append(self.last_gang_rounds)
             self.gang_syncs.append(prep.syncs)
+            # the cycle's analytic FLOPs (kubetpu/scheduler.py:1416-1431),
+            # paired on a deep cycle with its own timed seconds
+            cyc_flops = gang_cycle_flops(
+                prep.cluster, prep.batch, prep.cfg, self.last_gang_rounds,
+                intra_batch_topology=prep.needs_topo,
+                kernel_backend=prep.kernel_backend)
+            self.device_flops += cyc_flops
+            sample = prep.devstats_sample
+            if sample is not None and sample.seconds is not None:
+                ds = udevstats.devstats()
+                if ds is not None:
+                    ds.attribute_flops("run_auction", cyc_flops,
+                                       sample.seconds, sample.in_bytes)
         else:
             self._next_start_node_index = int(packed[3 * B])
         chosen = packed[:B][:len(live)].tolist()
@@ -1087,6 +1297,11 @@ class Scheduler:
         # per-pod latency SLO (utils/slo.py): one tracker read per cycle;
         # disarmed, no stage vector is built and no clock is read
         slo_trk = uslo.tracker()
+        # the cycle journal (utils/journal.py): this cycle's record id,
+        # reserved up front so its pods' SLO exemplars carry it (the record
+        # appends after the commit loop).  Disarmed: one attribute read
+        jr = ujournal.journal()
+        jr_seq = jr.next_seq() if jr is not None else 0
         slo_host_dispatch = 0.0
         if slo_trk is not None and prep.dispatch_t0:
             # the host share of the dispatch->readback window, less the
@@ -1104,7 +1319,8 @@ class Scheduler:
                 failed.append(i)
                 continue
             state = states[qp.pod.uid]
-            slo = (self._slo_prefix(qp, prep, slo_host_dispatch, flight)
+            slo = (self._slo_prefix(qp, prep, slo_host_dispatch, flight,
+                                    jr_seq)
                    if slo_trk is not None and qp.pop_timestamp else None)
             if flight is not None or slo is not None:
                 # the bind cycle's recorder handles ride the pod's state
@@ -1169,13 +1385,25 @@ class Scheduler:
                 qp.slo_unres_observed = True
                 self._slo_observe_terminal(
                     slo_trk,
-                    self._slo_prefix(qp, prep, slo_host_dispatch, flight),
+                    self._slo_prefix(qp, prep, slo_host_dispatch, flight,
+                                     jr_seq),
                     qp, "unresolvable")
         # a failed commit invalidates the chain (its cluster carries the
         # pod's usage) and every pipelined cycle dispatched against it
         self._last_commit_failed = commit_failed
         if commit_failed and self.config.mode == "gang":
             self._drop_chain()
+        if jr is not None:
+            # one self-contained replayable record per committed cycle;
+            # any failure is a counted drop, never a failed cycle
+            try:
+                self._journal_append(jr, jr_seq, prep, packed, outcomes,
+                                     audit_rows)
+            except Exception:
+                jr.note_drop()
+                logging.getLogger("kubetpu_torch").warning(
+                    "cycle journal record %d dropped", jr_seq,
+                    exc_info=True)
         self.preempt_stats.append(dict(cycle_ctx.stats))
         self._stage("preempt", t)
         trace.step("Committing placements done")
@@ -1184,14 +1412,15 @@ class Scheduler:
 
     @staticmethod
     def _slo_prefix(qp: QueuedPodInfo, prep: "PreparedCycle",
-                    host_dispatch: float, flight) -> Dict[str, float]:
+                    host_dispatch: float, flight,
+                    journal_seq: int = 0) -> Dict[str, float]:
         """reference: kubetpu/scheduler.py:1602 — the cycle-side half of a
         pod's per-stage latency vector (utils/slo.py):
         queue_wait/backoff/cycle_wait/dispatch/device, plus the
         underscore keys the terminal observer pops (the readback anchor
-        of the commit stage and the flight-recorder cycle seq the
-        exemplar links to).  Called only with the tracker armed and a
-        stamped pop time."""
+        of the commit stage, the flight-recorder cycle seq and the
+        journal record id the exemplar links to).  Called only with the
+        tracker armed and a stamped pop time."""
         return {
             "queue_wait": max(qp.pop_timestamp - qp.timestamp, 0.0),
             "backoff": max(qp.timestamp - qp.initial_attempt_timestamp,
@@ -1202,6 +1431,7 @@ class Scheduler:
             "device": prep.device_wait,
             "_readback_done_t": prep.readback_done_t,
             "_flight_seq": float(flight.seq) if flight is not None else 0.0,
+            "_journal_seq": float(journal_seq),
         }
 
     def _slo_observe_terminal(self, trk, prefix: Dict[str, float],
@@ -1214,6 +1444,7 @@ class Scheduler:
         now = wallclock()
         stages = dict(prefix)
         seq = stages.pop("_flight_seq", 0)
+        jseq = stages.pop("_journal_seq", 0)
         rb = stages.pop("_readback_done_t", 0.0)
         end = bind_start if bind_start is not None else now
         stages["commit"] = max(end - rb, 0.0)
@@ -1224,7 +1455,8 @@ class Scheduler:
         trk.observe_pod(stages, pod=pod.metadata.name,
                         namespace=pod.namespace, uid=pod.uid,
                         outcome=outcome, attempts=qp.attempts,
-                        cycle=self.cycle_count, flight_seq=int(seq))
+                        cycle=self.cycle_count, flight_seq=int(seq),
+                        journal_seq=int(jseq))
 
     def _cluster_for(self, fwk: Framework, node_infos, pending, chain_seq0,
                      uncommitted, t: float):
@@ -1251,13 +1483,17 @@ class Scheduler:
         if use_chain:
             self.cluster_sources.append("chain")
             self._last_refresh = None
+            # the journal's provenance: the previous cycle's auction,
+            # materialized at the chain's pad buckets
+            journal_input = (("chain", chain["pads"])
+                             if ujournal.journal() is not None else None)
             return (chain["builder"], chain["cluster"], chain["pod_uids"],
-                    True, t)
+                    True, journal_input, t)
         delta = self._delta.get(fwk.profile_name)
         if delta is None:
             delta = DeltaTensorizer(
                 hard_pod_affinity_weight=fwk.hard_pod_affinity_weight,
-                device=self.device)
+                device=self.device, profile=fwk.profile_name)
             self._delta[fwk.profile_name] = delta
         cluster, dstats = delta.refresh(
             node_infos, pending=pending,
@@ -1284,9 +1520,24 @@ class Scheduler:
             self.cluster_sources.append("delta")
         else:
             self.cluster_sources.append("clean")
+        # the journal's capture seam (kubetpu/scheduler.py:807-824): the
+        # resync snapshot, delta tables or zero-dirty marker this refresh
+        # applied; None when the journal is disarmed
+        journal_input = delta.take_capture()
+        if journal_input is not None:
+            if (fwk.profile_name in self._journal_force_anchor
+                    and journal_input[0] != "resync"):
+                # a discarded cycle of this profile applied a capture that
+                # never journaled, so the resident is ahead of the journal:
+                # re-anchor from the mirror (equal to the resident after
+                # any successful refresh, the verifier's invariant)
+                delta._capture_resync()
+                journal_input = delta.take_capture()
+            self._journal_force_anchor.discard(fwk.profile_name)
         self._drop_chain()
         # after refresh: a compacting resync swaps the builder
-        return delta.builder, cluster, delta.pod_uid_list(), False, now
+        return (delta.builder, cluster, delta.pod_uid_list(), False,
+                journal_input, now)
 
     def _chain_next(self, prep: "PreparedCycle", res,
                     fresh_pods: int) -> None:
@@ -1317,12 +1568,28 @@ class Scheduler:
         uids.extend(pi.pod.uid for pi in prep.pinfos)
         uids.extend([None] * (B_cap - len(prep.pinfos)))    # batch padding
         uids.extend([None] * (pow2_bucket(p_next) - len(uids)))
+        pads = (pow2_bucket(p_next), pow2_bucket(e_next))
+        n_nodes = len(prep.node_infos)
         with self._chain_lock:
+            # pads: the journal's provenance, what a chained successor
+            # feeds back into materialize_assigned to rebuild this cluster
             self._chain = dict(builder=prep.builder, cluster=next_cluster,
                                pod_uids=uids, seq=prep.chain_seq0,
                                caps=vocab_signature(prep.builder.table),
                                profile=prep.fwk.profile_name,
-                               n_nodes=len(prep.node_infos))
+                               n_nodes=n_nodes, pads=pads)
+        # the residency ledger's seam (kubetpu/scheduler.py:1197-1215):
+        # the chain is a second resident cluster until the next cycle
+        # takes it; registered again only when its shapes move (the
+        # has_group check backstops a binder thread's discard)
+        ds = udevstats.devstats()
+        if ds is not None:
+            lkey = (prep.fwk.profile_name,) + pads + (n_nodes,)
+            if self._chain_ledger_key != lkey or not ds.has_group("chain"):
+                udevstats.register_cluster(
+                    "chain", prep.fwk.profile_name, next_cluster, n_nodes,
+                    meta={"pads": list(pads)})
+                self._chain_ledger_key = lkey
 
     # ------------------------------------------------------------- recovery
 
@@ -1819,6 +2086,7 @@ class Scheduler:
         with self._chain_lock:
             self._chain = None
             self._chain_seq += 1
+        self._drop_chain_residency()
         try:
             self.cache.forget_pod(assumed)
         except ValueError:
@@ -1943,8 +2211,16 @@ class Scheduler:
             batch = take_rows(batch, idx)
             host_ok = None if host_ok is None else host_ok[idx]
             rows = range(len(rows))
-        packed = programs.explain_verdicts(
-            cycle_ctx.cluster, batch, cycle_ctx.cfg, host_ok).cpu().numpy()
+        # devstats: the audit's readback syncs anyway, so it is timed on
+        # every armed failure cycle (source "sync"); disarmed one read
+        with udevstats.timed("explain_verdicts", self.device,
+                             (cycle_ctx.cluster, batch), source="sync"):
+            out = programs.explain_verdicts(cycle_ctx.cluster, batch,
+                                            cycle_ctx.cfg, host_ok)
+        packed = out.cpu().numpy()
+        ds = udevstats.devstats()
+        if ds is not None:
+            ds.settle()
         filters = cycle_ctx.cfg.filters
         F = len(filters)
         counts = packed[:F].tolist()

@@ -12,13 +12,14 @@ decisions; ``?outcome=unschedulable`` filters; ``?n=`` bounds the list).
 serves the per-pod latency document (utils/slo.py; ``?stage=`` filters,
 ``?n=`` bounds the exemplars, bad parameters are 400); ``/debug/loadz``
 serves the load-telemetry ring (utils/telemetry.py; ``?n=`` keeps the
-newest n windows, bad parameters are 400).  While a recorder is disarmed
-its endpoint answers as the JAX server's does: ``/debug/flightz`` 200
-and ``/debug/slo``, ``/debug/loadz`` 404, with ``armed: false``.
-
-The JAX server's ``/debug/journal`` and ``/debug/devicez`` serve
-recorders the port has not ported (ROADMAP queue 1 item 11); they answer
-as the JAX server answers with those disarmed.
+newest n windows, bad parameters are 400); ``/debug/journal`` serves the
+cycle journal's status with its linkage rates into the flight recorder
+and the decision log (utils/journal.py) and ``/debug/devicez`` the
+device statistics (utils/devstats.py; ``?program=`` filters, an unknown
+program is 400).  While a recorder is disarmed its endpoint answers as
+the JAX server's does: ``/debug/flightz`` and ``/debug/journal`` 200,
+``/debug/slo``, ``/debug/loadz`` and ``/debug/devicez`` 404, with
+``armed: false``.
 """
 
 from __future__ import annotations
@@ -30,21 +31,11 @@ from dataclasses import asdict, is_dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from .utils import devstats as udevstats
+from .utils import journal as ujournal
 from .utils import slo as uslo
 from .utils import telemetry as utelemetry
 from .utils import trace as utrace
-
-NOT_PORTED = "not ported to kubetpu_torch (ROADMAP queue 1 item 11)"
-
-# path -> (status, document) of the recorders the port does not have
-_NOT_PORTED = {
-    "/debug/journal": (200, {"armed": False,
-                             "hint": "the cycle journal is " + NOT_PORTED}),
-    "/debug/devicez": (404, {"armed": False,
-                             "error": "device-side observability is "
-                                      "disarmed",
-                             "hint": "device statistics are " + NOT_PORTED}),
-}
 
 
 class SchedulerServer:
@@ -156,6 +147,50 @@ class SchedulerServer:
                     doc["exemplars"] = doc["exemplars"][:n]
                 self._send_json(200, doc)
 
+            def _devicez(self, query) -> None:
+                ds = udevstats.devstats()
+                if ds is None:
+                    self._send_json(404, {
+                        "armed": False,
+                        "error": "device-side observability is disarmed",
+                        "hint": "arm with KUBETPU_DEVSTATS=1 or "
+                                "kubetpu_torch.utils.devstats."
+                                "arm_devstats()"})
+                    return
+                doc = ds.to_dict()
+                program = (query.get("program") or [None])[0]
+                if program is not None:
+                    if program not in doc["programs"]:
+                        self._send_json(400, {
+                            "error": f"unknown program {program!r}",
+                            "programs": sorted(doc["programs"])})
+                        return
+                    doc["programs"] = {program: doc["programs"][program]}
+                self._send_json(200, doc)
+
+            def _journal(self, query) -> None:
+                jr = ujournal.journal()
+                if jr is None:
+                    self._send_json(200, {
+                        "armed": False,
+                        "hint": "arm with KUBETPU_JOURNAL=<dir> or "
+                                "kubetpu_torch.utils.journal."
+                                "arm_journal()"})
+                    return
+                fr = utrace.flight_recorder()
+                flight_seqs = ({r.seq for r in fr.cycles()}
+                               if fr is not None else None)
+                log = getattr(sched, "decisions", None)
+                decision_cycles = None
+                if log is not None and log.enabled:
+                    decision_cycles = {d.cycle
+                                       for d in log.recent(log.capacity)}
+                doc = jr.status(flight_seqs=flight_seqs,
+                                decision_cycles=decision_cycles)
+                doc["replay_hint"] = ("python -m kubetpu_torch.kubereplay "
+                                      + jr.dir)
+                self._send_json(200, doc)
+
             def _loadz(self, query) -> None:
                 tel = utelemetry.ring()
                 if tel is None:
@@ -200,10 +235,12 @@ class SchedulerServer:
                     self._explain(query)
                 elif path == "/debug/slo":
                     self._slo(query)
+                elif path == "/debug/journal":
+                    self._journal(query)
+                elif path == "/debug/devicez":
+                    self._devicez(query)
                 elif path == "/debug/loadz":
                     self._loadz(query)
-                elif path in _NOT_PORTED:
-                    self._send_json(*_NOT_PORTED[path])
                 else:
                     self._send(404, "not found")
 

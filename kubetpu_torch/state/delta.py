@@ -41,11 +41,21 @@ Aliasing: the in-place scatter leaves the previous refresh's
 ClusterTensors sharing storage with the new one.  Whatever keeps a
 cycle's tensors past the next refresh must clone them;
 ``safe_to_donate`` is the gate a caller with such cycles in flight asks.
+
+Observability seams (each one attribute read while its recorder is
+disarmed): with the cycle journal armed (utils/journal.py) each refresh
+keeps the exact input it applied, ``("resync", pickled mirror)``,
+``("delta", pickled (ClusterDelta, terms))`` or ``("noop", None)``, for
+the scheduler to pop into the cycle's record (``take_capture``); with
+devstats armed (utils/devstats.py) the resident's per-table bytes are
+registered in the residency ledger whenever its shapes can change, and
+the scatter is timed on deep cycles.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -53,6 +63,8 @@ import torch
 
 from ..api import types as api
 from ..utils import chaos
+from ..utils import devstats as udevstats
+from ..utils import journal as ujournal
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.intern import pow2_bucket
 from ..utils.trace import wallclock
@@ -140,8 +152,10 @@ class DeltaTensorizer:
                  resync_interval: Optional[int] = None,
                  max_delta_frac: Optional[float] = None,
                  verify_interval: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, profile: str = ""):
         self.device = resolve_device(device)
+        # the residency ledger's key (utils/devstats.py)
+        self.profile = profile
         self.builder = SnapshotBuilder(
             hard_pod_affinity_weight=hard_pod_affinity_weight)
         self.hard_pod_affinity_weight = hard_pod_affinity_weight
@@ -175,6 +189,23 @@ class DeltaTensorizer:
         # full upload or the delta's packed copy and scatter); the rest of
         # its time is host tensorize work
         self.upload_s = 0.0
+        # the cycle journal's capture (kubetpu/state/delta.py:193-214):
+        # the input the last refresh applied, None while the journal is
+        # disarmed (no allocation)
+        self.capture = None
+
+    def take_capture(self):
+        """Pop the last refresh's journal capture (None when the journal
+        is disarmed: one attribute read)."""
+        cap, self.capture = self.capture, None
+        return cap
+
+    def _capture_resync(self) -> None:
+        """Keep the freshly uploaded mirror as the journal's anchor (armed
+        only).  Pickled at once: later refreshes update the mirror's
+        arrays in place."""
+        if ujournal.journal() is not None:
+            self.capture = ("resync", pickle.dumps(self.host, protocol=4))
 
     # ------------------------------------------------------------- helpers
 
@@ -280,6 +311,10 @@ class DeltaTensorizer:
                  if ni.generation != self.node_gen.get(ni.node_name)]
         if not dirty:
             self.cycles_since_resync += 1
+            if ujournal.journal() is not None:
+                # zero-dirty: the journal records "previous cluster, as
+                # is" (a verify-divergence resync below overwrites it)
+                self.capture = ("noop", None)
             # the verifier ticks on zero-dirty cycles too
             vspan, vstats = self._verify_tick(node_infos, names, pending)
             if vstats is not None:
@@ -393,6 +428,7 @@ class DeltaTensorizer:
             self.resync_count += 1
             t_build = wallclock()
             self._upload()
+            self._capture_resync()
             return self.cluster, DeltaStats(
                 len(node_rows) + len(pod_rows), True, "pod-axis-growth",
                 (("delta-build", t0, t_build),) + term_span
@@ -401,6 +437,10 @@ class DeltaTensorizer:
         t_build = wallclock()
         self.cluster = self._apply(delta, donate=donate,
                                    replace_terms=terms_dirty)
+        if terms_dirty:
+            # wholesale term replacement can change the term tables'
+            # shapes: the only delta-path event that moves residency
+            self._register_residency()
         self.cycles_since_resync += 1
         spans = ((("delta-build", t0, t_build),) + term_span
                  + (("delta-apply", t_build, wallclock()),))
@@ -445,6 +485,7 @@ class DeltaTensorizer:
         self.cycles_since_verify = 0
         self.resync_count += 1
         self._upload()
+        self._capture_resync()
         return self.cluster, DeltaStats(
             0, True, reason, (("resync", t0, wallclock()),))
 
@@ -468,6 +509,19 @@ class DeltaTensorizer:
         t = wallclock()
         self.cluster = self.host.to_device(self.device)
         self.upload_s += wallclock() - t
+        self._register_residency()
+
+    def _register_residency(self) -> None:
+        """The residency ledger's seam (utils/devstats.py): register the
+        resident's per-table bytes under this profile when its shapes can
+        have changed (resync, pod-axis growth, wholesale term
+        replacement; a scatter keeps them).  Disarmed: one attribute
+        read."""
+        if udevstats.devstats() is None or self.cluster is None:
+            return
+        udevstats.register_cluster(
+            "delta-resident", self.profile or "default", self.cluster,
+            len(self.node_names), meta={"resyncs": self.resync_count})
 
     def _refresh_terms(self, node_infos) -> None:
         """Term-only rebuild: walk the term OWNERS, recompile the
@@ -509,11 +563,25 @@ class DeltaTensorizer:
         # it, then adds 1.0 to one resident value, as a bad copy would.
         # The corruption goes into a fresh tensor: an in-flight cycle may
         # still read the scattered one
+        if ujournal.journal() is not None:
+            # the journal's capture: the exact scatter tables (and the
+            # wholesale terms) this cycle applies, pickled at once (the
+            # mirror's term tables change in place next cycle).  Taken
+            # BEFORE the chaos seam: the journal records the intent, so a
+            # dropped scatter replays as a divergence
+            a = self.host.arrays
+            terms = ((a["filter_terms"], a["score_terms"])
+                     if replace_terms else None)
+            self.capture = ("delta", pickle.dumps((delta, terms),
+                                                  protocol=4))
         act = chaos.action("delta")
         if act == "drop":
             self.upload_s += wallclock() - t
             return cluster
-        out = programs.apply_cluster_delta(cluster, delta, donate=donate)
+        # devstats' timing seam: the scatter's device time on deep cycles
+        with udevstats.timed("apply_cluster_delta", self.device, delta):
+            out = programs.apply_cluster_delta(cluster, delta,
+                                               donate=donate)
         if act == "corrupt":
             requested = out.requested.clone()
             requested[0, 0] += 1.0

@@ -28,11 +28,15 @@ Injection points threaded through the port:
                  transport error
   ``watch``      client/rest.RestClusterStore._watch_loop: watch
                  disconnect (drives the capped-backoff reconnect)
+  ``journal``    utils/journal.CycleJournal.append: a write error, a
+                 record truncated mid-write, or a flipped payload byte
+                 (each a counted drop or a skip at read time, never a
+                 failed cycle)
 
-``POINTS`` also keeps the JAX package's ``aot-load`` and ``journal``
-points, so any spec that arms the JAX package arms the port; neither has
-a site in the port yet (the port has no AOT artifacts, and the cycle
-journal is ROADMAP queue 1 item 11), so armed they never fire.
+``POINTS`` also keeps the JAX package's ``aot-load`` point, so any spec
+that arms the JAX package arms the port; it has no site in the port yet
+(the port has no AOT artifacts: the AOT decision is ROADMAP queue 1 item
+11), so armed it never fires.
 
 Arming: ``KUBETPU_CHAOS=<spec>`` at Scheduler construction (read by
 ``maybe_arm_from_env``), or programmatically (``arm(registry)``) for
@@ -74,8 +78,6 @@ POINTS: Dict[str, Tuple[str, ...]] = {
     "extender": ("error",),
     "rest": ("error",),
     "watch": ("error",),
-    # the JAX package's utils/journal.CycleJournal.append; no site in the
-    # port until the cycle journal is ported
     "journal": ("error", "truncate", "corrupt"),
 }
 

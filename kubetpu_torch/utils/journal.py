@@ -1,0 +1,396 @@
+"""Durable cycle journal: every committed scheduling cycle, on disk.
+
+The counterpart of kubetpu/utils/journal.py, with its framing, record
+schema and contracts.  The flight recorder (utils/trace.py) and the SLO
+sketches (utils/slo.py) are in-memory rings that die with the process;
+this is the persistence under both.  Armed (``KUBETPU_JOURNAL=<dir>`` or
+``arm_journal``), every committed cycle appends ONE self-contained record
+to a bounded, size-capped directory:
+
+  INPUTS   the cycle's exact device-program inputs, all HOST data (numpy
+           arrays, picklable on any machine): the applied ``ClusterDelta``
+           (or the resync anchor's host mirror, or the chain's pad
+           buckets), the host pod batch, the RNG fold counter, the
+           ``ProgramConfig`` and config digest, the host filter mask
+           (``host_ok``) and score bias read back to numpy, the round the
+           auction ran (``kernel_backend``), ``pipeline_depth`` and
+           ``ring_slot``
+  OUTPUTS  the packed placement vector (chosen / n_feasible /
+           unresolvable / rounds or start index), per-pod placements by
+           name, and a per-plugin verdict summary from the decision audit
+  LINKAGE  the flight-recorder cycle seq (``/debug/flightz``) and the
+           decision-audit cycle (``/debug/explain``)
+
+``python -m kubetpu_torch.kubereplay <dir>`` re-executes a journaled
+window (on the card, or on the CPU with ``--device cpu``) and bit-matches
+every replayed packed vector against the recorded one.
+
+On-disk format: one file per record (``cyc-<seq>.rec``): the magic, a
+crc32 of the payload, the payload length, then the pickled record dict.
+The JAX package reads and writes the same frames.  A self-contained file
+makes size-cap eviction an unlink (oldest first, every eviction counted
+in ``dropped_total``) and isolates corruption: a record truncated by a
+crash (or the ``journal`` chaos point) fails its crc and is SKIPPED with
+a per-record reason at read time.
+
+Bounded disk: at most ``KUBETPU_JOURNAL_MAX_BYTES`` (default 256 MiB) of
+records are kept.  A replay window starts at a resync record (the full
+snapshot anchor); evicting one orphans the records behind it, which the
+replayer skips with ``broken-lineage`` until the next anchor.
+
+Arming contract: DISARMED (the default) every seam is one
+module-attribute read, the hot path takes no new lock and allocates no
+journal state; armed and disarmed placements are identical (the journal
+only observes).  A failed append, for ANY reason, is a counted drop —
+recording never fails a scheduling cycle.
+"""
+
+from __future__ import annotations
+
+import binascii
+import hashlib
+import logging
+import os
+import pickle
+import struct
+import threading
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+from . import chaos
+
+JOURNAL_ENV = "KUBETPU_JOURNAL"
+MAX_BYTES_ENV = "KUBETPU_JOURNAL_MAX_BYTES"
+DEFAULT_MAX_BYTES = 256 << 20
+
+# record file framing: magic + u32 crc32(payload) + u64 len(payload)
+MAGIC = b"KTPJ1"
+_HEADER = struct.Struct(">5sIQ")
+RECORD_VERSION = 1
+
+# the input kinds (the state/delta.py capture seam's vocabulary):
+#   resync  payload = pickled HostClusterArrays (the full-snapshot anchor:
+#           initial build, anti-entropy, vocab growth, pod-axis growth,
+#           verify-divergence)
+#   delta   payload = pickled (ClusterDelta, terms-or-None) applied to the
+#           previous record's cluster by programs.apply_cluster_delta
+#   chain   payload = (pad_pods, pad_terms): the cluster is the PREVIOUS
+#           record's auction materialized at these pow2 pad buckets
+#           (models/gang.materialize_assigned, extend_score_terms=True)
+#   noop    a zero-dirty cycle: the previous record's cluster as is
+INPUT_KINDS = ("resync", "delta", "chain", "noop")
+
+LOG = logging.getLogger("kubetpu_torch")
+
+
+class JournalCorrupt(ValueError):
+    """A record file whose framing, crc or pickle does not check out: a
+    reader-side skip reason, never an abort."""
+
+
+def _env_max_bytes() -> int:
+    """KUBETPU_JOURNAL_MAX_BYTES; a malformed value falls back to the
+    default with a warning instead of failing Scheduler construction."""
+    raw = os.environ.get(MAX_BYTES_ENV, "")
+    if not raw:
+        return DEFAULT_MAX_BYTES
+    try:
+        return int(raw)
+    except ValueError:
+        LOG.warning("%s=%r is not an integer byte count; using the "
+                    "default %d", MAX_BYTES_ENV, raw, DEFAULT_MAX_BYTES)
+        return DEFAULT_MAX_BYTES
+
+
+def record_filename(seq: int) -> str:
+    return "cyc-%012d.rec" % seq
+
+
+def encode_record(record: Dict[str, Any]) -> bytes:
+    payload = pickle.dumps(record, protocol=4)
+    return _HEADER.pack(MAGIC, binascii.crc32(payload) & 0xFFFFFFFF,
+                        len(payload)) + payload
+
+
+def decode_record(blob: bytes) -> Dict[str, Any]:
+    """Inverse of encode_record; raises JournalCorrupt on any framing,
+    length, crc or unpickling failure."""
+    if len(blob) < _HEADER.size:
+        raise JournalCorrupt("truncated header "
+                             f"({len(blob)} < {_HEADER.size} bytes)")
+    magic, crc, n = _HEADER.unpack_from(blob)
+    if magic != MAGIC:
+        raise JournalCorrupt(f"bad magic {magic!r}")
+    payload = blob[_HEADER.size:]
+    if len(payload) != n:
+        raise JournalCorrupt(f"truncated payload ({len(payload)} of {n} "
+                             "bytes)")
+    if binascii.crc32(payload) & 0xFFFFFFFF != crc:
+        raise JournalCorrupt("crc mismatch")
+    try:
+        rec = pickle.loads(payload)
+    except Exception as e:
+        raise JournalCorrupt(f"unpicklable payload: {e!r}")
+    if not isinstance(rec, dict) or "seq" not in rec:
+        raise JournalCorrupt("payload is not a journal record dict")
+    return rec
+
+
+class CycleJournal:
+    """The armed journal: a directory of self-contained record files and
+    the counters the ``scheduler_journal_*`` metrics sync from.
+
+    ``next_seq``/``append`` run on the serving thread, the status reads
+    on the HTTP debug thread: the counters and the file index are
+    lock-guarded.  File writes happen outside the lock (one writer, so
+    the index order still matches the file order)."""
+
+    def __init__(self, directory: str, max_bytes: Optional[int] = None):
+        self.dir = directory
+        self.max_bytes = (max_bytes if max_bytes is not None
+                          else _env_max_bytes())
+        os.makedirs(self.dir, exist_ok=True)
+        self._lock = threading.Lock()
+        # seq -> on-disk size, in insertion order; rebuilt from the
+        # directory at arm time, so a restarted process appends after the
+        # previous run's records
+        self._files: Dict[int, int] = {}
+        self._seq = 0
+        # the running on-disk total (kept on insert and evict, so neither
+        # the cap check nor a status read walks the index)
+        self._disk_total = 0
+        self.records_total = 0
+        self.bytes_written = 0
+        self.dropped_total = 0
+        # (journal seq, flight seq, decision cycle, cycle) of recent
+        # appends, bounded: the linkage rates' feed
+        self._links: List[Tuple[int, int, int, int]] = []
+        self._max_links = 512
+        for name in sorted(os.listdir(self.dir)):
+            if not (name.startswith("cyc-") and name.endswith(".rec")):
+                continue
+            try:
+                seq = int(name[4:-4])
+                size = os.path.getsize(os.path.join(self.dir, name))
+            except (ValueError, OSError):
+                continue
+            self._files[seq] = size
+            self._disk_total += size
+            self._seq = max(self._seq, seq)
+
+    # -- write side (serving thread) ---------------------------------------
+
+    def next_seq(self) -> int:
+        """Reserve the next record id (at commit start, so the SLO
+        exemplars of the cycle's pods can carry it)."""
+        with self._lock:
+            self._seq += 1
+            return self._seq
+
+    def note_drop(self, n: int = 1) -> None:
+        """Count a record that could not be recorded."""
+        with self._lock:
+            self.dropped_total += n
+
+    def append(self, record: Dict[str, Any]) -> bool:
+        """Write one record file; True when it landed.  Any failure,
+        an injected ``journal`` chaos fault included, is a counted drop.
+        Size-cap eviction (oldest first) runs after a successful write and
+        counts as drops too."""
+        seq = int(record["seq"])
+        path = os.path.join(self.dir, record_filename(seq))
+        try:
+            blob = encode_record(record)
+            # chaos seam (utils/chaos.py "journal"): a write error, a
+            # crash mid-write (half the frame lands) or a flipped payload
+            # byte (the framing holds, the crc catches it at read time)
+            act = chaos.action("journal")
+            if act == "error":
+                raise OSError("injected journal write fault")
+            if act == "truncate":
+                blob = blob[:max(len(blob) // 2, 1)]
+            elif act == "corrupt":
+                mid = _HEADER.size + max((len(blob) - _HEADER.size) // 2, 0)
+                mid = min(mid, len(blob) - 1)
+                blob = blob[:mid] + bytes([blob[mid] ^ 0xFF]) + blob[mid + 1:]
+            with open(path, "wb") as f:
+                f.write(blob)
+        except Exception:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+            self.note_drop()
+            return False
+        links = record.get("links", {})
+        evict: List[int] = []
+        with self._lock:
+            self._files[seq] = len(blob)
+            self.records_total += 1
+            self.bytes_written += len(blob)
+            self._links.append((seq, int(links.get("flight_seq", 0) or 0),
+                                int(links.get("decision_cycle", 0) or 0),
+                                int(record.get("cycle", 0) or 0)))
+            del self._links[:-self._max_links]
+            self._disk_total += len(blob)
+            while self._disk_total > self.max_bytes \
+                    and len(self._files) > 1:
+                old = next(iter(self._files))
+                self._disk_total -= self._files.pop(old)
+                self.dropped_total += 1
+                evict.append(old)
+        for old in evict:
+            try:
+                os.unlink(os.path.join(self.dir, record_filename(old)))
+            except OSError:
+                pass
+        return True
+
+    # -- read side ---------------------------------------------------------
+
+    def counters(self) -> Tuple[int, int]:
+        """(records_total, dropped_total), monotonic: the metric sync's
+        feed."""
+        with self._lock:
+            return self.records_total, self.dropped_total
+
+    def seqs(self) -> List[int]:
+        with self._lock:
+            return sorted(self._files)
+
+    def disk_bytes(self) -> int:
+        with self._lock:
+            return self._disk_total
+
+    def status(self, flight_seqs: Optional[set] = None,
+               decision_cycles: Optional[set] = None) -> Dict[str, Any]:
+        """The /debug/journal document.  Given the flight recorder's live
+        seqs and the decision log's live cycles, the linkage rates report
+        the share of recent records that still cross-reference a live
+        in-memory entry."""
+        with self._lock:
+            seqs = sorted(self._files)
+            links = list(self._links)
+            doc: Dict[str, Any] = {
+                "armed": True,
+                "dir": self.dir,
+                "max_bytes": self.max_bytes,
+                "records": len(seqs),
+                "bytes": self._disk_total,
+                "records_total": self.records_total,
+                "dropped_total": self.dropped_total,
+            }
+        if seqs:
+            doc["first_seq"] = seqs[0]
+            doc["last_seq"] = seqs[-1]
+        cycles = [c for (_s, _f, _d, c) in links if c]
+        if cycles:
+            doc["cycle_span"] = [min(cycles), max(cycles)]
+        flagged = [(s, f, d) for (s, f, d, _c) in links]
+        with_flight = sum(1 for (_s, f, _d) in flagged if f > 0)
+        doc["flight_linked"] = with_flight
+        if flagged:
+            doc["flight_link_rate"] = round(with_flight / len(flagged), 3)
+            if flight_seqs is not None:
+                live = sum(1 for (_s, f, _d) in flagged
+                           if f in flight_seqs)
+                doc["flight_live_rate"] = round(live / len(flagged), 3)
+            if decision_cycles is not None:
+                live = sum(1 for (_s, _f, d) in flagged
+                           if d in decision_cycles)
+                doc["decision_live_rate"] = round(live / len(flagged), 3)
+        return doc
+
+
+def read_records(directory: str) -> Iterator[Tuple[int, Optional[Dict],
+                                                   Optional[str]]]:
+    """Yield ``(seq, record, skip_reason)`` for every record file in seq
+    order; exactly one of record and skip_reason is None.  A corrupt or
+    truncated file yields its reason instead of aborting the window."""
+    try:
+        names = sorted(n for n in os.listdir(directory)
+                       if n.startswith("cyc-") and n.endswith(".rec"))
+    except OSError as e:
+        raise FileNotFoundError(f"journal directory unreadable: {e}")
+    for name in names:
+        try:
+            seq = int(name[4:-4])
+        except ValueError:
+            continue
+        path = os.path.join(directory, name)
+        try:
+            with open(path, "rb") as f:
+                blob = f.read()
+            rec = decode_record(blob)
+        except JournalCorrupt as e:
+            yield seq, None, str(e)
+            continue
+        except OSError as e:
+            yield seq, None, f"unreadable: {e}"
+            continue
+        if int(rec.get("seq", -1)) != seq:
+            yield seq, None, (f"seq mismatch (file {seq}, "
+                              f"payload {rec.get('seq')})")
+            continue
+        yield seq, rec, None
+
+
+def config_digest(mode: str, profile: str, cfg, hard_weight: float,
+                  kernel_backend: str) -> str:
+    """Stable digest of the profile and program configuration a record
+    was produced under (the JAX package's digest of the same fields, so
+    equal configurations digest equal in both packages).  A replay window
+    spanning more than one digest mixes program configurations."""
+    text = repr((RECORD_VERSION, mode, profile, tuple(cfg.filters),
+                 tuple(cfg.scores), cfg.hostname_topokey,
+                 tuple(cfg.plugin_args), cfg.percentage_of_nodes_to_score,
+                 tuple(cfg.active_topo_keys), float(hard_weight),
+                 kernel_backend))
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+# ---------------------------------------------------------------- arming
+#
+# As trace.py's recorder, slo.py's tracker and chaos.py's registry:
+# _journal is read WITHOUT a lock on the hot path (rebinding a reference
+# is atomic), arm/disarm serialize through _journal_lock.
+
+_journal: Optional[CycleJournal] = None
+_journal_lock = threading.Lock()
+
+
+def journal() -> Optional[CycleJournal]:
+    """The armed journal, or None (disarmed, the default)."""
+    return _journal
+
+
+def arm_journal(directory: str,
+                max_bytes: Optional[int] = None) -> CycleJournal:
+    """Idempotently arm the journal (one journal per process: an armed
+    journal for any directory wins)."""
+    global _journal
+    with _journal_lock:
+        if _journal is None:
+            _journal = CycleJournal(directory, max_bytes=max_bytes)
+        return _journal
+
+
+def disarm_journal() -> None:
+    global _journal
+    with _journal_lock:
+        _journal = None
+
+
+def maybe_arm_from_env() -> Optional[CycleJournal]:
+    """Scheduler-construction hook: arms iff KUBETPU_JOURNAL names a
+    directory; an unwritable one disarms with a warning."""
+    directory = os.environ.get(JOURNAL_ENV, "")
+    if not directory:
+        return None
+    if _journal is not None:
+        return _journal
+    try:
+        return arm_journal(directory)
+    except OSError:
+        LOG.warning("KUBETPU_JOURNAL=%r is not a writable directory; "
+                    "journal disarmed", directory)
+        return None

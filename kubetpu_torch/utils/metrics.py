@@ -15,10 +15,9 @@ A copy of kubetpu/utils/metrics.py, with its two live exporters: the
 armed SLO tracker's per-stage histograms and the armed telemetry ring's
 window series (each renders nothing while its recorder is disarmed).
 The port's scheduler feeds the cycle, recovery, binding, attempt,
-cache-size, queue, rejection-attribution, preemption, flight-recorder
-and injected-fault series where the JAX scheduler does, and its
-framework the per-point durations and the permit waits; the journal
-series stay at zero (the cycle journal is ROADMAP queue 1 item 11).
+cache-size, queue, rejection-attribution, preemption, flight-recorder,
+injected-fault and cycle-journal series where the JAX scheduler does,
+and its framework the per-point durations and the permit waits.
 """
 
 from __future__ import annotations

@@ -180,7 +180,7 @@ class SloTracker:
                     # the cross-links: the flight-recorder cycle record
                     # (/debug/flightz, CycleRecord.seq), the decision
                     # audit entry (/debug/explain?pod=) and the cycle
-                    # journal's record id (0: the journal is not ported)
+                    # journal's record id (0: the journal is disarmed)
                     "cycle": int(cycle),
                     "flight_seq": int(flight_seq),
                     "journal_seq": int(journal_seq),

@@ -19,9 +19,9 @@ window carries
     identity against ``sched.recovery_log``'s tail);
   * flight-recorder drop deltas.
 
-The JAX ring's journal and devstats deltas read recorders the port does
-not have: their gathers return None, as the JAX ones do with those
-recorders disarmed, and the window carries no such keys.
+With the cycle journal armed a window carries its record and drop
+deltas (utils/journal.py), with devstats armed its measured device
+seconds, fence wait and resident bytes (utils/devstats.py).
 
 The ring is served at ``/debug/loadz`` (server.py), exported as
 Prometheus series on ``/metrics`` (utils/metrics.py), and summarized as
@@ -142,16 +142,30 @@ def _gather_slo() -> Optional[Dict[str, Any]]:
 
 
 def _gather_device() -> Optional[Dict[str, float]]:
-    """Cumulative devstats totals: always None, as the JAX gather returns
-    with devstats disarmed (devstats is not ported)."""
-    return None
+    """Cumulative devstats totals, or None when disarmed."""
+    from . import devstats as _devstats
+    ds = _devstats.devstats()
+    if ds is None:
+        return None
+    summary = ds.summary()
+    return {
+        "device_time_s": sum(
+            p.get("device_time_s", 0.0)
+            for p in (summary.get("programs") or {}).values()),
+        "fence_wait_s": float(summary.get("fence_wait_s", 0.0)),
+        "ledger_bytes": float(summary.get("ledger_bytes", 0)),
+    }
 
 
 def _gather_journal() -> Optional[Dict[str, int]]:
-    """Cumulative journal record/drop totals: always None, as the JAX
-    gather returns with the journal disarmed (the cycle journal is not
-    ported)."""
-    return None
+    """Cumulative journal record/drop totals, or None when disarmed."""
+    from . import journal as _journal
+    jr = _journal.journal()
+    if jr is None:
+        return None
+    st = jr.status()
+    return {"records_total": int(st.get("records_total", 0)),
+            "dropped_total": int(st.get("dropped_total", 0))}
 
 
 def _gather_flight() -> Optional[Dict[str, int]]:

@@ -97,6 +97,17 @@ def capture_device_trace(log_dir: str):
         _PROFILE_ACTIVE = False
         prof.__exit__(None, None, None)
         prof.export_chrome_trace(path)
+        # devstats' trace hook: armed, the capture folds into per-program
+        # device time (or the reason it cannot); disarmed one read
+        from . import devstats as _devstats
+        ds = _devstats.devstats()
+        if ds is not None:
+            ds.ingest_trace(path)
+
+
+def profile_active() -> bool:
+    """True while capture_device_trace runs."""
+    return _PROFILE_ACTIVE
 
 
 # --------------------------------------------------------------------- spans
@@ -368,15 +379,24 @@ class FlightRecorder:
         if recs:
             doc["total_s"] = round(max((r.t1 or r.t0) for r in recs)
                                    - t_base, 3)
-        # the per-pod latency digest (utils/slo.py) and the sustained-load
-        # digest (utils/telemetry.py) ride the doc when those are armed
-        # beside the recorder (the cycle journal and devstats blocks of
-        # the JAX package's doc are not ported)
+        # the per-pod latency digest (utils/slo.py), the cycle journal's
+        # status with its linkage into this ring's live seqs
+        # (utils/journal.py), the device block (utils/devstats.py) and the
+        # sustained-load digest (utils/telemetry.py) ride the doc when
+        # those are armed beside the recorder
         from . import slo as _slo
         trk = _slo.tracker()
         if trk is not None:
             doc["slo"] = {"stages": trk.stage_quantiles(),
                           "shares": trk.shares()}
+        from . import journal as _journal
+        jr = _journal.journal()
+        if jr is not None:
+            doc["journal"] = jr.status(flight_seqs={r.seq for r in recs})
+        from . import devstats as _devstats
+        ds = _devstats.devstats()
+        if ds is not None:
+            doc["device"] = ds.summary()
         from . import telemetry as _telemetry
         tel = _telemetry.ring()
         if tel is not None:
