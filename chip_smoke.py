@@ -225,10 +225,12 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              and /debug/explain answer, close() within 10 s.  ``python -m
              kubetpu_torch --once`` on 5,000 hollow nodes and pods with a
              pipelined configuration binds what the same in-process drain
-             binds.  The REST store in two processes: this one serves
+             binds.  The REST store in two processes: one serves
              1,000 hollow nodes and 2,000 pods through APIServer, ``python
              -m kubetpu_torch --api-server URL --once`` schedules them,
-             and this process's store sees every binding;
+             and the serving process's store sees every binding (the CLI
+             and REST checks run in the card child, beside the earlier
+             phases);
   extenders  HTTP extenders (kubetpu_torch/extender.py, the Scheduler's
              extender path): SchedulingBasic5000Nodes (5,000 nodes, one
              bound pod each, its 1,000 measured pods) under the
@@ -285,7 +287,8 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              its BindRetried Event), every pod bound exactly once, the
              kernel route kept, every K1 launch recorded and held bitwise
              to the plain version; and REST in two processes (the
-             serving phase's 1,000 nodes x 2,000 pods served here; the
+             serving phase's 1,000 nodes x 2,000 pods served by the card
+             child, beside the earlier phases; the
              scheduler in a child process armed with
              "seed=42,rest:error:n=2,watch:error:n=2"): both points fired
              twice, every pod bound exactly once on the server, no
@@ -337,6 +340,33 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
              fill with 1,000 preemptors, every row failing) under the
              profiler: its host dispatch time, stream time, kernel busy
              time and top kernels;
+  guards     the JAX runtime's guard rails on the backlog's world (1,000
+             nodes x 4,096 900m pods, "pallas", batch 4,096, one windowed
+             cycle, a frozen queue clock): the drain disarmed, then under
+             the sanitizer (the NaN and rank-promotion checks of every
+             aten op, K1's output checked, the card's NaN index read at
+             the readback; every auction under GangRounds' "error" mode)
+             with K1's library loaded again under its compile-count
+             watchdog (once, no key twice), then pipelined at depth 2
+             with the binder pool under the race harness (no unguarded
+             mutation, no lock-order inversion, no hold past 5,000 ms;
+             every lock role's holds reported, with the holder's CPU
+             time over each hold past 200 ms); the same placements each
+             time.  In the card child, beside the earlier phases,
+             ``python -m kubetpu_torch.kubeaot build`` writes the kernel
+             artifacts;
+             then a serve child (``chip_smoke.py --guards-child serve``:
+             KUBETPU_AOT_DIR, an empty KUBETPU_KERNEL_CACHE_DIR, no nvcc
+             on PATH or under CUDA_HOME) prewarms from the artifact and
+             drains, and a corrupt child (KUBETPU_CHAOS=aot-load:corrupt:
+             n=1, nvcc reachable, an empty cache) counts
+             recoveries{aot-fallback} 1, rebuilds with nvcc and drains:
+             the same placements, their seconds to the first cycle (the
+             corrupt child is the cold nvcc one) reported side by side.
+             Every K1 launch of the five drains is held bitwise to the
+             plain version.  The reference phase's term-bearing
+             preemption drain also counts its reprieve's CUDA graph
+             captures under the compile-count watchdog;
 
 Every drain records Events (utils/events.py) into its store: the fill's
 drains hold one Scheduled Event per filler, the preempt drain one
@@ -362,7 +392,8 @@ binpack's card drains, points' card drains, the card drains of volumes,
 resident's card drains, serving's fill and vol_backlog drains,
 extenders' 5,000-node card drain, journal's armed fill drain and its
 replay on the card (counted apart as journal_replay), chaos' backlog
-drain and measure's sustained run and parity drains: the
+drain, measure's sustained run and parity drains and the five drains of
+guards (two of them in its children): the
 kernel launch count is zeroed just before each and read just after it,
 and reported per path.  The slice never launches the kernel (above), nor do the
 term-bearing gang drains (routed to the lax round, as the JAX package
@@ -372,8 +403,8 @@ route to lax), nor does the extender path (it scores with one
 filter-and-score program and selects on the host, as the JAX package
 does); in the backlog, fill, autoscaler, term-free points and
 vol_backlog drains, resident's 5,000-node gang drain, chaos' backlog
-drain, measure's parity drains and sustained run and the journal's
-replay every launch's inputs and outputs are
+drain, measure's parity drains and sustained run, the journal's
+replay and the guards drains every launch's inputs and outputs are
 recorded (the fill's, autoscaler's, vol_backlog's
 and the preempt drain's first 16)
 and, after the drain, the outputs are held bitwise against the plain
@@ -386,9 +417,12 @@ before it returns: the reference child (CPU_REF_THREADS torch threads)
 runs the CPU halves of the card-vs-CPU drains (reference's two
 preemption drains, volumes' 500-node and vol_backlog drains,
 seq_slice's, binpack's and resident's 1,000-node drains, the extender
-drains' CPU side), and the card child runs the extenders phase's two
-card drains, beside the reference, points and volumes phases; each
-phase collects its own results.  The smaller CPU references
+drains' CPU side), and the card child runs, one after another, the
+extenders phase's two card drains (beside the reference, points and
+volumes phases), then the checks that run in processes of their own:
+serving's CLI and REST store, chaos' REST store and the guards phase's
+kernel-artifact round trip (kubeaot build, the serve and corrupt
+children); each phase collects its own results.  The smaller CPU references
 (reference's auctions and replay, points' drains), and a child's job of
 a phase called without main(), run in this process on CPU_REF_THREADS
 torch threads (cpu_threads); the card phases keep torch's default.
@@ -418,12 +452,12 @@ ALL_PHASES = ("kernel", "reference", "points", "volumes", "slice",
               "backlog", "fill", "preempt", "seq_slice", "seq_anti",
               "seq_spread", "gang_anti", "gang_spread", "autoscaler",
               "binpack", "resident", "mesh", "serving", "extenders",
-              "journal", "chaos", "measure", "profile")
+              "journal", "chaos", "measure", "profile", "guards")
 MAIN_PATHS = ("slice", "backlog", "fill", "preempt", "seq_slice",
               "seq_anti", "seq_spread", "gang_anti", "gang_spread",
               "autoscaler", "binpack", "points", "volumes", "resident",
               "mesh", "serving", "extenders", "chaos", "measure",
-              "journal")
+              "journal", "guards")
 FILL_NODES = 5000             # Preemption5000Nodes: 5,000 nodes,
 FILL_PODS = 4 * FILL_NODES    # 20,000 init pods (four 900m pods fill a node)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
@@ -1433,7 +1467,8 @@ def phase_gang_spread() -> dict:
 # CPU, which at 5,000 nodes takes tens of seconds to minutes of CPU time.
 # main() runs those CPU drains in one spawned child (the reference child,
 # CPU_REF_THREADS torch threads) beside the card phases, and the extender
-# path's card drains in a second child on the card (CARD_JOBS); each phase
+# path's card drains and the checks that run in processes of their own in
+# a second child on the card (card_jobs); each phase
 # collects its own jobs from CHILD_JOBS.  A phase run without main() runs
 # them in process.
 CPU_REF_THREADS = 4
@@ -1983,10 +2018,19 @@ def _preempt_world_drain(what, backend, device, batch_size=None) -> dict:
     pods in order, nominations, placements, decisions, seconds, and on
     the card the stats and sync check."""
     from kubetpu_torch import preemption as PRE
+    from kubetpu_torch.utils import sanitize
     store, pods, parked = _preempt_world(what)
-    with DeviceTimed(PRE, "_whatif_reprieve") as rep_t:
-        sched, placed, deleted, noms, seconds, sync = _preempt_drain(
-            store, pods, backend, device, batch_size, parked)
+    # the compile-count watchdog alone: each reprieve call captures its
+    # CUDA graph again at the same shapes, a recapture by its count
+    wd = sanitize.install_compile_watchdog()
+    try:
+        with DeviceTimed(PRE, "_whatif_reprieve") as rep_t:
+            sched, placed, deleted, noms, seconds, sync = _preempt_drain(
+                store, pods, backend, device, batch_size, parked)
+    finally:
+        sanitize.uninstall_compile_watchdog(wd)
+    captures = {k: c for k, c in wd.counts.items()
+                if k[0] == "capture:whatif_reprieve"}
     if sched.preempt_wave_failures:
         raise AssertionError("reference %s: a wave failed" % what)
     out = dict(run=(placed, deleted, noms), log=decision_view(sched),
@@ -1999,7 +2043,11 @@ def _preempt_world_drain(what, backend, device, batch_size=None) -> dict:
                            card_s=seconds, sync_check=sync,
                            reprieve_calls=len(rep_ms),
                            reprieve_ms_per_call=(sum(rep_ms) / len(rep_ms)
-                                                 if rep_ms else None))
+                                                 if rep_ms else None),
+                           reprieve_graph_captures=sum(captures.values()),
+                           reprieve_graph_recaptures=sum(
+                               c - 1 for c in captures.values()),
+                           reprieve_graph_shapes=len(captures))
     return out
 
 
@@ -3203,10 +3251,13 @@ def phase_serving() -> dict:
     fault = dict(error=_serve_fault("error", 3), stall=_serve_fault("stall", 1))
     with LoggedFaults("served"):
         served = _serve_run()
-    cli = _serve_cli()
-    rest = _serve_rest()
+    # the CLI and the REST store, each in processes of its own (run
+    # beside the earlier phases by main())
+    cli, cli_wait = child_result("serving cli", _serve_cli)
+    rest, rest_wait = child_result("serving rest", _serve_rest)
     return dict(launches=launches, fill=fill, vol_backlog=vol, fault=fault,
                 served=served, cli=cli, rest=rest,
+                card_wait_s=cli_wait + rest_wait,
                 recorded=dict(checked=sum(r["checked"] for r in recorded),
                               max_abs_err=max(r["max_abs_err"]
                                               for r in recorded),
@@ -3733,10 +3784,16 @@ def phase_chaos() -> dict:
     backlog in process (dispatch, delta, bind) and REST in two processes
     (rest, watch)."""
     backlog = _chaos_backlog()
-    with LoggedFaults("chaos rest"):
-        rest = _chaos_rest()
+    # in processes of its own (run beside the earlier phases by main())
+    rest, waited = child_result("chaos rest", _chaos_rest_logged)
     return dict(launches=backlog["launches"], backlog=backlog, rest=rest,
-                recorded=backlog["recorded"])
+                card_wait_s=waited, recorded=backlog["recorded"])
+
+
+def _chaos_rest_logged() -> dict:
+    """_chaos_rest with the port's log watched (LoggedFaults)."""
+    with LoggedFaults("chaos rest"):
+        return _chaos_rest()
 
 
 # ---------------------------------------------------------------------------
@@ -4152,13 +4209,15 @@ def _profiled_scan_window(store, pods, first=256, steps=128,
                           sched_profile=None):
     """The seq_slice drain with torch.profiler on over a steady window of
     its scan (steps first .. first+steps-1; the whole scan's ~500k
-    launches would take the profiler minutes to parse): device busy time
+    launches would take the profiler minutes to parse), its pods cut to
+    the window's end (the steps after it are not read): device busy time
     and idle share of the window, top kernels, kernel launches per step
     (the host's CUDA launch calls, and the device kernels), the gemv
     kernels' share of the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from kubetpu_torch.models import sequential as S
+    pods = pods[:first + steps]
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
     orig_scan = S._scan
@@ -4906,23 +4965,324 @@ def phase_journal() -> dict:
 
 
 def phase_profile() -> dict:
-    return dict(
-        slice=_profiled_drain(hollow_store(5000, 1),
-                              pending_pods(1000, "measured"), "pallas",
-                              1000),
-        backlog=_profiled_drain(*backlog_world(), "pallas", 4096),
+    parts = dict(
+        slice=lambda: _profiled_drain(hollow_store(5000, 1),
+                                      pending_pods(1000, "measured"),
+                                      "pallas", 1000),
+        backlog=lambda: _profiled_drain(*backlog_world(), "pallas", 4096),
         # the fill's first 5 of 20 cycles: the whole drain's trace costs
         # ~1 min of the smoke's time limit to take and read
-        fill=_profiled_drain(fill_world()[0], filler_pods(FILL_PODS)
-                             [:FILL_PODS // 4], "pallas", 1000),
-        seq_slice=_profiled_scan_window(hollow_store(5000, 1),
-                                        pending_pods(1000, "measured")),
-        gang_spread=_profiled_rounds_window(*spread_world()),
-        audit=_profiled_audit())
+        fill=lambda: _profiled_drain(fill_world()[0], filler_pods(FILL_PODS)
+                                     [:FILL_PODS // 4], "pallas", 1000),
+        seq_slice=lambda: _profiled_scan_window(
+            hollow_store(5000, 1), pending_pods(1000, "measured")),
+        gang_spread=lambda: _profiled_rounds_window(*spread_world()),
+        audit=_profiled_audit)
+    out = dict(part_s={})
+    for name, fn in parts.items():
+        t = time.perf_counter()
+        out[name] = fn()
+        out["part_s"][name] = time.perf_counter() - t
+    return out
 
 
 # ---------------------------------------------------------------------------
 # main()'s children
+
+# ---------------------------------------------------------------------------
+# guards: the sanitizer, the race harness and deploy-time kernel artifacts
+
+
+def guards_drain(what, depth=1, async_binding=False, record=None,
+                 metrics=None, prewarm=False):
+    """The backlog's world (1,000 nodes x 4,096 900m pods) drained once
+    under "pallas" (batch 4,096, the chain on, pipelined at ``depth`` > 1)
+    on a frozen queue clock, so every drain of the phase pops the same
+    pods in the same cycles and retries none; every auction under
+    GangRounds ("error" sync debug mode); ``prewarm`` first, timed to the
+    end of the first cycle.  Returns (scheduler, placements, stats)."""
+    from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
+                                           KubeSchedulerProfile)
+    from kubetpu_torch.ops import propose as PK
+    from kubetpu_torch.scheduler import Scheduler
+    store, pods = backlog_world()
+    t0 = time.perf_counter()
+    cfg = KubeSchedulerConfiguration(
+        profiles=[KubeSchedulerProfile()], batch_size=4096, mode="gang",
+        kernel_backend="pallas", chain_cycles=True,
+        pipeline_cycles=depth > 1, pipeline_depth=depth)
+    sched = Scheduler(store, config=cfg, device="cuda",
+                      async_binding=async_binding, metrics=metrics)
+    sched.queue._clock = _QueueClock()
+    stats = dict(what=what, depth=depth, async_binding=async_binding)
+    if prewarm:
+        sched.prewarm()
+        stats["prewarm_s"] = time.perf_counter() - t0
+    for p in pods:
+        store.add(p)
+    restore = (_record_launches(record, None) if record is not None
+               else None)
+    outs = []
+    PK.propose.launches = 0          # this path starts: zero the count
+    try:
+        with GangRounds() as gr:
+            t = time.perf_counter()
+            while True:
+                got = sched.schedule_pending()
+                if got and "first_cycle_s" not in stats:
+                    stats["first_cycle_s"] = time.perf_counter() - t0
+                outs.extend(got)
+                if not got and not len(sched._pipeline.ring):
+                    break
+            outs.extend(sched.flush_pipeline())
+            sched.wait_for_inflight_binds(timeout=120.0)
+            stats["drain_s"] = time.perf_counter() - t
+        stats["launches"] = PK.propose.launches
+    finally:
+        if restore is not None:
+            restore()
+        sched.close()
+    check_no_recovery(sched, "guards " + what)
+    placed = {o.pod.metadata.name: o.node for o in outs}
+    stats.update(cycles=sched.cycle_count, rounds=gr.summary(),
+                 placed=sum(1 for v in placed.values() if v),
+                 stage_s=dict(sched.stage_s))
+    if stats["launches"] <= 0:
+        raise AssertionError("guards %s: K1 never launched" % what)
+    return sched, placed, stats
+
+
+def _hold_site(stack) -> str:
+    """The innermost frame of a race-harness report outside the harness:
+    where the lock was held."""
+    files = [ln.strip() for ln in stack.splitlines()
+             if ln.strip().startswith("File ") and "racecheck.py" not in ln]
+    return files[-1] if files else "?"
+
+
+def _no_nvcc_env(tmp) -> dict:
+    """This process's environment with no nvcc reachable: PATH without
+    any directory holding one, CUDA_HOME at an empty directory."""
+    env = dict(os.environ)
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+    env["CUDA_HOME"] = os.path.join(tmp, "no-cuda")
+    os.makedirs(env["CUDA_HOME"], exist_ok=True)
+    return env
+
+
+def guards_child(mode, out) -> int:
+    """One AOT child of the guards phase (run as ``chip_smoke.py
+    --guards-child MODE --out FILE``, its environment set by the parent):
+    Scheduler construction (KUBETPU_AOT_DIR arms the artifacts), prewarm
+    and the backlog drain, timed to the end of the first cycle; every K1
+    launch of the drain held bitwise to the plain version.  "serve" runs
+    with no nvcc reachable, "corrupt" with KUBETPU_CHAOS=aot-load:corrupt:
+    n=1 and nvcc.  Writes its report to FILE."""
+    import torch
+    from kubetpu_torch.ops import _build
+    from kubetpu_torch.utils import aot, sanitize
+    from kubetpu_torch.utils.metrics import SchedulerMetrics
+    if not torch.cuda.is_available():
+        return 1
+    timer = sanitize.install_compile_timer()
+    nvcc = None
+    try:
+        nvcc = _build.nvcc_path()
+    except _build.KernelError:
+        pass
+    if mode == "serve" and nvcc is not None:
+        raise AssertionError("guards serve child: nvcc reachable at %s"
+                             % nvcc)
+    metrics = SchedulerMetrics()
+    record = []
+    sched, placed, stats = guards_drain("aot " + mode, record=record,
+                                        metrics=metrics, prewarm=True)
+    rt = aot.active_runtime()
+    report = dict(mode=mode, nvcc=nvcc, placed_map=placed, stats=stats,
+                  source=_build.library_source.get("propose"),
+                  nvcc_s=_build.build_seconds.get("propose"),
+                  aot=rt.stats() if rt is not None else None,
+                  demotion=aot.demotion_reason(),
+                  aot_fallback=metrics.recoveries.value("aot-fallback"),
+                  compile_timer=timer.snapshot(),
+                  recorded=check_recorded(record, "guards aot " + mode))
+    with open(out, "w") as fh:
+        json.dump(report, fh)
+    return 0
+
+
+def _run_guards_child(mode, tmp, env, timeout_s=300) -> dict:
+    out = os.path.join(tmp, mode + ".json")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--guards-child", mode,
+         "--out", out], env=env, capture_output=True, text=True,
+        timeout=timeout_s)
+    if res.returncode != 0:
+        raise AssertionError("guards %s child exited %d:\n%s"
+                             % (mode, res.returncode, res.stderr[-4000:]))
+    with open(out) as fh:
+        doc = json.load(fh)
+    doc["process_s"] = time.perf_counter() - t0
+    return doc
+
+
+def guards_aot() -> dict:
+    """The guards phase's kernel-artifact round trip, in processes of its
+    own: ``python -m kubetpu_torch.kubeaot build`` into a fresh directory
+    (from an empty kernel cache, so with nvcc); then the serve child
+    (KUBETPU_AOT_DIR set, an empty kernel cache, no nvcc reachable)
+    prewarms from the artifact and drains; then the corrupt child
+    (KUBETPU_CHAOS=aot-load:corrupt:n=1, nvcc reachable, an empty cache:
+    the cold nvcc child) reads recoveries{aot-fallback} 1, rebuilds and
+    drains.  phase_guards holds each child's placements to the disarmed
+    drain's.  main() runs this in the card child, beside the main
+    process's phases."""
+    import shutil
+    import tempfile
+    import torch
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="guards-")
+    try:
+        aot_dir = os.path.join(tmp, "aot")
+        t = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "kubetpu_torch.kubeaot", "build", aot_dir,
+             "--json"], cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ,
+                     KUBETPU_KERNEL_CACHE_DIR=os.path.join(tmp, "bc")),
+            capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError("kubeaot build exited %d:\n%s"
+                                 % (res.returncode, res.stderr[-4000:]))
+        built = json.loads(res.stdout)
+        built["process_s"] = time.perf_counter() - t
+        serve_env = dict(_no_nvcc_env(tmp), KUBETPU_AOT_DIR=aot_dir,
+                         KUBETPU_KERNEL_CACHE_DIR=os.path.join(tmp, "sc"))
+        serve_env.pop("KUBETPU_CHAOS", None)
+        serve = _run_guards_child("serve", tmp, serve_env)
+        corrupt_env = dict(os.environ, KUBETPU_AOT_DIR=aot_dir,
+                           KUBETPU_KERNEL_CACHE_DIR=os.path.join(tmp, "cc"),
+                           KUBETPU_CHAOS="aot-load:corrupt:n=1")
+        corrupt = _run_guards_child("corrupt", tmp, corrupt_env)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if (serve["source"] != "artifact" or serve["nvcc_s"] is not None
+            or serve["aot"]["hits"] != 1 or serve["aot_fallback"]):
+        raise AssertionError("guards: serve child %s" % serve)
+    if (corrupt["source"] != "nvcc" or corrupt["aot_fallback"] != 1
+            or not corrupt["nvcc_s"]):
+        raise AssertionError("guards: corrupt child %s" % corrupt)
+    return dict(built=built, serve=serve, corrupt=corrupt)
+
+
+def phase_guards() -> dict:
+    """The JAX runtime's guard rails in the port, on the backlog's world:
+    (a) the drain under the sanitizer (utils/sanitize.py: the NaN and
+    rank-promotion checks of every aten op, K1's output through
+    check_outputs, the card's NaN index read at each cycle's readback) has
+    the disarmed drain's placements, raises nothing, trips no sync under
+    GangRounds, and its watchdog counts K1's library loaded once and no
+    key twice; (b) the drain pipelined at depth 2 with the binder pool
+    under the race harness (utils/racecheck.py, built inside the armed
+    scope) reports no unguarded mutation and no lock-order inversion, no
+    hold past 5,000 ms, and has the same placements; every hold's length
+    is reported by lock role; (c) guards_aot's children (the serve child
+    from the artifacts with no nvcc, the corrupt child rebuilding with
+    nvcc; run beside the earlier phases by main()) have the same
+    placements.  Every K1 launch of every drain is held bitwise to the
+    plain version."""
+    from kubetpu_torch.ops import _build
+    from kubetpu_torch.utils import racecheck, sanitize
+    out = dict(launches=0)
+    records = []
+    # (a) disarmed, then sanitized (the library dropped so that the
+    # sanitized drain loads it again, under the watchdog)
+    record = []
+    _, want, plain = guards_drain("disarmed", record=record)
+    records.append(check_recorded(record, "guards disarmed"))
+    _build._propose_lib = None
+    record = []
+    t = time.perf_counter()
+    with sanitize.sanitized() as wd:
+        arm_s = time.perf_counter() - t
+        _, got, san = guards_drain("sanitized", record=record)
+    san["arm_s"] = arm_s
+    records.append(check_recorded(record, "guards sanitized"))
+    lib = _build.lib_name("propose")
+    counts = {"%s %s" % k: v for k, v in wd.counts.items()}
+    recompiled = wd.recompiled()
+    if got != want:
+        raise AssertionError("guards: sanitized placements differ")
+    if wd.counts.get(("load:propose", lib)) != 1 or recompiled:
+        raise AssertionError("guards: watchdog %s" % counts)
+    log({"guards_disarmed": plain, "guards_sanitized": san,
+         "watchdog": counts})
+    # (b) depth 2, binder pool, under the race harness: no unguarded
+    # mutation and no lock-order inversion; holds over the default 200
+    # ms are reported with the holder's CPU time over the hold, and fail
+    # past the 5,000 ms that tests/test_racecheck.py gives threaded runs
+    record = []
+    with racecheck.racechecked(strict=False) as reg:
+        _, got, race = guards_drain("racecheck", depth=2,
+                                    async_binding=True, record=record)
+        violations = reg.snapshot()
+        with reg._mu:
+            holds = {name: st.as_dict() for name, st in reg.holds.items()}
+    records.append(check_recorded(record, "guards racecheck"))
+    held = [v for v in violations if v.kind == "held-too-long"]
+    other = [v for v in violations if v.kind != "held-too-long"]
+    held_ms = [float(v.message.split(" held for ")[1].split(" ms")[0])
+               for v in held]
+    race["held_too_long"] = dict(
+        threshold_ms=reg.hold_ms, reports=len(held),
+        max_ms=max(held_ms, default=0.0), ms=sorted(held_ms),
+        locks=sorted({v.message.split(" held for ")[0] for v in held}),
+        sites=sorted({_hold_site(v.stack) for v in held}))
+    race["holds_by_lock"] = dict(sorted(
+        holds.items(), key=lambda kv: -kv[1]["max_ms"])[:12])
+    log({"guards_racecheck": race})
+    if other or max(held_ms, default=0.0) > 5000.0:
+        raise AssertionError("guards: race harness\n%s" % "\n".join(
+            str(v) for v in (other or held)))
+    if got != want:
+        raise AssertionError("guards: race-checked placements differ")
+    # (c) the kernel-artifact round trip (guards_aot)
+    aot, waited = child_result("guards aot", guards_aot)
+    serve, corrupt, built = aot["serve"], aot["corrupt"], aot["built"]
+    for doc in (serve, corrupt):
+        if doc.pop("placed_map") != want:
+            raise AssertionError("guards: %s child's placements differ"
+                                 % doc["mode"])
+    records += [serve["recorded"], corrupt["recorded"]]
+    drains = [plain, san, race, serve["stats"], corrupt["stats"]]
+    out["launches"] = sum(d["launches"] for d in drains)
+    out.update(
+        disarmed=plain,
+        sanitized=dict(san, watchdog=counts, recompiled=len(recompiled)),
+        racecheck=dict(race, violations=len(other)),
+        sanitized_over_disarmed=san["drain_s"] / plain["drain_s"],
+        racecheck_over_disarmed=race["drain_s"] / plain["drain_s"],
+        kubeaot_build=dict(rows=[{k: r[k] for k in ("program", "bytes",
+                                                    "build_s")}
+                                 for r in built["rows"]],
+                           process_s=built["process_s"]),
+        serve=serve, corrupt=corrupt, aot_wait_s=waited,
+        first_cycle_s=dict(serve=serve["stats"]["first_cycle_s"],
+                           cold_nvcc=corrupt["stats"]["first_cycle_s"]),
+        recorded=dict(checked=sum(r["checked"] for r in records),
+                      max_abs_err=max(r["max_abs_err"] for r in records),
+                      real_launch=records[0]["real_launch"]))
+    log({"guards_first_cycle_s": out["first_cycle_s"],
+         "serve_prewarm_s": serve["stats"]["prewarm_s"],
+         "cold_prewarm_s": corrupt["stats"]["prewarm_s"],
+         "serve_k1_load_s": serve["compile_timer"]["cache_load_s"],
+         "cold_nvcc_s": corrupt["nvcc_s"]})
+    return out
+
 
 POOLS = {}     # "cpu": the reference child; "card": the card child
 
@@ -4952,13 +5312,26 @@ def cpu_ref_jobs(phase) -> list:
     return []
 
 
+# the card child's jobs run one after another in this order of phases
+CARD_JOB_ORDER = ("extenders", "serving", "chaos", "guards")
+
+
 def card_jobs(phase) -> list:
-    """``phase``'s card drains that run in the card child, beside the
-    phases after the kernel's: the extender path's."""
+    """``phase``'s jobs for the card child, beside the phases after the
+    kernel's: the extender path's card drains, the entry points that run
+    in processes of their own (serving's CLI and REST store, chaos' REST
+    store) and the guards phase's kernel-artifact round trip."""
     if phase == "extenders":
         return [("extenders card", extender_drain, ("cuda",)),
                 ("extenders_preempt card", extender_preempt_drain,
                  ("cuda",))]
+    if phase == "serving":
+        return [("serving cli", _serve_cli, ()),
+                ("serving rest", _serve_rest, ())]
+    if phase == "chaos":
+        return [("chaos rest", _chaos_rest_logged, ())]
+    if phase == "guards":
+        return [("guards aot", guards_aot, ())]
     return []
 
 
@@ -4982,7 +5355,13 @@ def pump_children() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
-    phases = ap.parse_args().phases.split(",")
+    ap.add_argument("--guards-child", choices=("serve", "corrupt"),
+                    help="run one AOT child of the guards phase")
+    ap.add_argument("--out", help="the guards child's report file")
+    args = ap.parse_args()
+    if args.guards_child:
+        return guards_child(args.guards_child, args.out)
+    phases = args.phases.split(",")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5001,10 +5380,11 @@ def main() -> int:
     results = {}
     # both children start once the kernel phase is done (its times must
     # have the host and the card to themselves): the reference child on
-    # every phase's CPU references at once, the card child on the
-    # extender path's card drains
+    # every phase's CPU references at once, the card child on its jobs in
+    # CARD_JOB_ORDER
     cpu_jobs = [j for ph in phases for j in cpu_ref_jobs(ph)]
-    cards = [j for ph in phases for j in card_jobs(ph)]
+    cards = [j for ph in CARD_JOB_ORDER if ph in phases
+             for j in card_jobs(ph)]
     spawn = multiprocessing.get_context("spawn")
     try:
         for ph in phases:
@@ -5064,6 +5444,7 @@ def main() -> int:
         recorded.append(results["chaos"]["recorded"])
         recorded.append(results["measure"]["recorded"])
         recorded.append(results["journal"]["recorded"])
+        recorded.append(results["guards"]["recorded"])
         log({"kernels": [{
             "name": "propose", "route": "cuda",
             "source": "kubetpu_torch/ops/csrc/propose.cu",
@@ -5090,7 +5471,9 @@ def main() -> int:
             "measure_real_launch":
                 results["measure"]["recorded"]["real_launch"],
             "journal_replay_real_launch":
-                results["journal"]["recorded"]["real_launch"]}]})
+                results["journal"]["recorded"]["real_launch"],
+            "guards_real_launch":
+                results["guards"]["recorded"]["real_launch"]}]})
     print(card, flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

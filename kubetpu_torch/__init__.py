@@ -7,10 +7,23 @@ config)`` with ``.schedule_pending()`` or ``.run()``, and ``python -m
 kubetpu_torch``, on a CUDA device unless the caller passes
 ``device="cpu"`` (``--device cpu``).
 
-Importing the package arms the cycle flight recorder iff
-``KUBETPU_FLIGHT=1`` (utils/trace.py); off, the import touches nothing.
+Importing the package arms the opt-in runtime harnesses, as the JAX
+package's import does:
+
+* ``KUBETPU_SANITIZE=1`` (utils/sanitize.py): the NaN and
+  rank-promotion checks of every aten op and the compile-count watchdog;
+* ``KUBETPU_RACE=1`` (utils/racecheck.py): instrumented locks (order and
+  hold-time enforcement) and guarded-attribute mutation checks for the
+  threaded host path;
+* ``KUBETPU_FLIGHT=1`` (utils/trace.py): the cycle flight recorder.
+
+Off (the default) the import touches nothing.
 """
 
+from .utils.racecheck import maybe_enable_from_env as _maybe_racecheck
+from .utils.sanitize import maybe_enable_from_env as _maybe_sanitize
 from .utils.trace import maybe_arm_from_env as _maybe_flight
 
+_maybe_sanitize()
+_maybe_racecheck()
 _maybe_flight()

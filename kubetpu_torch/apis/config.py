@@ -8,8 +8,9 @@ apis/load.py.  The JAX package's serving-runtime knobs are here with its
 defaults (leader election, the metrics and health addresses, the dispatch
 deadline, bind retries, prewarm, the pipelined drain, the device mesh),
 and the XLA bucket ladder ``prewarm_ladder`` has no torch counterpart
-(ROADMAP queue 1 item 11, with the AOT, compilation-cache and
-sanitizer decisions).
+(eager torch compiles nothing per shape; the kernel libraries that are
+compiled are cached by utils/compilation.py and shipped as deploy-time
+artifacts by utils/aot.py).
 """
 
 from __future__ import annotations

@@ -467,7 +467,8 @@ def nominated_fit_mask(cluster, batch, nom):
         j = member[r]
         js = j.clamp(min=0)
         take = w[:, js] & (j >= 0)[None, :]                         # [B, M]
-        overlay = overlay + take.to(torch.float32)[..., None] * nom.req[js]
+        overlay = overlay + (take.to(torch.float32)[..., None]
+                             * nom.req[js][None, :, :])
     rows = nom.node.long().clamp(0, N - 1)
     free = cluster.allocatable[rows] - cluster.requested[rows]       # [M, R]
     ok = K.fit_rows(batch.req[:, None, :].expand(overlay.shape),

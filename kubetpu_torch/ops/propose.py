@@ -37,6 +37,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from . import kernels as K
+from ..utils import sanitize as _usanitize
 from ..models.programs import DEFAULT_SCORE_PLUGINS
 from ..state.tensors import CH_CPU, CH_MEM
 
@@ -479,9 +480,12 @@ def bind_propose(bundle, rows, live, req, nz, ports_used):
 
 
 def propose_cuda(bundle, rows, live, req, nz, ports_used):
-    """Launch the CUDA kernel on the current stream (no sync)."""
+    """Launch the CUDA kernel on the current stream (no sync).  With the
+    sanitizer armed, its floating output (best) goes through the NaN
+    check, which the dispatch mode cannot apply to a ctypes launch."""
     launch, out = bind_propose(bundle, rows, live, req, nz, ports_used)
     launch()
+    _usanitize.check_outputs("propose", out[2])
     return out
 
 

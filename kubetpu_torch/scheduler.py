@@ -44,9 +44,7 @@ A Permit plugin that answers Wait needs ``async_binding=True``: the bind
 cycle then runs on a pool of binder threads (``wait_for_inflight_binds``).
 Placements do not depend on this setting.  A bind that fails with a
 transport error retries on the pod backoff ladder (``bind_retries``),
-each attempt first asking the store whether the bind landed.  Deferred:
-the JAX runtime's racecheck, AOT, compilation-cache and sanitizer
-utilities (ROADMAP queue 1 item 11).
+each attempt first asking the store whether the bind landed.
 
 HTTP extenders (extender.py): with any configured, each cycle pops ONE
 pod, as the reference's scheduleOne, and never takes the pipelined
@@ -76,6 +74,17 @@ the cycle tick in ``_prepare_group``, the timed dispatch, the settle
 after the readback, the residency ledger of the resident and the
 chain).  ``device_flops`` sums the analytic FLOPs of every gang cycle
 (utils/flops.py).
+
+The guard rails (each disarmed by default): the kernel-library cache
+(utils/compilation.py, chosen at construction, ``KUBETPU_KERNEL_CACHE_DIR``),
+deploy-time kernel artifacts (utils/aot.py, ``KUBETPU_AOT_DIR`` armed at
+construction and preloaded by ``prewarm``; a recovered dispatch fault
+disarms them, the aot->build rung), the sanitizer (utils/sanitize.py,
+``KUBETPU_SANITIZE=1``: the NaN and rank-promotion checks on the thread of
+``schedule_pending``, ``flush_pipeline`` and ``prewarm``, the card's NaN
+index read at the cycle's readback) and the race harness
+(utils/racecheck.py, ``KUBETPU_RACE=1``: ``Scheduler._chain_lock`` guards
+``_chain`` and ``_chain_seq``).
 
 A cycle has the reference's seams: ``_prepare_group`` (host work up to
 the dispatch), ``_dispatch_group`` (the device program, the packed copy
@@ -143,11 +152,14 @@ from .state import volumes as vstate
 from .state.cache import SchedulerCache, Snapshot
 from .state.delta import DeltaTensorizer
 from .state.tensors import SnapshotBuilder, vocab_signature
+from .utils import aot as uaot
 from .utils import chaos as uchaos
+from .utils import compilation as ucompilation
 from .utils import devstats as udevstats
 from .utils import journal as ujournal
 from .utils import pallas_backend as PB
 from .utils import prng
+from .utils import sanitize as usanitize
 from .utils import slo as uslo
 from .utils import telemetry as utelemetry
 from .utils import trace as utrace
@@ -234,16 +246,18 @@ RECORDERS_KEY = "kubetpu_torch/recorders"
 
 
 def _copy_to_host(packed: torch.Tensor):
-    """(host tensor, event): a card tensor is copied into pinned host
-    memory without blocking, with an event recorded after the copy; a
-    CPU tensor is its own host copy."""
+    """(host tensor, event, sanitizer probe): a card tensor is copied
+    into pinned host memory without blocking, with an event recorded
+    after the copy (and after the armed sanitizer's copy of its NaN
+    index, usanitize.stage_probe); a CPU tensor is its own host copy."""
     if not packed.is_cuda:
-        return packed, None
+        return packed, None, None
     host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
     host.copy_(packed, non_blocking=True)
+    probe = usanitize.stage_probe()
     event = torch.cuda.Event()
     event.record()
-    return host, event
+    return host, event, probe
 
 
 class Scheduler:
@@ -261,11 +275,17 @@ class Scheduler:
                  registry=None, device: DeviceLike = None,
                  async_binding: bool = False, seed: int = 0, metrics=None,
                  recorder=None):
+        # the kernel-library cache directory (a first call, by the
+        # embedding application, wins), and KUBETPU_AOT_DIR: deploy-time
+        # kernel artifacts, which prewarm loads instead of running nvcc
+        ucompilation.enable_persistent_cache()
+        uaot.maybe_arm_from_env()
         # KUBETPU_CHAOS / KUBETPU_SLO / KUBETPU_JOURNAL / KUBETPU_DEVSTATS
         # / KUBETPU_TELEMETRY arm those (the flight recorder's
-        # KUBETPU_FLIGHT is read once, at the package's import); disarmed
-        # (the default) every seam is one attribute read and the hot path
-        # takes zero new locks
+        # KUBETPU_FLIGHT, the sanitizer's KUBETPU_SANITIZE and the race
+        # harness's KUBETPU_RACE are read once, at the package's import);
+        # disarmed (the default) every seam is one attribute read and the
+        # hot path takes zero new locks
         uchaos.maybe_arm_from_env()
         uslo.maybe_arm_from_env()
         ujournal.maybe_arm_from_env()
@@ -559,7 +579,13 @@ class Scheduler:
         kubetpu/scheduler.py:1225): nothing popped is lost.  With
         ``pipeline_cycles`` in gang mode with the chain on, the depth-k
         executor runs instead (pipeline.py): outcomes lag up to depth - 1
-        cycles, and ``flush_pipeline`` returns the rest."""
+        cycles, and ``flush_pipeline`` returns the rest.  The armed
+        sanitizer checks the cycle's ops on this thread."""
+        with usanitize.thread_scope():
+            return self._schedule_pending(max_batch, timeout)
+
+    def _schedule_pending(self, max_batch: Optional[int],
+                          timeout: float) -> List[ScheduleOutcome]:
         # telemetry tick seam: disarmed this is ONE attribute read; armed,
         # one float compare, and a roll once per window
         tel = utelemetry.ring()
@@ -597,7 +623,8 @@ class Scheduler:
     def flush_pipeline(self) -> List[ScheduleOutcome]:
         """reference: kubetpu/scheduler.py:551 — commit every in-flight
         pipelined cycle, oldest first."""
-        return self._pipeline.flush()
+        with usanitize.thread_scope():
+            return self._pipeline.flush()
 
     def _requeue_unsettled(self, qpods: List[QueuedPodInfo]) -> None:
         """reference: kubetpu/scheduler.py:1275-1284 — each pod with no
@@ -1033,7 +1060,7 @@ class Scheduler:
         device->host readback: wait for the packed [3B+1] copy.  The wait
         is the cycle's device-wait (``device_wait_s``, the readback span's
         ``device_wait_s`` and the SLO device stage)."""
-        host, event = res
+        host, event, probe = res
         with prep.trace.stage("packed-readback") as sp:
             t_dev = wallclock()
             if event is not None:
@@ -1056,6 +1083,8 @@ class Scheduler:
                     ds.settle()
                 if sp is not None and sample.seconds is not None:
                     sp.args["device_time_s"] = round(sample.seconds, 6)
+        # the sanitizer's NaN index, copied before the event just waited on
+        usanitize.check_probe(probe)
         return host.numpy()
 
     def _readback_guarded(self, prep: "PreparedCycle", res):
@@ -1613,11 +1642,17 @@ class Scheduler:
         next two cycles are exempt from the deadline.  Unlike the
         reference, the kernel route is kept: the port never hands a
         cycle to the plain round because the kernel path failed
-        (utils/pallas_backend.demote is the operator's alone).  Never
-        raises."""
+        (utils/pallas_backend.demote is the operator's alone), so the
+        one rung a fault demotes is an armed AOT runtime's (aot->build,
+        the reference's aot->trace): its libraries build from source
+        from then on.  Never raises."""
         logging.getLogger("kubetpu_torch").warning(
             "cycle recovery (%s): %s; %d pods requeued", kind, reason,
             len(prep.live))
+        demoted = []
+        if uaot.active_runtime() is not None:
+            uaot.disarm(reason="%s: %s" % (kind, reason[:200]))
+            demoted.append("aot->build")
         with self._chain_lock:
             self._chain = None
             self._chain_seq += 1
@@ -1633,16 +1668,18 @@ class Scheduler:
         # paces the retry
         self.queue.move_all_to_active_or_backoff_queue("DispatchRecovery")
         self._deadline_grace = 2
-        self.recovery_log.append(
-            {"kind": kind, "reason": reason, "pods": len(prep.live),
-             "cycle": self.cycle_count})
+        entry = {"kind": kind, "reason": reason, "pods": len(prep.live),
+                 "cycle": self.cycle_count}
+        if demoted:
+            entry["demoted"] = demoted
+        self.recovery_log.append(entry)
         if self.metrics is not None:
             self.metrics.recoveries.inc(kind)
         if prep.trace.rec is not None:
-            # the incident instant on the cycle's record (the port never
-            # demotes, so it is always a "dispatch-recovery")
-            prep.trace.rec.event("dispatch-recovery", kind=kind,
-                                 reason=reason[:256], demoted="")
+            # the incident instant on the cycle's record
+            prep.trace.rec.event(
+                "backend-demotion" if demoted else "dispatch-recovery",
+                kind=kind, reason=reason[:256], demoted=",".join(demoted))
         err = f"dispatch recovered ({kind}): pod requeued"
         return [ScheduleOutcome(pod=qp.pod, node="", err=err)
                 for qp in prep.live]
@@ -2259,7 +2296,16 @@ class Scheduler:
         program once on the current cluster with a synthetic batch, so
         the first served cycle pays neither nvcc nor first allocations.
         Nothing is assumed, bound or queued, and no cycle key is drawn.
+        With a serve-mode AOT runtime armed (KUBETPU_AOT_DIR) the kernel
+        libraries load from their artifacts first (_prewarm_aot).
         Returns True if a program ran."""
+        with usanitize.thread_scope():
+            return self._prewarm()
+
+    def _prewarm(self) -> bool:
+        rt = uaot.active_runtime()
+        if rt is not None and rt.mode == "serve":
+            self._prewarm_aot(rt)
         if self.device.type == "cuda" and self.config.mode == "gang" \
                 and self.config.kernel_backend == "pallas":
             load_propose()
@@ -2320,6 +2366,34 @@ class Scheduler:
         if fr_rec is not None:
             fr.commit_cycle(fr_rec)
         return True
+
+    def _prewarm_aot(self, rt) -> None:
+        """reference: kubetpu/scheduler.py:2606 — install and load every
+        kernel library the armed runtime's index carries
+        (utils/aot.AotRuntime.preload), on a "prewarm" flight span of
+        mode "aot-artifact" with its seconds and count loaded.  A library
+        whose artifact failed counts recoveries{aot-fallback} and builds
+        from source at its first use."""
+        fr = utrace.flight_recorder()
+        fr_rec = fr.begin_cycle("prewarm") if fr is not None else None
+        t0 = wallclock()
+        with (fr_rec.span("prewarm", mode="aot-artifact")
+              if fr_rec is not None else contextlib.nullcontext()) as sp:
+            report = rt.preload()
+            if sp is not None:
+                sp.args["seconds"] = round(wallclock() - t0, 4)
+                sp.args["loaded"] = sum(1 for r in report if r["ok"])
+        if fr_rec is not None:
+            fr_rec.meta["aot"] = rt.stats()
+            fr.commit_cycle(fr_rec)
+        loaded = sum(1 for r in report if r["ok"])
+        failed = len(report) - loaded
+        if failed and self.metrics is not None:
+            self.metrics.recoveries.inc("aot-fallback", amount=failed)
+        logging.getLogger("kubetpu_torch").info(
+            "prewarm: %d kernel artifacts loaded in %.2fs (%d failed, "
+            "built from source at first use)", loaded, wallclock() - t0,
+            failed)
 
     def run(self) -> Optional[threading.Thread]:
         """reference: kubetpu/scheduler.py:2733 (scheduler.go:339 Run) —

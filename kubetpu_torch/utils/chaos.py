@@ -32,11 +32,10 @@ Injection points threaded through the port:
                  record truncated mid-write, or a flipped payload byte
                  (each a counted drop or a skip at read time, never a
                  failed cycle)
-
-``POINTS`` also keeps the JAX package's ``aot-load`` point, so any spec
-that arms the JAX package arms the port; it has no site in the port yet
-(the port has no AOT artifacts: the AOT decision is ROADMAP queue 1 item
-11), so armed it never fires.
+  ``aot-load``   utils/aot.AotStore.load: truncate a kernel-library
+                 artifact's bytes (its sha256 check fails: a counted miss,
+                 recoveries{aot-fallback} at prewarm, and the library
+                 builds from source)
 
 Arming: ``KUBETPU_CHAOS=<spec>`` at Scheduler construction (read by
 ``maybe_arm_from_env``), or programmatically (``arm(registry)``) for
@@ -73,7 +72,7 @@ ENV = "KUBETPU_CHAOS"
 POINTS: Dict[str, Tuple[str, ...]] = {
     "dispatch": ("error", "stall"),
     "delta": ("drop", "corrupt"),
-    "aot-load": ("corrupt",),     # no site in the port
+    "aot-load": ("corrupt",),
     "bind": ("error",),
     "extender": ("error",),
     "rest": ("error",),

@@ -97,8 +97,9 @@ def random_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     n = 1
     for d in shape:
         n *= int(d)
-    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
     lead = keys.shape[:-1]
+    idx = torch.arange(n, dtype=torch.int64,
+                       device=keys.device).reshape((1,) * len(lead) + (n,))
     k1 = keys[..., 0].reshape(lead + (1,))
     k2 = keys[..., 1].reshape(lead + (1,))
     b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & _M32)
