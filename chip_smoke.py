@@ -185,10 +185,16 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
   resident   the resident cluster under churn (resident_world: nodes
              with three 900m fillers each, waves of 900m pods and 2,000m
              preemptors that must evict, and cluster events between
-             cycles: external binds, deletions, node label updates, a new
-             taint, a node added): 5,000 nodes gang under "pallas" (batch
-             500, chained cycles and delta refreshes, K1 counted and
-             every launch held against the plain version) and
+             cycles: external binds, deletions, node label updates, a
+             new taint, a node added; then, with one 6,000m pod parked
+             in the unschedulable queue, a heartbeat wave — an
+             annotation-only update of every node, which must leave the
+             queue's depths as they were — and node-0's resize, which
+             must move the pod; the wave's cycle refreshes by a delta,
+             its rows and tensorize seconds reported): 5,000 nodes
+             gang under "pallas" (batch 500, chained cycles and delta
+             refreshes, K1 counted and every launch held against the
+             plain version) and
              sequential (batch 100), after every refresh verify() (the
              card's resident fingerprint against the host mirror's)
              holding; the same sequence at 1,000 nodes in both modes on
@@ -2106,10 +2112,12 @@ def resident_world(n_nodes, batch, waves, seed=8):
     pod; ``waves`` x
     ``batch`` pending 900m pods of priority 0, and batch // 2 preemptors
     of 2,000m at priority 100, which fit nowhere until a filler is
-    evicted.  Returns (store, pods, churn): churn(cycle, store) applies
+    evicted.  churn(cycle, store) applies
     the cluster events before a cycle — external binds, pod deletions,
     node label updates, one new taint (inside the taint vocabulary's
-    cap), one node added — the same on every device."""
+    cap), one node added — the same on every device.  One more pod of
+    6,000m fits nowhere until release(store) resizes node-0.  Returns
+    (store, pods, churn, release)."""
     import copy
     import random
     from kubetpu_torch.api import types as api
@@ -2136,6 +2144,12 @@ def resident_world(n_nodes, batch, waves, seed=8):
     pods += [hollow.make_pod(f"pre{i}", cpu_milli=2000, mem=250 << 20,
                              priority=100, labels={"group": "preemptor"})
              for i in range(batch // 2)]
+    # a pod larger than any node, at the lowest priority: it is tried
+    # last, waits in the unschedulable queue once a cycle binds nothing
+    # else, and fits when release() resizes node-0
+    pods.append(hollow.make_pod("awaits-resize", cpu_milli=6000,
+                                mem=250 << 20, priority=-20,
+                                labels={"group": "awaits-resize"}))
     for p in pods:
         p.metadata.uid = "u-" + p.metadata.name
     r = random.Random(seed)
@@ -2169,7 +2183,56 @@ def resident_world(n_nodes, batch, waves, seed=8):
         elif cycle == 7:                    # the node set changes
             store.add(hollow.make_node(f"node-{n_nodes}", zone="zone-0",
                                        region="region-0"))
-    return store, pods, churn
+
+    def release(store):
+        # an allocatable change: the scheduler reads it, so it moves the
+        # unschedulable queue
+        n = copy.deepcopy(store.get("Node", "node-0"))
+        n.status.allocatable["cpu"] = n.status.capacity["cpu"] = "16000m"
+        store.update(n)
+    return store, pods, churn, release
+
+
+def heartbeat_wave(sched, store, release) -> dict:
+    """One annotation-only update of every node, as kubelets' status
+    heartbeats post them, while a pod waits in the unschedulable queue:
+    nothing the scheduler reads changes, so the queue's depths must not
+    move, and no update may ask the queue to move its unschedulable pods
+    (kubetpu/scheduler.py:432-436).  Then release(store), a change the
+    scheduler reads, must ask for one move.  Returns the node count, the
+    wave's host seconds and the depths before it."""
+    import copy
+    q = sched.queue
+    moves = []
+    orig_move = q.move_all_to_active_or_backoff_queue
+
+    def move(event):
+        moves.append(event)
+        return orig_move(event)
+    before = q.depths()
+    if not before["unschedulable"]:
+        raise AssertionError("heartbeat wave: no pod waits (%s)" % before)
+    q.move_all_to_active_or_backoff_queue = move
+    try:
+        t0 = time.perf_counter()
+        nodes = store.list("Node")
+        for n in nodes:
+            n = copy.deepcopy(n)
+            n.metadata.annotations["node.alpha.kubernetes.io/heartbeat"] = "1"
+            store.update(n)
+        wave_s = time.perf_counter() - t0
+        after = q.depths()
+        if after != before or moves:
+            raise AssertionError("heartbeat wave: an annotation-only node "
+                                 "update moved the queue (%s -> %s, %d "
+                                 "moves)" % (before, after, len(moves)))
+        release(store)
+    finally:
+        del q.move_all_to_active_or_backoff_queue
+    if moves != ["NodeUpdate"]:
+        raise AssertionError("heartbeat wave: the resize asked for %s"
+                             % moves)
+    return dict(nodes=len(nodes), wave_s=wave_s, depths=before)
 
 
 class RefreshProbe:
@@ -2223,13 +2286,16 @@ def resident_drain(n_nodes, batch, waves, backend, device, digest=False,
     and every refresh verified.  record: a list that receives every
     propose launch as (inputs, outputs), cloned, for check_recorded.
     mesh_shape: the configuration's device mesh (no GangRounds then).
+    At the first cycle that finds a pod in the unschedulable queue, a
+    heartbeat_wave, reported with that cycle's refresh (a delta) and
+    tensorize seconds as ``heartbeat``.
     Returns (placements, deleted, report, refresh records)."""
     from kubetpu_torch.apis.config import (KubeSchedulerConfiguration,
                                            KubeSchedulerProfile)
     from kubetpu_torch.ops import propose as PK
     from kubetpu_torch.scheduler import Scheduler, capacity_violations
     import torch
-    store, pods, churn = resident_world(n_nodes, batch, waves)
+    store, pods, churn, release = resident_world(n_nodes, batch, waves)
     cfg = KubeSchedulerConfiguration(profiles=[KubeSchedulerProfile()],
                                      batch_size=batch, mesh_shape=mesh_shape)
     if backend is not None:
@@ -2257,10 +2323,22 @@ def resident_drain(n_nodes, batch, waves, backend, device, digest=False,
         with RefreshProbe(digest) as probe, guard:
             t0 = time.perf_counter()
             cycle = idle = 0
+            beat = beat_cycle = None
             while len(sched.queue) and cycle < 40:
+                if beat is None and sched.queue.depths()["unschedulable"]:
+                    beat, beat_cycle = heartbeat_wave(sched, store,
+                                                      release), cycle
                 churn(cycle, store)
                 sched.queue.flush_backoff_completed()
+                tz = sched.stage_s["tensorize"]
                 out = sched.schedule_pending()
+                if cycle == beat_cycle:
+                    st = sched._last_refresh
+                    beat.update(
+                        cycle=cycle,
+                        tensorize_s=sched.stage_s["tensorize"] - tz,
+                        source=sched.cluster_sources[-1],
+                        delta_rows=None if st is None else st.delta_rows)
                 cycle += 1
                 if out:
                     idle = 0
@@ -2294,8 +2372,15 @@ def resident_drain(n_nodes, batch, waves, backend, device, digest=False,
         if want not in sources:
             raise AssertionError("%s: no %r cycle (%s)" % (what, want,
                                                            sources))
+    if beat is None:
+        raise AssertionError("%s: no pod waited for the heartbeat wave"
+                             % what)
+    if beat["source"] != "delta":
+        raise AssertionError("%s: the heartbeat wave's cycle refreshed by "
+                             "%r" % (what, beat["source"]))
     report = dict(cycles=sched.cycle_count, evicted=len(deleted),
-                  verified=probe.verified, **resident_report(sched, seconds))
+                  verified=probe.verified, heartbeat=beat,
+                  **resident_report(sched, seconds))
     if card:
         report["launches"] = PK.propose.launches
     return placements_of(store), deleted, report, probe.records

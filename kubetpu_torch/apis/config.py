@@ -107,8 +107,8 @@ class KubeSchedulerConfiguration:
     # reference: types.go:85 DisablePreemption — off, a pod that fits
     # nowhere is requeued without the PostFilter (no evictions)
     disable_preemption: bool = False
-    # reference: types.go:72 Extenders — decoded and validated; a
-    # Scheduler refuses them (ROADMAP queue 1 item 8)
+    # reference: types.go:72 Extenders — a Scheduler calls each one per
+    # pod (extender.py), and a cycle then pops one pod
     extenders: List[Any] = field(default_factory=list)
     batch_size: int = 256        # pods per device batch (the B axis)
     # "sequential": the serial replay of scheduleOne over the batch
@@ -155,3 +155,10 @@ class KubeSchedulerConfiguration:
     # the most cycles in flight at once; 1 = synchronous.  Env override:
     # KUBETPU_PIPELINE_DEPTH
     pipeline_depth: int = 2
+
+    def profile_for(self, name: str) -> Optional[KubeSchedulerProfile]:
+        """The profile whose scheduler_name is ``name``, or None."""
+        for p in self.profiles:
+            if p.scheduler_name == name:
+                return p
+        return None

@@ -114,6 +114,14 @@ class CycleState:
     def delete(self, key: str) -> None:
         self._data.pop(key, None)
 
+    def clone(self) -> "CycleState":
+        """reference: cycle_state.go:71 Clone — each value that has a
+        ``clone`` is cloned, the rest are shared."""
+        c = CycleState()
+        for k, v in self._data.items():
+            c._data[k] = v.clone() if hasattr(v, "clone") else v
+        return c
+
 
 # ---------------------------------------------------------------------------
 # plugin interfaces (reference: interface.go:228-396)
@@ -127,6 +135,12 @@ class Plugin:
 
 
 class QueueSortPlugin(Plugin):
+    def less(self, a, b) -> bool:
+        """reference: interface.go:236 Less.  The queue orders by
+        ``sort_key``; ``less`` is the plugin's comparison for callers of
+        Framework.queue_sort_less."""
+        raise NotImplementedError
+
     def sort_key(self, qp) -> tuple:
         """Total-order key of the queue's less-func, taken at enqueue."""
         raise NotImplementedError

@@ -154,6 +154,10 @@ class Framework:
                 out.append((name, ka(table)))
         return tuple(out)
 
+    def queue_sort_less(self, a, b) -> bool:
+        # reference: framework.go:358 QueueSortFunc (exactly one plugin)
+        return self.queue_sort_plugins[0].less(a, b)
+
     def queue_sort_key(self, qp) -> tuple:
         return self.queue_sort_plugins[0].sort_key(qp)
 

@@ -12,7 +12,7 @@ incremental snapshotting (reference: types.go:208).  The tensor snapshot
 from __future__ import annotations
 
 import itertools
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Set, Tuple
 
 from ..api import types as api
@@ -206,6 +206,11 @@ class QueuedPodInfo:
     # pod: requeued pods retry, and re-recording every failing cycle
     # would multi-count the pod in the sketches
     slo_unres_observed: bool = False
+
+    def deep_copy(self) -> "QueuedPodInfo":
+        """reference: types.go:60 DeepCopy — a new record over the same
+        pod."""
+        return replace(self)
 
 
 # ---------------------------------------------------------------------------

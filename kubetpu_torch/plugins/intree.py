@@ -23,6 +23,9 @@ class PrioritySort(fw.QueueSortPlugin):
     """reference: queuesort/priority_sort.go:40-45."""
     NAME = "PrioritySort"
 
+    def less(self, a, b) -> bool:
+        return self.sort_key(a) < self.sort_key(b)
+
     def sort_key(self, qp) -> tuple:
         return (-qp.pod.priority(), qp.timestamp)
 

@@ -470,10 +470,7 @@ class Scheduler:
                     self.queue.delete(old)
                     self.queue.assigned_pod_added(new)
                 elif new.spec.node_name:
-                    try:
-                        self.cache.update_pod(old, new)
-                    except ValueError:
-                        self._add_pod_to_cache(new)
+                    self._update_pod_in_cache(old, new)
                     self._mark_chain_dirty()
                     self.queue.assigned_pod_updated(new)
                 elif (self._responsible(new)
@@ -502,7 +499,9 @@ class Scheduler:
             elif event == "update":
                 self.cache.update_node(old, new)
                 self._mark_chain_dirty()
-                self.queue.move_all_to_active_or_backoff_queue("NodeUpdate")
+                if self._node_scheduling_properties_changed(old, new):
+                    self.queue.move_all_to_active_or_backoff_queue(
+                        "NodeUpdate")
             elif event == "delete":
                 try:
                     self.cache.remove_node(old)
@@ -551,6 +550,12 @@ class Scheduler:
         except ValueError:
             pass
 
+    def _update_pod_in_cache(self, old: api.Pod, new: api.Pod) -> None:
+        try:
+            self.cache.update_pod(old, new)
+        except ValueError:
+            self._add_pod_to_cache(new)
+
     def _responsible(self, pod: api.Pod) -> bool:
         return pod.spec.scheduler_name in self.profiles
 
@@ -562,6 +567,17 @@ class Scheduler:
         return (old.spec == new.spec
                 and old.metadata.labels == new.metadata.labels
                 and old.metadata.annotations == new.metadata.annotations)
+
+    @staticmethod
+    def _node_scheduling_properties_changed(old: api.Node,
+                                            new: api.Node) -> bool:
+        """reference: eventhandlers.go:471 — the JAX package's four
+        comparisons (kubetpu/scheduler.py:510-516); upstream also compares
+        conditions, which neither package reads."""
+        return (old.spec.unschedulable != new.spec.unschedulable
+                or old.metadata.labels != new.metadata.labels
+                or old.spec.taints != new.spec.taints
+                or old.status.allocatable != new.status.allocatable)
 
     # ------------------------------------------------------------------ cycle
 
@@ -596,12 +612,24 @@ class Scheduler:
             # an extender is a per-pod HTTP round trip: the reference's
             # serial semantics (scheduler.go:510 pops one pod)
             max_batch = 1
-        self._settled = set()
         if (self.config.pipeline_cycles and not self.extenders
                 and self.config.mode == "gang" and self.config.chain_cycles):
+            self._settled = set()
             return self._pipeline.drain(max_batch, timeout)
-        start = wallclock()
         qpods = self.queue.pop_batch(max_batch, timeout=timeout)
+        if not qpods:
+            return []
+        return self._schedule_batch(qpods)
+
+    def _schedule_batch(self, qpods: List[QueuedPodInfo]
+                        ) -> List[ScheduleOutcome]:
+        """reference: kubetpu/scheduler.py:557-572 — schedule popped pods,
+        one device program per profile in order of first appearance,
+        skipping deleted and assumed pods (_skip_pod_schedule), and observe
+        the cycle.  A raising group requeues every pod without an
+        outcome."""
+        start = wallclock()
+        self._settled = set()
         by_profile: Dict[str, List[QueuedPodInfo]] = {}
         for qp in qpods:
             if not self._skip_pod_schedule(qp.pod):
@@ -616,7 +644,7 @@ class Scheduler:
             self._requeue_unsettled(
                 [qp for group in by_profile.values() for qp in group])
             raise
-        if self.metrics and outcomes:
+        if self.metrics:
             self.metrics.observe_cycle(len(outcomes), wallclock() - start)
         return outcomes
 

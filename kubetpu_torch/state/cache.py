@@ -376,3 +376,15 @@ class SchedulerCache:
         if t is not None and t.is_alive():
             t.join(timeout=2.0)
         self._thread = None
+
+    def dump(self) -> Dict[str, object]:
+        """reference: internal/cache/debugger/dumper.go — each node's pod
+        names and generation, and the assumed pods."""
+        with self._lock:
+            return {
+                "nodes": {n: {"pods": [p.pod.metadata.name
+                                       for p in it.info.pods],
+                              "generation": it.info.generation}
+                          for n, it in self.nodes.items()},
+                "assumed_pods": list(self.assumed_pods),
+            }

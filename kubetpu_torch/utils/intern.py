@@ -12,7 +12,7 @@ so they match the JAX package's buckets exactly.
 
 from __future__ import annotations
 
-from typing import Dict, Hashable, List
+from typing import Dict, Hashable, List, Tuple
 
 
 def pow2_bucket(n: int, minimum: int = 8) -> int:
@@ -92,3 +92,10 @@ class InternTable:
         self.zone = Vocab("zone")    # GetZoneKey strings (region:zone)
         self.avoid = Vocab("avoid")  # (controller kind, uid) pairs from
                                      # preferAvoidPods annotations
+
+    def intern_labels(self, labels: Dict[str, str]
+                      ) -> Tuple[List[int], List[int]]:
+        """Intern a label map; returns (kv ids, key ids)."""
+        kv_ids = [self.kv.intern((k, v)) for k, v in labels.items()]
+        key_ids = [self.key.intern(k) for k in labels.keys()]
+        return kv_ids, key_ids
